@@ -55,3 +55,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "smoke: <2 min tier, one fast test per layer "
         "(pytest -m smoke)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's hand-written "
+        "kernels); skips without one")
