@@ -191,6 +191,35 @@ def _grid(nx, ny, nz, device):
     return gx.reshape(-1), gy.reshape(-1), gz.reshape(-1)
 
 
+class StencilAddr(NamedTuple):
+    """Per-query stencil addressing (counterpart of the archived kernel's
+    `prepare_queries`, scripts/pallas_assoc.py:76-109)."""
+
+    v: torch.Tensor      # (M, 3) int32 fine-voxel coords of the query
+    sv: torch.Tensor     # (M, S, 3) int32 superrow coords of the window
+    slot: torch.Tensor   # (M, S) int32 torus slot of each superrow
+    key: torch.Tensor    # (M, S) f32 expected epoch key
+
+
+def stencil_addresses(q, cfg) -> StencilAddr:
+    """Voxel, superrow, slot and key addressing of each query's stencil
+    window.  The float floor/division stays here, shared by the plain path
+    and the association kernel: a voxel index one ulp off is another
+    cell."""
+    px, py, pz = _pack(cfg)
+    nbx, nby, nbz = _super_window(cfg)
+    v = _voxel_coords(q, cfg)
+    sx0 = _fdiv(v[:, 0] - cfg.stencil_x, px)
+    sy0 = _fdiv(v[:, 1] - cfg.stencil_y, py)
+    sz0 = _fdiv(v[:, 2] - cfg.stencil_z, pz)
+    ox, oy, oz = _grid(nbx, nby, nbz, q.device)
+    sv = torch.stack([sx0[:, None] + ox[None, :],
+                      sy0[:, None] + oy[None, :],
+                      sz0[:, None] + oz[None, :]], dim=-1).to(torch.int32)
+    slot, key = _super_decompose(sv, cfg)
+    return StencilAddr(v, sv, slot, key)
+
+
 def query_candidates(vm: VoxelMap, q, mask, cfg):
     """Stencil candidate block for each query point — no selection.
 
@@ -200,20 +229,11 @@ def query_candidates(vm: VoxelMap, q, mask, cfg):
     if getattr(cfg, "dedup_gather", False):
         raise NotImplementedError("MapConfig.dedup_gather is not ported")
     px, py, pz = _pack(cfg)
-    nbx, nby, nbz = _super_window(cfg)
     cpr = _cpr(cfg)
     dtype = q.dtype
     dev = q.device
 
-    v = _voxel_coords(q, cfg)
-    sx0 = _fdiv(v[:, 0] - cfg.stencil_x, px)
-    sy0 = _fdiv(v[:, 1] - cfg.stencil_y, py)
-    sz0 = _fdiv(v[:, 2] - cfg.stencil_z, pz)
-    ox, oy, oz = _grid(nbx, nby, nbz, dev)
-    sv = torch.stack([sx0[:, None] + ox[None, :],
-                      sy0[:, None] + oy[None, :],
-                      sz0[:, None] + oz[None, :]], dim=-1).to(torch.int32)
-    slot, key = _super_decompose(sv, cfg)
+    v, sv, slot, key = stencil_addresses(q, cfg)
     rows = vm.cells[slot.to(torch.int64)]                   # (M,S,4cpr)
     sum_x = rows[..., 0:cpr]
     sum_y = rows[..., cpr:2 * cpr]

@@ -8,8 +8,9 @@ deferred map inserts, and the IMU-init bookkeeping.  The reference's
 `lax.cond`s on per-sequence flags are Python branches here (one host read
 each); everything else keeps the reference's select-based form.
 
-Only the default path is ported: the off-default options listed in
-`_check_supported` raise NotImplementedError.
+The default path and `config.faithful_config()` are ported; the other
+off-default options listed in `_check_supported` raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -113,10 +114,6 @@ def _check_supported(cfg):
         bad.append(f"imu_mode={cfg.imu_mode}")
     if cfg.use_nonfeature:
         bad.append("use_nonfeature=True")
-    if not cfg.predict_full_kinematics:
-        bad.append("predict_full_kinematics=False")
-    if cfg.solver.local_map_move_gate:
-        bad.append("solver.local_map_move_gate=True")
     for name in ("map", "local_map"):
         m = getattr(cfg, name)
         if m.dedup_gather:
@@ -381,13 +378,20 @@ def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
         x_prev[9:12], x_prev[12:15], cfg.imu)
     dq_gyro = preintegration.gyro_integrate(scan.imu_gyr, scan.imu_dt,
                                             scan.imu_mask)
+    # post-init: preintegration prediction, with the velocity and gravity
+    # terms only under cfg.predict_full_kinematics (the reference omits
+    # them, unionPoseEstimation.cpp:806-817)
     q_pred_full = lie.quat_normalize(lie.quat_mul(q_prev, pre.dq))
-    dt_scan = pre.dtime.to(dtype)
-    p_pred_full = (p_prev + x_prev[6:9] * dt_scan
-                   + 0.5 * state.gravity * dt_scan * dt_scan
-                   + lie.quat_rotate(q_prev, pre.dp))
-    v_pred_full = (x_prev[6:9] + state.gravity * dt_scan
-                   + lie.quat_rotate(q_prev, pre.dv))
+    if cfg.predict_full_kinematics:
+        dt_scan = pre.dtime.to(dtype)
+        p_pred_full = (p_prev + x_prev[6:9] * dt_scan
+                       + 0.5 * state.gravity * dt_scan * dt_scan
+                       + lie.quat_rotate(q_prev, pre.dp))
+        v_pred_full = (x_prev[6:9] + state.gravity * dt_scan
+                       + lie.quat_rotate(q_prev, pre.dv))
+    else:
+        p_pred_full = p_prev + lie.quat_rotate(q_prev, pre.dp)
+        v_pred_full = x_prev[6:9] + lie.quat_rotate(q_prev, pre.dv)
     q_pred_pre = lie.quat_normalize(lie.quat_mul(q_prev, dq_gyro))
     p_pred_pre = p_prev + lie.quat_rotate(q_prev, state.dtb)
 
@@ -630,8 +634,15 @@ def step_core(state: LIOState, scan: ScanInput, cfg):
                        stacks_w.surf_mask))
 
     # ---- 8. map update (deferred; gating as in the reference) ----
+    # the local map is move-gated at map_move_dist_sq only under
+    # cfg.solver.local_map_move_gate (Estimator.cpp:1083,:1125)
     do_map = ~res.fail
-    do_map_local = do_map
+    if cfg.solver.local_map_move_gate:
+        moved = (torch.sum((p_pub - state.last_map_pos) ** 2)
+                 >= cfg.solver.map_move_dist_sq)
+        do_map_local = do_map & (moved | ~state.map_has_data)
+    else:
+        do_map_local = do_map
     front_stack = tree_map(lambda a: a[front_idx], stacks_w)
     Rwl = lie.quat_to_matrix(q_pub)
     pend = PendingInsert(

@@ -6,8 +6,10 @@ This file imports torch only, so it also runs on a machine without JAX:
 
 K1 (csrc/map_insert.cu) is held against its plain PyTorch version on CUDA
 tensors: the kernel is built with -fmad=false, so the maps are bit-equal.
-A CUDA tensor whose kernel library cannot be built raises; nothing falls
-back to the plain version.
+K2 (csrc/assoc.cu) and each of its stages are held against the same cut of
+the plain version (`assoc.compare` states the bounds) on a small map of
+noisy planes and lines written by K1.  A CUDA tensor whose kernel library
+cannot be built raises; nothing falls back to the plain version.
 """
 
 import dataclasses
@@ -20,7 +22,7 @@ torch.set_num_threads(1)
 
 from mmloam_tpu_torch import cuda_build  # noqa: E402
 from mmloam_tpu_torch.config import MapConfig  # noqa: E402
-from mmloam_tpu_torch.ops import map_insert  # noqa: E402
+from mmloam_tpu_torch.ops import assoc, map_insert  # noqa: E402
 from mmloam_tpu_torch.ops import voxelmap  # noqa: E402
 
 MCFG = MapConfig(dim_x=16, dim_y=16, dim_z=8, voxel_size=0.4, count_cap=10.0)
@@ -98,3 +100,86 @@ def test_kernel_at_flagship_row_count():
     map_insert.insert_batched_reference(cp, pts, mask, mcfg)
     torch.cuda.synchronize()
     assert torch.equal(ck, cp)
+
+
+def _scene(dev, n_pts=4000, M=512, seed=3):
+    """A map of two noisy planes and a line (K1 inserts) and M queries
+    near them, 5 % masked."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-1.2, 1.2, (n_pts, 2))
+    noise = rng.normal(0, 0.01, (n_pts, 3))
+    floor = np.stack([u[:, 0], u[:, 1], np.full(n_pts, -0.5)], -1)
+    wall = np.stack([np.full(n_pts, 1.1), u[:, 0], u[:, 1]], -1)
+    line = np.stack([u[:, 0], np.full(n_pts, -0.9), np.full(n_pts, 0.7)], -1)
+    pts = np.concatenate([floor, wall, line]) + np.concatenate([noise] * 3)
+    cells = torch.zeros((1,) + tuple(voxelmap.empty_map(MCFG).cells.shape),
+                        device=dev)
+    p = torch.from_numpy(pts.astype(np.float32)).to(dev)[None]
+    ones = torch.ones(p.shape[:2], dtype=torch.bool, device=dev)
+    map_insert.insert_batched(cells, p, ones, MCFG)
+    q = pts[rng.choice(len(pts), M)] + rng.normal(0, 0.05, (M, 3))
+    mask = rng.random(M) > 0.05
+    return (voxelmap.VoxelMap(cells[0]),
+            torch.from_numpy(q.astype(np.float32)).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("mode", [assoc.PLANE, assoc.LINE])
+def test_assoc_stages_match_plain_version_on_card(mode, bf16):
+    dev = _device()
+    vm, pw, mask = _scene(dev)
+    mcfg = dataclasses.replace(MCFG, dense_bf16=bf16)
+    thres = torch.tensor(1.0, device=dev)
+    args = (vm, pw, mask, mcfg, 5, mode, thres, 0.01)
+    _, blocks = assoc.associate_reference(*args)
+    moved = pw + 0.02
+    for cached, q in ((None, pw), (blocks, moved)):
+        cargs = (vm, q) + args[2:]
+        for stage in range(len(assoc.STAGE_NAMES)):
+            if stage == assoc.GATHER and cached is not None:
+                continue
+            got = assoc.run_stage(stage, *cargs, cached=cached)
+            ref = assoc.stage_reference(stage, *cargs, cached=cached)
+            torch.cuda.synchronize()
+            assoc.compare(stage, got, ref, mask, mode)
+    r, _ = assoc.associate_reference(*args)
+    assert int(r.valid.sum()) > 50
+
+
+@pytest.mark.cuda
+def test_assoc_launches_and_blocks_on_card():
+    dev = _device()
+    vm, pw, mask = _scene(dev)
+    args = (vm, pw, mask, MCFG, 5, assoc.PLANE, 1.0, 0.01)
+    l0, c0 = assoc.LAUNCHES, assoc.CALLS
+    r, blk = assoc.associate(*args, want_blocks=True)
+    r_ref, blk_ref = assoc.associate_reference(*args)
+    torch.cuda.synchronize()
+    assert (assoc.LAUNCHES, assoc.CALLS) == (l0 + 1, c0 + 1)
+    for name in ("dxd", "dyd", "dzd", "d2d"):
+        assert torch.equal(getattr(blk, name), getattr(blk_ref, name)), name
+    assert torch.equal(r.t_k, r_ref.t_k) and torch.equal(r.n, r_ref.n)
+    r2, back = assoc.associate(*args, cached=blk)
+    assert back is blk and assoc.LAUNCHES == l0 + 2
+
+
+@pytest.mark.cuda
+def test_assoc_cuda_tensor_without_kernel_raises(monkeypatch):
+    dev = _device()
+
+    def no_build(source):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    monkeypatch.setattr(cuda_build, "build", no_build)
+    cells = torch.zeros(tuple(voxelmap.empty_map(MCFG).cells.shape),
+                        device=dev)
+    pw = torch.zeros((8, 3), device=dev)
+    mask = torch.ones((8,), dtype=torch.bool, device=dev)
+    launches = assoc.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc"):
+        assoc.associate(voxelmap.VoxelMap(cells), pw, mask, MCFG, 5,
+                        assoc.LINE, 1.0)
+    assert assoc.LAUNCHES == launches

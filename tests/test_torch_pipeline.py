@@ -6,7 +6,9 @@
   window x, prior validity and anchor, maps, pending insert and
   StepOutput.  Discrete outputs
   (flags, counts) exactly; poses within 1e-5 m; map sums within 1e-5 with
-  meta lanes exact.  The hall scans here carry 3 mm range noise.
+  meta lanes exact.  The hall scans here carry 3 mm range noise.  The
+  same two steps under `faithful_config` (reference-faithful prediction,
+  local-map move gate, full old-frame refresh, uncapped local rescue).
 * `replay_batch` at B=2 over 12 scans with Horizon (merge gate lowered so
   the fused path runs) against the reference's `replay_batch` on CPU:
   inited/fail/hori_merged exactly, n_corner within 1, pose_p within
@@ -43,12 +45,13 @@ import pytest  # noqa: E402
 
 from mmloam_tpu import pipeline as jp  # noqa: E402
 from mmloam_tpu import replay as jr  # noqa: E402
+from mmloam_tpu.config import faithful_config as jax_faithful_config  # noqa: E402,E501
 from mmloam_tpu.config import tiny_config as jax_tiny_config  # noqa: E402
 from mmloam_tpu.data import synthetic as jsyn  # noqa: E402
 
 from mmloam_tpu_torch import pipeline as tp  # noqa: E402
 from mmloam_tpu_torch import replay as tr  # noqa: E402
-from mmloam_tpu_torch.config import tiny_config  # noqa: E402
+from mmloam_tpu_torch.config import faithful_config, tiny_config  # noqa: E402,E501
 from mmloam_tpu_torch.tree import tree_map  # noqa: E402
 
 CFG = tiny_config()
@@ -59,9 +62,14 @@ CFG_H = CFG.replace(solver=dataclasses.replace(CFG.solver,
                                                corner_cnt_gate_hori=5))
 JCFG_H = JCFG.replace(solver=dataclasses.replace(JCFG.solver,
                                                  corner_cnt_gate_hori=5))
+FCFG = faithful_config(CFG)
+FJCFG = jax_faithful_config(JCFG)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "hall_25.npz")
 POSE_ATOL = 1e-5
 SUM_ATOL = 1e-5
+FAITHFUL_SCALE = 10.0
+FAITHFUL_STACK_RTOL = 1e-4
+FAITHFUL_MAP_ATOL = 1e-3
 BATCH_POSE_ATOL = 5e-3
 GOLDEN_POSE_ATOL = 0.01
 GOLDEN_ATE_SLACK = 0.01
@@ -102,18 +110,19 @@ def test_init_state_matches_jax():
 
 
 @functools.lru_cache(maxsize=None)
-def _teacher_record():
+def _teacher_record(faithful=False):
     """JAX step_core + apply_inserts over hall scans 0..10 (3 mm range
     noise): the pre-step states at scans 5 (pre-init) and 10 (post-init)
     and what the reference makes of that scan."""
+    cfg = FJCFG if faithful else JCFG
     scans, _, _ = _hall(11, 0.003, seed=1)
 
     @jax.jit
     def parts(s, sc):
-        s1, out, pend = jp.step_core(s, sc, JCFG)
-        return s1, out, pend, jp.apply_inserts(s1, pend, JCFG)
+        s1, out, pend = jp.step_core(s, sc, cfg)
+        return s1, out, pend, jp.apply_inserts(s1, pend, cfg)
 
-    st = jp.init_state(JCFG)
+    st = jp.init_state(cfg)
     rec = {}
     for t in range(11):
         sc = jax.tree.map(lambda a: jnp.asarray(a[t]), scans)
@@ -127,16 +136,42 @@ def _teacher_record():
     return rec
 
 
-def _assert_maps(got, want, name):
+def _assert_maps(got, want, name, atol=SUM_ATOL):
     got, want = _np(got), np.asarray(want)
     np.testing.assert_array_equal(got[:, 96:], want[:, 96:], err_msg=name)
-    np.testing.assert_allclose(got[:, :96], want[:, :96], atol=SUM_ATOL,
+    np.testing.assert_allclose(got[:, :96], want[:, :96], atol=atol,
                                err_msg=name)
 
 
 @pytest.mark.parametrize("t", [5, 10])
 def test_teacher_forced_step_matches_jax(t):
-    rec = _teacher_record()[t]
+    _check_teacher_step(_teacher_record()[t], t, CFG)
+
+
+@pytest.mark.parametrize("t", [5, 10])
+def test_teacher_forced_faithful_step_matches_jax(t):
+    """`faithful_config`: the reference-faithful prediction (no velocity or
+    gravity terms) after init, the local-map move gate, every old frame
+    re-associated each scan, the uncapped local rescue and no scatter gate
+    on plane fits.  Float bounds are FAITHFUL_SCALE times the default
+    step's: on these two steps the reference's own jit and eager runs
+    differ by 5.5e-5 m in the published pose (scan 5) and 4.4e-5 in the
+    window poses (scan 10), where the port is within 3.9e-5 and 4.4e-5 of
+    the jitted reference; discrete outputs stay exact.  That rotation
+    spread moves a stack point by up to its range x 4.4e-5 (the stacks'
+    FAITHFUL_STACK_RTOL) and an inserted cell sum by up to the sum over
+    its points (FAITHFUL_MAP_ATOL, points within 20 m)."""
+    _check_teacher_step(_teacher_record(faithful=True)[t], t, FCFG,
+                        FAITHFUL_SCALE, stack_rtol=FAITHFUL_STACK_RTOL,
+                        map_atol=FAITHFUL_MAP_ATOL)
+
+
+def _check_teacher_step(rec, t, cfg, scale=1.0, stack_rtol=0.0,
+                        map_atol=SUM_ATOL):
+    """Float bounds are the default step's times `scale`; with
+    `stack_rtol`, each re-deskewed stack point is held within
+    POSE_ATOL * scale + stack_rtol * its range (a rotation error grows
+    with range), and the inserted map sums `map_atol`."""
     sj, (cj_state, cj_out, cj_pend), aj = (rec["state"], rec["core"],
                                            rec["after"])
     assert bool(sj.inited) == (t == 10)
@@ -147,7 +182,7 @@ def test_teacher_forced_step_matches_jax(t):
     for a, b in zip(jax.tree.leaves(sj), jax.tree.leaves(back)):
         np.testing.assert_array_equal(b, a.astype(b.dtype))
     scan = tp.scan_from_numpy(rec["scan"])
-    s1, out, pend = tp.step_core(st, scan, CFG)
+    s1, out, pend = tp.step_core(st, scan, cfg)
 
     for name in ("fail", "degenerate", "inited", "n_corner", "n_surf",
                  "fast_rotation", "hori_merged", "n_assoc_line",
@@ -157,20 +192,21 @@ def test_teacher_forced_step_matches_jax(t):
                                       err_msg=name)
     for name in ("pose_p", "pose_q"):
         np.testing.assert_allclose(_np(getattr(out, name)),
-                                   getattr(cj_out, name), atol=POSE_ATOL,
-                                   err_msg=name)
-    np.testing.assert_allclose(_np(out.sv_min), cj_out.sv_min, rtol=1e-4)
+                                   getattr(cj_out, name),
+                                   atol=POSE_ATOL * scale, err_msg=name)
+    np.testing.assert_allclose(_np(out.sv_min), cj_out.sv_min,
+                               rtol=1e-4 * scale)
 
     # window: poses to POSE_ATOL; velocity/bias columns are less observed
     # and move with the LM iterates' rounding, so they get 1e-4
     x, xj = _np(s1.x), cj_state.x
-    np.testing.assert_allclose(x[:, 0:6], xj[:, 0:6], atol=POSE_ATOL)
-    np.testing.assert_allclose(x[:, 6:15], xj[:, 6:15], atol=1e-4)
+    np.testing.assert_allclose(x[:, 0:6], xj[:, 0:6], atol=POSE_ATOL * scale)
+    np.testing.assert_allclose(x[:, 6:15], xj[:, 6:15], atol=1e-4 * scale)
     np.testing.assert_array_equal(_np(s1.frame_valid), cj_state.frame_valid)
     np.testing.assert_array_equal(_np(s1.inited), cj_state.inited)
     np.testing.assert_array_equal(_np(s1.prior.valid), cj_state.prior.valid)
     np.testing.assert_allclose(_np(s1.prior.x0), cj_state.prior.x0,
-                               atol=1e-4)
+                               atol=1e-4 * scale)
     # lin_J/lin_r come out of an f32 Schur complement whose pseudo-inverse
     # threshold sits inside the eigenvalue noise: the reference's own jit
     # and eager runs disagree there, so they are held in
@@ -179,15 +215,27 @@ def test_teacher_forced_step_matches_jax(t):
         np.testing.assert_array_equal(_np(getattr(s1.stacks, name + "_mask")),
                                       getattr(cj_state.stacks,
                                               name + "_mask"))
-        np.testing.assert_allclose(_np(getattr(s1.stacks, name)),
-                                   getattr(cj_state.stacks, name),
-                                   atol=POSE_ATOL, err_msg=name)
+        got, want = _np(getattr(s1.stacks, name)), getattr(cj_state.stacks,
+                                                           name)
+        if stack_rtol:
+            err = np.linalg.norm(got - want, axis=-1)
+            bound = POSE_ATOL * scale + stack_rtol * np.linalg.norm(want,
+                                                                   axis=-1)
+            assert (err <= bound).all(), (name, (err - bound).max())
+        else:
+            np.testing.assert_allclose(got, want, atol=POSE_ATOL * scale,
+                                       err_msg=name)
     np.testing.assert_array_equal(_np(pend.do_map), cj_pend.do_map)
-    np.testing.assert_allclose(_np(pend.p), cj_pend.p, atol=POSE_ATOL)
+    np.testing.assert_array_equal(_np(pend.do_map_local),
+                                  cj_pend.do_map_local)
+    np.testing.assert_allclose(_np(s1.last_map_pos), cj_state.last_map_pos,
+                               atol=POSE_ATOL * scale)
+    np.testing.assert_allclose(_np(pend.p), cj_pend.p, atol=POSE_ATOL * scale)
 
-    s2 = tp.apply_inserts(s1, pend, CFG)
+    s2 = tp.apply_inserts(s1, pend, cfg)
     for name in tp.MAP_FIELDS:
-        _assert_maps(getattr(s2, name).cells, getattr(aj, name).cells, name)
+        _assert_maps(getattr(s2, name).cells, getattr(aj, name).cells, name,
+                     map_atol)
     # the scatter insert returns new maps: the step's input maps are intact
     _assert_maps(s1.vm_surf.cells, sj.vm_surf.cells, "input map")
 
@@ -274,3 +322,10 @@ def test_off_default_options_raise():
     with pytest.raises(NotImplementedError, match="dedup_gather"):
         tp.init_state(CFG.replace(
             map=dataclasses.replace(CFG.map, dedup_gather=True)))
+    with pytest.raises(NotImplementedError, match="velo_only_mode"):
+        tp.init_state(CFG.replace(velo_only_mode=True))
+    with pytest.raises(NotImplementedError, match="pack_x"):
+        tp.init_state(CFG.replace(
+            local_map=dataclasses.replace(CFG.local_map, pack_z=1)))
+    # the reference-faithful settings are ported
+    tp.init_state(FCFG)
