@@ -8,13 +8,25 @@ Phases (any failure ends the run with a non-zero exit code):
    limit are printed as nvidia-smi reports them;
 1. build the hand-written CUDA kernels K1 (csrc/map_insert.cu) and K2
    (csrc/assoc.cu) with nvcc, one process per source, started together;
+1b. the kernels one call launches, from torch.profiler traces that are
+   complete (they recorded every launch of ours the wrapper's counter
+   saw), on a synthetic room at the main path's shapes: one
+   `associate_with_rescue` (surf, M=2048) launches its two K2 kernels, at
+   most one memset and nothing else; one `insert_batched` (B=4, N=2048)
+   launches K1 once, besides the addressing, the sort and the gathers;
 2. K1 against its plain PyTorch version on the card, at the flagship
    persistent-map (131,072 superrows, B=16, N=2048) and local-map
    (36,864 superrows, N=512) shapes: two consecutive inserts whose second
    accumulates and hits the count cap, and a stale-epoch eviction one
    torus period away.  Meta lanes must be equal and sum lanes within
-   SUM_ATOL (the kernel is built with -fmad=false, so they agree bit for
-   bit); times are CUDA events, median of 20 launches after warm-up;
+   `map_insert.sum_tolerance` (the kernel sums each cell in sorted order,
+   the plain version by an associative scan).  Times, on the accumulate
+   case's second insert: the kernel's device time (`device_ms`:
+   torch.profiler self device time over its launches, or a CUDA graph of
+   100 launches where the profiler shows none), its launch incl. host
+   (CUDA events around the wrapper's launch, median of 20 after warm-up),
+   `insert_batched`, the plain version, and the bound (the insert's own
+   bytes: points and mask read, touched rows read and written);
 3. the port's `replay` on `tiny_config()` over the 25-scan hall sequence
    against tests/golden/hall_25.npz (inited/fail exactly; pose within
    GOLDEN_POSE_ATOL and ATE within GOLDEN_ATE_SLACK of the golden's, the
@@ -23,8 +35,9 @@ Phases (any failure ends the run with a non-zero exit code):
 4. the main path: `replay_batch` at `LIOConfig()` with B=4 lanes and T=16
    scans of 16x1024 VLP-16 + 6x2048 Horizon input, every lane initialized,
    finite poses, ATE < 0.15 m per lane, surf-map occupancy in
-   (500, n_cells/4), K1 launched exactly 4*T times and K2 once per
-   association call (assoc.LAUNCHES == assoc.CALLS > 0); then a second,
+   (500, n_cells/4), K1 launched exactly 4*T times and K2 for every
+   association call and every rescue (assoc.LAUNCHES == assoc.CALLS +
+   assoc.RESCUE_LAUNCHES, RESCUE_LAUNCHES == CALLS > 0); then a second,
    timed run for scans/sec;
 5. K2 and each of its stages against the plain version at flagship shapes
    on the maps phase 4 built with K1 (lane 0): the newest frame's corner
@@ -32,19 +45,23 @@ Phases (any failure ends the run with a non-zero exit code):
    persistent map, their compacted rescue queries (Mr=256 / 1024) against
    the local map, fresh and from cached blocks, with dense_bf16 on and off
    (and the plane fit without the scatter gate, as faithful_config runs
-   it).  GATHER/SELECT/NEED and t_k, n are exact; the float bounds are
-   `assoc.compare`'s; a gate may differ only within assoc.GATE_EPS of its
-   threshold, and those queries are counted.  Times are CUDA events,
-   median of 20, for the kernel alone, its entry (with the torch stencil
-   addressing) and the plain version, and for one case (K2_TIMED_CASE)
-   each stage's kernel against its plain cut;
+   it).  GATHER (rows and the addresses the kernel computed), SELECT,
+   NEED and t_k, n are exact; the float bounds are `assoc.compare`'s; a
+   gate may differ only within assoc.GATE_EPS of its threshold, and those
+   queries are counted.  Then the fused rescue pair of each map pair
+   (`assoc.compare_rescue`), fresh and cached, at the flagship cap and
+   with every failure tried.  Times per case as in phase 2 (device,
+   launch incl. host, entry, plain, bound); for one case (K2_TIMED_CASE)
+   each stage's launch against its plain cut;
 6. `faithful_config(tiny_config())` over the 25-scan hall sequence, as
    tests/test_faithful_mode.py runs it: initialized, finite poses,
    ATE < FAITHFUL_ATE_MAX, and every association through K2.
 
 Before the last line come a JSON object with each kernel's launches,
-error and times, and the card's name and power limit; the last line is
-{"ok": true, "device": {...}}.
+error and times ("ms" is the launch incl. host, "device_ms" the kernel's
+own), and the card's name and power limit; the last line is
+{"ok": true, "device": {...}}.  Every number also goes to
+chip_smoke_out/chip_smoke.json.
 """
 
 import concurrent.futures
@@ -58,7 +75,6 @@ import time
 import numpy as np
 import torch
 
-SUM_ATOL = 1e-5
 GOLDEN_POSE_ATOL = 0.01
 GOLDEN_ATE_SLACK = 0.01
 FLAGSHIP_B, FLAGSHIP_T = 4, 16
@@ -97,6 +113,233 @@ def cuda_ms(fn, reps=20, warmup=3):
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     return float(np.median(times))
+
+
+def _self_device_us(evt):
+    """A profiler event's own device time in us (the attribute's name
+    differs between torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        t = getattr(evt, name, None)
+        if t is not None:
+            return float(t)
+    return 0.0
+
+
+def profile_kernels(fn, reps=1, warmup=True):
+    """Device kernels of `reps` calls of `fn()` under torch.profiler, after
+    one untraced warm-up call unless `warmup` is false: {kernel name:
+    (launches, device us)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue        # host ops: their device time is their kernels'
+        us = _self_device_us(e)
+        if us > 0:
+            out[e.key] = (int(e.count), us)
+    return out
+
+
+def graph_ms(launch, reps=100):
+    """Device time of one `launch()` in ms: a CUDA graph of `reps`
+    launches replayed once between two events."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        launch()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            launch()
+    g.replay()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, kernel, launch, per_call=1, reps=20):
+    """Device time in ms of the kernels whose name holds `kernel` in one
+    call of `fn()`, which launches them `per_call` times: their profiler
+    self device time over `reps` calls.  The profiler on the card drops
+    some records of kernels launched through ctypes (seen after many
+    traces in one process); where it recorded fewer than reps * per_call
+    launches, the time is the CUDA graph time of `launch()`, which makes
+    the same launches.  Returns (ms, "profiler" or "graph")."""
+    hits = [v for k, v in profile_kernels(fn, reps).items() if kernel in k]
+    if sum(c for c, _ in hits) == reps * per_call:
+        return sum(us for _, us in hits) / reps / 1000.0, "profiler"
+    return graph_ms(launch), "graph"
+
+
+def kernel_census(fn, ours, launches, reps=5, tries=3):
+    """Kernels per call of `fn()` from a trace of `reps` calls: (ours,
+    memsets, others, {other name: launches per call}).  The trace counts
+    as complete only when it recorded exactly the launches of our kernels
+    that the wrapper's counter (`launches()` reads it) saw during the
+    traced calls; the profiler on the card drops records at times, and a
+    trace that recorded nothing would read as "nothing else".  Traces
+    again up to `tries` times, then raises."""
+    is_mem = lambda k: "memset" in k.lower()
+    is_ours = lambda k: any(o in k for o in ours)
+    for _ in range(tries):
+        fn()                                    # untraced warm-up
+        n0 = launches()
+        kernels = profile_kernels(fn, reps, warmup=False)
+        counted = launches() - n0
+        traced = sum(c for k, (c, _) in kernels.items() if is_ours(k))
+        if counted > 0 and traced == counted:
+            break
+    else:
+        raise AssertionError(f"trace incomplete: it recorded {traced} of "
+                             f"{counted} launches of {ours}")
+    rest = {k: c / reps for k, (c, _) in kernels.items()
+            if not is_ours(k) and not is_mem(k)}
+    mem = sum(c for k, (c, _) in kernels.items() if is_mem(k)) / reps
+    return counted / reps, mem, sum(rest.values()), rest
+
+
+# One NVIDIA H100 SXM at its full 700 W (NVIDIA's data sheet): HBM rate and
+# the f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+
+def bound_ms(nbytes, ops):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and f32 operations over the f32 rate; (ms, "bytes" or
+    "operations")."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# bytes of the association's result per query: mu and vec (6 f32), t_k
+# and n (2 f32) and the valid flag; the rest of the kernel's 64-byte
+# record is its own padding
+K2_RESULT_BYTES = 33
+
+
+def row_bytes(pw, mcfg):
+    """Bytes of the distinct superrows (512 B each) whose stencils this
+    run's queries touch, counted with torch.unique."""
+    from mmloam_tpu_torch.ops import voxelmap
+
+    slots = voxelmap.stencil_addresses(pw, mcfg).slot
+    return int(torch.unique(slots).numel()) * 512
+
+
+def k2_work(vm, pw, mcfg, fresh, want_blocks):
+    """Bytes the association of `pw` must move (each byte of the function's
+    inputs read once, each byte of its result written once: queries and
+    mask, the gate, the superrows touched or the cached blocks and their
+    queries, K2_RESULT_BYTES per query, the blocks when asked) and its f32
+    operations (~30 per candidate: offsets, d2, selection compares,
+    moments)."""
+    M = pw.shape[0]
+    blk = 4 * M * 256 * (2 if mcfg.dense_bf16 else 4)
+    nbytes = M * (12 + 1) + 4 + M * K2_RESULT_BYTES
+    if fresh:
+        nbytes += row_bytes(pw, mcfg) + (blk if want_blocks else 0)
+    else:
+        nbytes += M * 12 + blk
+    return nbytes, M * 256 * 30
+
+
+def k1_bytes(map_insert, pts, mask, mcfg):
+    """Bytes the insert must move: each point (12 B) and its mask byte
+    read once, and each row it touches (counted from this run's points)
+    read and written once.  The sorted order and the addresses are the
+    kernel's own intermediates and are not counted."""
+    rows = int(map_insert.aggregate_updates(pts, mask, mcfg).nv.sum())
+    return pts.shape[0] * pts.shape[1] * (12 + 1) + rows * 1024
+
+
+# --------------------------------------------------------------------------
+# phase 1b: what one association and one insert launch on the card
+# --------------------------------------------------------------------------
+
+def census_inputs(cfg, dev, B=4, N=2048, seed=0):
+    """A synthetic room (two walls and a floor, N points per lane) at the
+    main path's shapes: B lanes of points, the persistent surf maps built
+    from them with `insert_batched`, lane 0's points in a local map, and
+    queries (lane 0's points moved by 2 cm) with their mask."""
+    from mmloam_tpu_torch.ops import map_insert, voxelmap
+
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-8.0, 8.0, (B, N, 3))
+    wall = rng.integers(0, 3, (B, N))
+    for axis, at in enumerate((6.0, -5.0, -1.5)):
+        u[..., axis] = np.where(wall == axis, at, u[..., axis])
+    pts = torch.from_numpy(u.astype(np.float32)).to(dev)
+    mask = torch.ones((B, N), dtype=torch.bool, device=dev)
+    cells = torch.stack([voxelmap.empty_map(cfg.map, dev).cells] * B)
+    map_insert.insert_batched(cells, pts, mask, cfg.map)
+    local = voxelmap.empty_map(cfg.local_map, dev).cells[None]
+    map_insert.insert_batched(local, pts[:1], mask[:1], cfg.local_map)
+    q = pts[0] + torch.from_numpy(rng.normal(0.0, 0.02, (N, 3)).astype(
+        np.float32)).to(dev)
+    return dict(cells=cells, pts=pts, mask=mask, vm=voxelmap.VoxelMap(
+        cells[0]), vml=voxelmap.VoxelMap(local[0]), q=q, q_mask=mask[0],
+        thres=torch.tensor(cfg.solver.thres_dist, device=dev))
+
+
+def census_calls(cfg, inp):
+    """{name: (call, our kernel's name, its launch counter)}: one fused
+    association with the rescue (surf, M=2048) and one batched insert."""
+    from mmloam_tpu_torch.estimator import factors
+    from mmloam_tpu_torch.ops import assoc, map_insert
+
+    M = inp["q"].shape[0]
+    return {
+        "associate_with_rescue": (lambda: assoc.associate_with_rescue(
+            inp["vm"], inp["vml"], inp["q"], inp["q_mask"], cfg.map,
+            cfg.local_map, cfg.map.knn, assoc.PLANE, inp["thres"],
+            cfg.solver.plane_scatter_ratio,
+            factors._rescue_cap(M, cfg.solver.local_rescue_frac),
+            want_blocks=True), "assoc_kernel", lambda: assoc.LAUNCHES),
+        "insert_batched": (lambda: map_insert.insert_batched(
+            inp["cells"], inp["pts"], inp["mask"], cfg.map), "map_insert",
+            lambda: map_insert.LAUNCHES)}
+
+
+def check_traces(dev):
+    """The kernels one `associate_with_rescue` call and one
+    `insert_batched` call launch, from complete traces: the fused
+    association launches the two K2 kernels, at most one memset and
+    nothing else; the insert launches K1 once besides the addressing,
+    the stable sort and the gathers that feed it."""
+    from mmloam_tpu_torch.config import LIOConfig
+
+    cfg = LIOConfig()
+    out = {}
+    for name, (call, ours, count) in census_calls(
+            cfg, census_inputs(cfg, dev)).items():
+        mine, mem, other, names = kernel_census(call, (ours,), count)
+        out[name] = dict(ours=mine, memsets=mem, others=other,
+                         other_kernels=names)
+        log(f"  {name}: {mine:g} launches of ours, {mem:g} memsets, "
+            f"{other:g} other kernels a call ({len(names)} kinds, named in "
+            f"chip_smoke_out/chip_smoke.json)")
+    r, i = out["associate_with_rescue"], out["insert_batched"]
+    if r["ours"] != 2 or r["memsets"] > 1 or r["others"]:
+        raise AssertionError("associate_with_rescue launches more than its "
+                             "two K2 kernels")
+    if i["ours"] != 1:
+        raise AssertionError("insert_batched does not launch K1 once")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -138,36 +381,53 @@ def check_map_insert(dev):
         for case, steps in _insert_cases(mcfg, B, N, rng):
             ck = torch.zeros((B, Cs, 128), device=dev)
             cp = torch.zeros_like(ck)
+            loads = []
             for pts, mask in steps:
                 p = torch.from_numpy(pts).to(dev)
                 m = torch.from_numpy(mask).to(dev)
                 map_insert.insert_batched(ck, p, m, mcfg)
                 map_insert.insert_batched_reference(cp, p, m, mcfg)
+                loads.append(map_insert.cell_load(p, m, mcfg))
             if case == "accumulate_and_cap":
-                upd = map_insert.aggregate_updates(p, m, mcfg)
+                p_acc, m_acc = p, m
+                sp = map_insert.sort_points(p, m, mcfg)
                 cells = ck.clone()
             torch.cuda.synchronize()
             if not torch.equal(ck[..., 96:], cp[..., 96:]):
                 raise AssertionError(f"K1 meta lanes differ: {label} {case}")
-            err = float((ck[..., :96] - cp[..., :96]).abs().max())
-            if not err <= SUM_ATOL:
-                raise AssertionError(f"K1 sums differ by {err}: {label} "
-                                     f"{case}")
+            diff = (ck[..., :96] - cp[..., :96]).abs()
+            tol = map_insert.sum_tolerance(cp[..., :96], loads)
+            err = float(diff.max())
+            if not bool((diff <= tol).all()):
+                raise AssertionError(f"K1 sums differ by up to {err}, over "
+                                     f"the bound: {label} {case}")
             counts = ck[..., 96:] - torch.floor(ck[..., 96:] / 128.0) * 128.0
             if case == "accumulate_and_cap" and not bool(
                     (counts == mcfg.count_cap).any()):
                 raise AssertionError("cap case never reached the cap")
             max_err = max(max_err, err)
             log(f"  K1 {label:10s} {case:18s} B={B} N={N} Cs={Cs}: meta "
-                f"equal, max |sum err| {err:.3g}")
-        # time the row RMW alone on the accumulate case's second insert
-        ms = cuda_ms(lambda: map_insert.rmw(cells, upd, mcfg.count_cap))
-        plain_ms = cuda_ms(
-            lambda: map_insert.rmw_reference(cells, upd, mcfg.count_cap))
-        timing[label] = dict(B=B, N=N, Cs=Cs, rows=int(upd.nv.sum()),
-                             ms=ms, plain_ms=plain_ms)
-        log(f"  K1 {label} rmw: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            f"({int(upd.nv.sum())} rows)")
+                f"equal, max |sum err| {err:.3g} (bound {float(tol.max()):.3g}"
+                f", cell loads {loads})")
+        # time the kernel on the accumulate case's second insert
+        p, m = p_acc, m_acc
+        launch = lambda: map_insert.aggregate_rmw(cells, sp, mcfg)
+        entry = lambda: map_insert.insert_batched(cells, p, m, mcfg)
+        d_ms, how = device_ms(entry, "map_insert", launch)
+        rows = int(map_insert.aggregate_updates(p, m, mcfg).nv.sum())
+        nbytes = k1_bytes(map_insert, p, m, mcfg)
+        bound, by = bound_ms(nbytes, 0)
+        timing[label] = dict(
+            B=B, N=N, Cs=Cs, rows=rows, device_ms=d_ms, device_how=how,
+            ms=cuda_ms(launch), entry_ms=cuda_ms(entry),
+            plain_ms=cuda_ms(lambda: map_insert.insert_batched_reference(
+                cells, p, m, mcfg)), bytes=nbytes, bound_ms=bound,
+            bound_by=by)
+        t = timing[label]
+        log(f"  K1 {label}: device {d_ms:.4f} ms ({how}), launch incl. host "
+            f"{t['ms']:.4f} ms, insert_batched {t['entry_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({nbytes} B, "
+            f"{rows} rows)")
     return max_err, timing
 
 
@@ -181,15 +441,25 @@ def _ate(pose_p, t, gt_R, gt_p):
     return float(np.sqrt(((pose_p - gt_rel[idx]) ** 2).sum(1).mean()))
 
 
-def _check_k2_counts(label):
-    """Every association call of the run that just ended launched K2."""
+def _reset_k2_counts():
     from mmloam_tpu_torch.ops import assoc
 
-    log(f"  {label}: K2 launches {assoc.LAUNCHES}, association calls "
-        f"{assoc.CALLS}")
-    if not assoc.LAUNCHES == assoc.CALLS > 0:
+    assoc.LAUNCHES = assoc.CALLS = assoc.RESCUE_LAUNCHES = 0
+
+
+def _check_k2_counts(label):
+    """Every association call of the run that just ended launched K2, and
+    every one (each has a local map) launched its rescue: LAUNCHES ==
+    CALLS + RESCUE_LAUNCHES and RESCUE_LAUNCHES == CALLS > 0."""
+    from mmloam_tpu_torch.ops import assoc
+
+    log(f"  {label}: K2 launches {assoc.LAUNCHES} ({assoc.RESCUE_LAUNCHES} "
+        f"rescue), association calls {assoc.CALLS}")
+    if not (assoc.LAUNCHES == assoc.CALLS + assoc.RESCUE_LAUNCHES
+            and assoc.RESCUE_LAUNCHES == assoc.CALLS > 0):
         raise AssertionError(f"{label}: K2 launched {assoc.LAUNCHES} times "
-                             f"for {assoc.CALLS} association calls")
+                             f"({assoc.RESCUE_LAUNCHES} rescues) for "
+                             f"{assoc.CALLS} association calls")
     return assoc.LAUNCHES
 
 
@@ -204,7 +474,7 @@ def check_hall_golden(dev):
         synthetic.default_world(), synthetic.Trajectory(speed=0.8, z_amp=0.15),
         0.0, 25, cfg, n_az=360, dtype=np.float32, device=dev)
     g = np.load(os.path.join(ROOT, "tests", "golden", "hall_25.npz"))
-    assoc.LAUNCHES = assoc.CALLS = 0
+    _reset_k2_counts()
     t0 = time.perf_counter()
     _, outs = replay.replay(pipeline.init_state(cfg, device=dev), scans, cfg)
     torch.cuda.synchronize()
@@ -270,7 +540,7 @@ def check_flagship(dev):
     torch.cuda.synchronize()
 
     map_insert.LAUNCHES = 0
-    assoc.LAUNCHES = assoc.CALLS = 0
+    _reset_k2_counts()
     t0 = time.perf_counter()
     st, outs = replay.replay_batch(states, scans, cfg)
     torch.cuda.synchronize()
@@ -334,16 +604,19 @@ def _lane0(st):
 # --------------------------------------------------------------------------
 
 def _assoc_cases(lane0, cfg):
-    """(label, vm, pw, mask, mcfg, mode, scatter_ratio, moved pw) at the
-    main path's shapes: the newest frame's stacks against the persistent
-    map, their compacted rescue queries against the local map."""
+    """At the main path's shapes: (cases, pairs).  A case (label, vm, pw,
+    mask, mcfg, mode, scatter_ratio, moved pw) is the newest frame's stack
+    against the persistent map, or its compacted rescue queries against
+    the local map; a pair (label, vm, vm_local, pw, mask, mode,
+    scatter_ratio, moved pw) is the stack against both, as the rescue runs
+    it."""
     from mmloam_tpu_torch.estimator import factors
     from mmloam_tpu_torch.ops import assoc, voxelmap
 
     W = cfg.solver.window
     x6 = lane0["x"][W - 1, :6]
     st = lane0["stacks"]
-    cases = []
+    cases, pairs = [], []
     for feat, mode, vm_f, vml_f in (
             ("corner", assoc.LINE, "vm_corner", "vm_local_corner"),
             ("surf", assoc.PLANE, "vm_surf", "vm_local_surf")):
@@ -354,37 +627,61 @@ def _assoc_cases(lane0, cfg):
         pw, moved = world(x6), world(x6 + 3e-3)
         sr = cfg.solver.plane_scatter_ratio if mode == assoc.PLANE else 0.0
         vm = voxelmap.VoxelMap(lane0[vm_f])
+        vml = voxelmap.VoxelMap(lane0[vml_f])
         r, _ = assoc.associate_reference(vm, pw, mask, cfg.map,
                                          cfg.map.knn, mode,
                                          cfg.solver.thres_dist, sr)
         M = pw.shape[0]
-        sel = factors._compact_indices(
+        sel = assoc._compact_indices(
             mask & ~r.valid, factors._rescue_cap(M,
                                                  cfg.solver.local_rescue_frac))
-        pw_r, moved_r = factors._take_fill(pw, sel), factors._take_fill(moved,
-                                                                        sel)
+        pw_r, moved_r = assoc._take_fill(pw, sel), assoc._take_fill(moved,
+                                                                    sel)
         cases.append((f"{feat} persistent", vm, pw, mask, cfg.map, mode, sr,
                       moved))
-        cases.append((f"{feat} local", voxelmap.VoxelMap(lane0[vml_f]), pw_r,
-                      sel < M, cfg.local_map, mode, sr, moved_r))
-    return cases
+        cases.append((f"{feat} local", vml, pw_r, sel < M, cfg.local_map,
+                      mode, sr, moved_r))
+        pairs.append((f"{feat} rescue", vm, vml, pw, mask, mode, sr, moved))
+    return cases, pairs
 
 
 def time_stages(dev, cargs):
-    """Each stage's launch alone (fresh entry) against the same cut of the
-    plain version, CUDA events, median of 20."""
+    """Each stage's launch alone (fresh entry, launch incl. host: CUDA
+    events around the wrapper's launch, median of 20) against the same cut
+    of the plain version."""
     from mmloam_tpu_torch.ops import assoc
 
     out = {}
     for stage, sname in enumerate(assoc.STAGE_NAMES):
         a, bufs = assoc.prepare(stage, *cargs, None, False)
-        ms = cuda_ms(lambda: assoc.launch(stage, a, dev))
+        launch = lambda: assoc.launch(stage, a, dev)
+        d_ms = device_ms(launch, "assoc_kernel", launch)[0]
+        ms = cuda_ms(launch)
         plain_ms = cuda_ms(lambda: assoc.stage_reference(stage, *cargs))
         bufs = None
-        out[sname] = dict(ms=ms, plain_ms=plain_ms)
-        log(f"    stage {sname:8s} kernel {ms:.4f} ms, plain cut "
-            f"{plain_ms:.4f} ms")
+        out[sname] = dict(device_ms=d_ms, ms=ms, plain_ms=plain_ms)
+        log(f"    stage {sname:8s} device {d_ms:.4f} ms, launch incl. host "
+            f"{ms:.4f} ms, plain cut {plain_ms:.4f} ms")
     return out
+
+
+def time_k2(dev, cargs, cached, want):
+    """K2's times on one case: device time (profiler, or a CUDA graph),
+    launch incl. host, the entry (`assoc.associate`), the plain version,
+    and the bound."""
+    from mmloam_tpu_torch.ops import assoc
+
+    a, bufs = assoc.prepare(assoc.OUT, *cargs, cached, want)
+    launch = lambda: assoc.launch(assoc.OUT, a, dev)
+    entry = lambda: assoc.associate(*cargs, cached=cached, want_blocks=want)
+    d_ms, how = device_ms(entry, "assoc_kernel", launch)
+    nbytes, ops = k2_work(cargs[0], cargs[1], cargs[3], cached is None, want)
+    bound, by = bound_ms(nbytes, ops)
+    return dict(device_ms=d_ms, device_how=how, ms=cuda_ms(launch),
+                entry_ms=cuda_ms(entry),
+                plain_ms=cuda_ms(lambda: assoc.associate_reference(
+                    *cargs, cached=cached)),
+                bytes=nbytes, bound_ms=bound, bound_by=by)
 
 
 def check_assoc(dev, lane0, cfg):
@@ -393,8 +690,8 @@ def check_assoc(dev, lane0, cfg):
     k = cfg.map.knn
     thres = torch.tensor(cfg.solver.thres_dist, device=dev)
     max_err, near, timing = 0.0, 0, {}
-    for label, vm, pw, mask, mcfg0, mode, sr, moved in _assoc_cases(lane0,
-                                                                    cfg):
+    cases, pairs = _assoc_cases(lane0, cfg)
+    for label, vm, pw, mask, mcfg0, mode, sr, moved in cases:
         for bf16 in (True, False):
             # the plane fit also without the scatter gate (faithful_config)
             for ratio in ([sr, 0.0] if bf16 and sr > 0 else [sr]):
@@ -416,32 +713,80 @@ def check_assoc(dev, lane0, cfg):
                         errs.append(st["max_abs_err"])
                         n_near = max(n_near, st["near"])
                     want = cached is None and "persistent" in label
-                    # the kernel alone, the whole entry (with the torch
-                    # stencil addressing), and the plain version
-                    a, bufs = assoc.prepare(assoc.OUT, *cargs, cached,
-                                            want)
-                    ms = cuda_ms(lambda: assoc.launch(assoc.OUT, a, dev))
-                    bufs = None
-                    entry_ms = cuda_ms(lambda: assoc.associate(
-                        *cargs, cached=cached, want_blocks=want))
-                    plain_ms = cuda_ms(lambda: assoc.associate_reference(
-                        *cargs, cached=cached))
+                    t = time_k2(dev, cargs, cached, want)
                     r, _ = assoc.associate_reference(*cargs, cached=cached)
                     n_valid = int(r.valid.sum())
                     name = (f"{label} {entry} bf16={int(bf16)}"
                             f" scatter={ratio:g}")
-                    timing[name] = dict(M=int(pw.shape[0]), ms=ms,
-                                        entry_ms=entry_ms, plain_ms=plain_ms,
-                                        valid=n_valid, near=n_near,
-                                        max_abs_err=max(errs))
+                    timing[name] = dict(t, M=int(pw.shape[0]), valid=n_valid,
+                                        near=n_near, max_abs_err=max(errs))
                     log(f"  K2 {name:42s} M={pw.shape[0]:4d}: all stages "
                         f"agree, max err {max(errs):.3g}, {n_near} near a "
-                        f"gate, {n_valid} valid; kernel {ms:.4f} ms, entry "
-                        f"{entry_ms:.4f} ms, plain {plain_ms:.4f} ms")
+                        f"gate, {n_valid} valid; device {t['device_ms']:.4f}"
+                        f" ms, launch incl. host {t['ms']:.4f} ms, entry "
+                        f"{t['entry_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                        f"ms, bound {t['bound_ms']:.4f} ms")
                     if name == K2_TIMED_CASE:
                         timing[name]["stages"] = time_stages(dev, cargs)
                     max_err = max(max_err, max(errs))
                     near += n_near
+    for pair in pairs:
+        err, n_near, t = check_rescue(dev, cfg, thres, *pair)
+        timing.update(t)
+        max_err, near = max(max_err, err), near + n_near
+    return max_err, near, timing
+
+
+def check_rescue(dev, cfg, thres, label, vm, vml, pw, mask, mode, sr, moved):
+    """The fused rescue pair (NEED on the persistent map, RESCUE on the
+    local map) against both maps' plain versions, fresh and from cached
+    blocks, at the flagship cap and with every failure tried; times of
+    the fresh pair at the flagship cap."""
+    from mmloam_tpu_torch.estimator import factors
+    from mmloam_tpu_torch.ops import assoc
+
+    k, M = cfg.map.knn, pw.shape[0]
+    _, blocks = assoc.associate_reference(vm, pw, mask, cfg.map, k, mode,
+                                          thres, sr)
+    max_err, near, timing = 0.0, 0, {}
+    for cap in (factors._rescue_cap(M, cfg.solver.local_rescue_frac), M):
+        for entry, cached, q in (("fresh", None, pw), ("cached", blocks,
+                                                       moved)):
+            args = (vm, vml, q, mask, cfg.map, cfg.local_map, k, mode, thres,
+                    sr)
+            got = assoc.run_rescue(*args, cap, cached)
+            refs = assoc.rescue_stage_reference(*args, cached)
+            torch.cuda.synchronize()
+            st = assoc.compare_rescue(got, refs, mask, mode, cap)
+            name = f"{label} {entry} cap={cap}"
+            log(f"  K2 {name:42s} M={M:4d}: agrees, max err "
+                f"{st['max_abs_err']:.3g}, {st['near']} near a gate, "
+                f"{st['flagged']} flagged, {st['served']} served")
+            max_err, near = max(max_err, st["max_abs_err"]), near + st["near"]
+            timing[name] = dict(M=M, flagged=st["flagged"],
+                                served=st["served"], near=st["near"],
+                                max_abs_err=st["max_abs_err"])
+            if entry != "fresh" or cap == M:
+                continue
+            call = lambda: assoc.associate_with_rescue(
+                *args, cap, want_blocks=True)
+            d_ms, how = device_ms(call, "assoc_kernel", call, per_call=2)
+            # the pair's function: the persistent map's association with
+            # its blocks, and the local map's rows for the queries it tries
+            tried = q[assoc._tried(got["need"], cap)]
+            b1, o1 = k2_work(vm, q, cfg.map, True, True)
+            nbytes = b1 + row_bytes(tried, cfg.local_map)
+            bound, by = bound_ms(nbytes, o1 + tried.shape[0] * 256 * 30)
+            timing[name].update(
+                device_ms=d_ms, device_how=how,
+                entry_ms=cuda_ms(call), plain_ms=cuda_ms(
+                    lambda: assoc.associate_with_rescue_reference(
+                        *args, cap, want_blocks=True)),
+                bytes=nbytes, bound_ms=bound, bound_by=by)
+            t = timing[name]
+            log(f"    pair: device {t['device_ms']:.4f} ms (2 launches), "
+                f"associate_with_rescue {t['entry_ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {bound:.4f} ms")
     return max_err, near, timing
 
 
@@ -459,7 +804,7 @@ def check_faithful(dev):
     scans, gt_R, gt_p = replay.make_sequence(
         synthetic.default_world(), synthetic.Trajectory(speed=0.8), 0.0, 25,
         cfg, n_az=360, dtype=np.float32, device=dev)
-    assoc.LAUNCHES = assoc.CALLS = 0
+    _reset_k2_counts()
     t0 = time.perf_counter()
     _, outs = replay.replay(pipeline.init_state(cfg, device=dev), scans, cfg)
     torch.cuda.synchronize()
@@ -487,7 +832,9 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from mmloam_tpu_torch import cuda_build
+    from mmloam_tpu_torch.ops import assoc, map_insert
 
+    binds = {"map_insert.cu": map_insert._bind, "assoc.cu": assoc._bind}
     log("phase 1: build K1 and K2")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
@@ -496,8 +843,11 @@ def main():
         for src, fut in futs.items():
             log(f"  built {fut.result()}")
     for src in KERNEL_SOURCES:
-        cuda_build.load(src)
+        cuda_build.load(src, binds[src])
     log(f"  both built in {time.perf_counter() - t0:.1f} s")
+
+    log("phase 1b: the kernels of one association and one insert")
+    traces = check_traces(dev)
 
     log("phase 2: K1 against its plain version")
     max_err, k1_timing = check_map_insert(dev)
@@ -516,7 +866,7 @@ def main():
     lane0 = None
 
     log("phase 6: faithful_config hall replay")
-    check_faithful(dev)
+    faithful = check_faithful(dev)
 
     t = k1_timing["persistent"]
     t2 = k2_timing[K2_TIMED_CASE]
@@ -525,12 +875,21 @@ def main():
          "source": "mmloam_tpu_torch/csrc/map_insert.cu",
          "replaces": "mmloam_tpu/ops/pallas_insert.py:108",
          "launches": flag["launches"], "max_abs_err": max_err,
-         "ms": t["ms"], "plain_ms": t["plain_ms"]},
+         "ms": t["ms"], "device_ms": t["device_ms"],
+         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+         "bound_by": t["bound_by"], "library_ms": None},
         {"name": "assoc", "route": "cuda",
          "source": "mmloam_tpu_torch/csrc/assoc.cu",
          "replaces": "scripts/pallas_assoc.py:388",
          "launches": flag["k2_launches"], "max_abs_err": k2_err,
-         "ms": t2["ms"], "plain_ms": t2["plain_ms"]}]}
+         "ms": t2["ms"], "device_ms": t2["device_ms"],
+         "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
+         "bound_by": t2["bound_by"], "library_ms": None}]}
+    os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chip_smoke_out", "chip_smoke.json"),
+              "w") as f:
+        json.dump(dict(card=card, traces=traces, k1=k1_timing, k2=k2_timing,
+                       flagship=flag, faithful=faithful), f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,51 +1,71 @@
 // Fused stencil association (kernel K2 of the port).
 //
 // Replaces the Pallas TPU kernel scripts/pallas_assoc.py:_assoc_kernel
-// (launched by _assoc_pallas, :388) together with the row gather XLA ran in
-// front of it, and the Mosaic lowering probes of scripts/bisect_mosaic.py
-// (_run_stage) and scripts/bisect_mosaic2.py (_run_variant, _run_solo),
-// which become this kernel's compile-time stages (ops/assoc.py lists them).
+// (launched by _assoc_pallas, :388) together with the query addressing
+// (prepare_queries) and the row gather XLA ran in front of it, and the
+// Mosaic lowering probes of scripts/bisect_mosaic.py (_run_stage) and
+// scripts/bisect_mosaic2.py (_run_variant, _run_solo), which become this
+// kernel's compile-time stages (ops/assoc.py lists them).
 //
-// Per query point, from the 8 stencil superrows of one map: candidate
-// offsets and squared distances, rounded to bf16 when the map keeps its
-// dense blocks in bf16 (voxelmap.query_candidates_dense); validity (epoch
-// key, count > 0, exact stencil bounds); the tie-inclusive k-th smallest
-// d2 (voxelmap.kth_smallest_dense); masked first and second moments; the
+// Per query point, from the 8 stencil superrows of one map: the query's fine
+// voxel, superrow window, torus slots and epoch keys
+// (voxelmap.stencil_addresses, computed here); candidate offsets and squared
+// distances, rounded to bf16 when the map keeps its dense blocks in bf16
+// (voxelmap.query_candidates_dense); validity (epoch key, count > 0, exact
+// stencil bounds); the tie-inclusive k-th smallest d2
+// (voxelmap.kth_smallest_dense); masked first and second moments; the
 // closed-form fit of ops/linalg3.py (plane: TLS normal, 0.2 m planarity over
 // the selected candidates, optional scatter-rank gate, |dist| > 1e-5; line:
 // PCA direction, e_hi > 3 e_mid, err0 > 1e-5); and the gates n >= k,
 // t_k < thres and the query mask.  Output record per query (16 floats):
-// [mu(3), vec(3), valid, t_k, n, 0...], as the TPU kernel's lanes.
+// [mu(3), vec(3), valid, t_k, n, served, 0...], as the TPU kernel's lanes
+// plus `served` (1 where the second map of a rescue pair answered).
 //
-// Two entries.  Fresh: the map rows, addressed by voxelmap.stencil_addresses
-// (the float floor/division stays in torch, shared with the plain path);
-// when asked, it also writes the four dense candidate blocks the estimator
-// caches.  Cached: those blocks shifted by delta = pw - pw0
-// (voxelmap.shift_dense_blocks fused in front of the same selection).
+// Entries.  Fresh: the map rows; when asked, it also writes the four dense
+// candidate blocks the estimator caches.  Cached: those blocks shifted by
+// pw - pw0 (voxelmap.shift_dense_blocks fused in front of the same
+// selection).  Rescue pair (factors' local-map rescue, ops/assoc.py
+// associate_with_rescue): the NEED stage against the persistent map writes
+// the records and a flag mask & ~valid per query; the RESCUE stage then runs
+// a fresh association against the local map for each flagged query whose
+// rank among the flags of lower index is below the rescue cap, and
+// overwrites that query's record where the local fit is valid.  Queries are
+// independent, so this is the compaction, gather, association and scatter
+// of the plain version (associate_with_rescue_reference) in two launches.
 //
-// Design: one warp per query.  Lane j owns sub-cell j of each of the 8
-// superrows and reads words j, 32+j, 64+j, 96+j of each row: coalesced
-// 128-byte loads straight through the slot, so there is no (M, 8, 128)
-// gather buffer (the TPU needed one only because its per-row DMA loop was
-// slow, pallas_assoc.py:333-342).  Each lane keeps its 8 candidates in
-// registers.  Selection is k rounds of a warp min over the values above the
-// previous one, each followed by a warp count of the values <= it; the first
-// value whose count reaches k is t_k (inf when none does).  Moments are
-// xor-butterfly warp sums, which leave every lane with the same bits, so
-// every lane runs the 3x3 fit and no broadcast is needed; the plane mode's
-// planarity pass then checks each lane's own candidates and votes.
+// Design: one warp per query.  Every lane computes the window's per-axis
+// superrow coords, slots and key fields (2 per axis: the window is 2x2x2),
+// so no lane waits for a broadcast.  The 8 rows (4 KB) come in at once:
+// lane j issues its 32 read-only loads (words j, 32+j, 64+j, 96+j of each
+// row: sub-cell j, coalesced across the warp) straight into registers, all
+// in flight before the first store.  (Landing the rows in shared memory by
+// cp.async and reading them from there measured slower on the H100: PERF.md.)
+// Each lane keeps its 8 candidates in registers.  Selection is
+// k rounds of a warp min over the values above the previous one, each
+// followed by a warp count of the values <= it; the first value whose count
+// reaches k is t_k (inf when none does).  Moments are xor-butterfly warp
+// sums, which leave every lane with the same bits, so every lane runs the
+// 3x3 fit and no broadcast is needed; the plane mode's planarity pass then
+// checks each lane's own candidates and votes.  A rescue warp finds its rank
+// from the flag bytes below it: 16 flags per 16-byte load, popc, warp sum.
 //
-// What bounds it on an H100: a fresh query reads 4 KB of rows and ~200 B of
-// addressing and writes 64 B (+ 2 KB of bf16 blocks when asked).  A flagship
-// surf call (M = 2048) reads 8 MB, under 3 us at 3.35 TB/s, so at these
-// sizes the serial per-warp selection and fit and the launch bound it, not
-// bandwidth.
+// What bounds it on an H100: a fresh query reads 4 KB of rows (less where
+// neighbouring queries share superrows, which L2 serves) and 16 B of query,
+// and writes 64 B (+ 2 KB of bf16 blocks when asked); a flagship surf call
+// (M = 2048) must move ~5 MB, about 1.5 us at 3.35 TB/s.  Its arithmetic
+// (~30 flops per candidate) is far below the f32 rate.  With 4-16 warps per
+// SM, the per-warp chain of dependent steps (query load, rows, 5 selection
+// rounds, 9 warp sums, the fit) bounds it, which is why every row load of a
+// query is issued at once.
 //
 // Built with -fmad=false (cuda_build.NVCC_FLAGS): every product rounds before
-// its sum as in the plain PyTorch version, so d2, its bf16 rounding, t_k and
-// n are bit-equal to ops/assoc.associate_reference.  The moment sums run in
-// another order than torch.sum, so mu, the eigenvalues and vec agree to a
-// tolerance.
+// its sum as in the plain PyTorch version, so the addresses, d2, its bf16
+// rounding, t_k and n are bit-equal to ops/assoc.associate_reference.  The
+// voxel index is floor of the correctly rounded quotient q / voxel, as
+// voxelmap._voxel_coords divides by a tensor (not by a host scalar, which
+// PyTorch's CUDA division turns into a product with the reciprocal).  The
+// moment sums run in another order than torch.sum, so mu, the eigenvalues
+// and vec agree to a tolerance.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,27 +75,28 @@
 // (ctypes).  Outside the anonymous namespace: assoc_launch takes it, and a
 // C entry point must not have a parameter of internal linkage.
 struct AssocArgs {
-  const float* cells;          // fresh: (n_rows, 128) map superrows
+  const float* cells;          // fresh: (rows, 128) map superrows
   const float* pw;             // (m, 3) queries
-  const unsigned char* mask;   // (m,) bool
-  const int* v;                // fresh: (m, 3) fine-voxel coords
-  const int* sv;               // fresh: (m, 8, 3) superrow coords
-  const int* slot;             // fresh: (m, 8) superrow slots
-  const float* key;            // fresh: (m, 8) expected epoch keys
+  const unsigned char* mask;   // (m,) bool (unused by RESCUE)
   const void* blk_in[4];       // cached: dx, dy, dz, d2 blocks (m, 256)
-  const float* delta;          // cached: (m, 3) pw - pw0
+  const float* pw0;            // cached: (m, 3) queries the blocks were made at
   void* blk_out[4];            // fresh: blocks to write, or null
   const float* thres;          // (1,) squared-distance gate
   float* out;                  // (m, 16) records
-  float* rows;                 // GATHER stage: (m, 8, 128)
-  int* need;                   // NEED stage: (m,) mask & ~valid
-  int* need_count;             // NEED stage: (1,) number of flags
-  long long n_rows;
-  int m, mode, bf16, cached, k;
-  int pack[3], stencil[3];
+  unsigned char* valid;        // OUT, NEED, RESCUE: (m,) bool, record's lane
+  float* rows;                 // GATHER: (m, 8, 128) rows read
+  int* g_v;                    // GATHER: (m, 3) fine-voxel coords
+  int* g_sv;                   // GATHER: (m, 8, 3) superrow coords
+  int* g_slot;                 // GATHER: (m, 8) torus slots
+  float* g_key;                // GATHER: (m, 8) expected epoch keys
+  unsigned char* need;         // NEED: (m,) written; RESCUE: read (padded
+                               // to a multiple of 16 bytes)
+  int* need_count;             // NEED: (1,) number of flags, or null
+  int m, mode, bf16, cached, k, rescue_cap;
+  int pack[3], stencil[3], sdim[3];
   float voxel, pvs[3], scatter_ratio;
 };
-static_assert(sizeof(AssocArgs) == 240, "AssocArgs layout changed: update "
+static_assert(sizeof(AssocArgs) == 256, "AssocArgs layout changed: update "
               "ops/assoc._args_struct");
 
 namespace {
@@ -90,7 +111,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-12f;         // linalg3._EPS
 constexpr float kTwoPiThird = 2.0943951023931953f;
 
-enum Stage { kGather = 0, kSelect, kMoments, kEig, kOut, kNeed };
+enum Stage { kGather = 0, kSelect, kMoments, kEig, kOut, kNeed, kRescue };
 enum Mode { kPlane = 0, kLine = 1 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -118,6 +139,64 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
 }
 __device__ __forceinline__ float clamp(float x, float lo, float hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// torch.div(a, b, rounding_mode="floor") and torch.remainder on integers:
+// C's / and % truncate toward zero; the floor quotient is one less where the
+// remainder is nonzero and the signs differ, and the floor
+// remainder takes the divisor's sign.  A power-of-two divisor (the map's
+// torus dims and pack) takes the arithmetic shift and the mask, which give
+// the same floor quotient and remainder without an integer division.
+__device__ __forceinline__ bool pow2(int b) { return b > 0 && !(b & (b - 1)); }
+__device__ __forceinline__ int floor_div(int a, int b) {
+  if (pow2(b)) return a >> (__ffs(b) - 1);
+  const int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  if (pow2(b)) return a & (b - 1);
+  const int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// One axis of voxelmap.stencil_addresses / _super_decompose: the window's
+// two superrow coords sv, their torus indices mt and key fields kq
+__device__ __forceinline__ void stencil_axis(int v, int st, int p, int sd,
+                                             int sv[2], int mt[2],
+                                             int kq[2]) {
+  const int s0 = floor_div(v - st, p);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sv[i] = s0 + i;
+    mt[i] = floor_mod(sv[i], sd);
+    kq[i] = min(max(floor_div(sv[i] - mt[i], sd) + 16, 0), 31);
+  }
+}
+
+// floor(q / voxel) as int32: the correctly rounded quotient, floored, then
+// converted as torch's .to(torch.int32) converts on the card
+__device__ __forceinline__ int voxel_index(float q, float voxel) {
+  return static_cast<int>(floorf(__fdiv_rn(q, voxel)));
+}
+
+// Number of flagged queries of lower index than q (the rank of q's rescue
+// slot, factors._compact_indices): 16 flag bytes (0 or 1) per 16-byte load
+__device__ int rescue_rank(const unsigned char* __restrict__ need, int q,
+                           int lane) {
+  const uint4* f = reinterpret_cast<const uint4*>(need);
+  int c = 0;
+  for (int j = lane; 16 * j < q; j += kLanes) {
+    const uint4 w = f[j];
+    const unsigned wd[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int below = q - (16 * j + 4 * i);  // flags of this word below q
+      unsigned bits = below > 0 ? (wd[i] & 0x01010101u) : 0u;
+      if (below > 0 && below < 4) bits &= (1u << (8 * below)) - 1u;
+      c += __popc(bits);
+    }
+  }
+  return __reduce_add_sync(kFull, c);
 }
 
 __device__ __forceinline__ float load_blk(const void* p, long long i,
@@ -206,16 +285,26 @@ __device__ __forceinline__ void write_record(float* out, int q,
 template <int kStage>
 __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
     assoc_kernel(const AssocArgs a) {
-  const int q = blockIdx.x * kWarpsPerBlock + threadIdx.x / kLanes;
+  const int wid = threadIdx.x / kLanes;
+  const int q = blockIdx.x * kWarpsPerBlock + wid;
   const int lane = threadIdx.x % kLanes;
   if (q >= a.m) return;  // the whole warp leaves together
-  const bool mask = a.mask[q] != 0;
+  const float thres = a.thres[0];  // in flight with the query's loads
+  bool mask;
+  if constexpr (kStage == kRescue) {
+    if (!a.need[q]) return;
+    if (a.rescue_cap < a.m && rescue_rank(a.need, q, lane) >= a.rescue_cap)
+      return;
+    mask = true;  // factors' mask_r: every compacted query is live
+  } else {
+    mask = a.mask[q] != 0;
+  }
   const bool bf16 = a.bf16 != 0;
   const long long cand0 = static_cast<long long>(q) * kCand + lane;
 
   // ---- candidates: offsets (dx, dy, dz) and squared distance d2 ----
   float dx[kRows], dy[kRows], dz[kRows], d2[kRows];
-  if (!a.cached) {
+  if (kStage == kRescue || !a.cached) {
     const int px = a.pack[0], py = a.pack[1], pz = a.pack[2];
     const int sub_x = lane / (py * pz);
     const int sub_y = (lane / pz) % py;
@@ -224,36 +313,76 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
     const float off_y = static_cast<float>(sub_y) * a.voxel;
     const float off_z = static_cast<float>(sub_z) * a.voxel;
     const float qx = a.pw[3 * q], qy = a.pw[3 * q + 1], qz = a.pw[3 * q + 2];
-    const int vx = a.v[3 * q], vy = a.v[3 * q + 1], vz = a.v[3 * q + 2];
+
+    // stencil addressing (voxelmap.stencil_addresses), per axis
+    const int vx = voxel_index(qx, a.voxel), vy = voxel_index(qy, a.voxel);
+    const int vz = voxel_index(qz, a.voxel);
+    int svx[2], svy[2], svz[2], mx[2], my[2], mz[2], kx[2], ky[2], kz[2];
+    stencil_axis(vx, a.stencil[0], px, a.sdim[0], svx, mx, kx);
+    stencil_axis(vy, a.stencil[1], py, a.sdim[1], svy, my, ky);
+    stencil_axis(vz, a.stencil[2], pz, a.sdim[2], svz, mz, kz);
+    int slot[kRows];
+#pragma unroll
+    for (int s = 0; s < kRows; ++s)  // meshgrid "ij" order of the window
+      slot[s] = (mx[s >> 2] * a.sdim[1] + my[(s >> 1) & 1]) * a.sdim[2] +
+                mz[s & 1];
+
+    // every row load of the query in flight before the first use
+    float fx[kRows], fy[kRows], fz[kRows], fm[kRows];
+    const float* __restrict__ cells = a.cells;
 #pragma unroll
     for (int s = 0; s < kRows; ++s) {
-      const int e = q * kRows + s;
-      const float* row = a.cells + static_cast<long long>(a.slot[e]) * kRowF;
-      const float sum_x = row[lane], sum_y = row[kLanes + lane];
-      const float sum_z = row[2 * kLanes + lane];
-      const float meta = row[3 * kLanes + lane];
-      if constexpr (kStage == kGather) {
-        float* dst = a.rows + static_cast<long long>(e) * kRowF;
-        dst[lane] = sum_x;
-        dst[kLanes + lane] = sum_y;
-        dst[2 * kLanes + lane] = sum_z;
-        dst[3 * kLanes + lane] = meta;
-        continue;
+      const float* row = cells + static_cast<long long>(slot[s]) * kRowF;
+      fx[s] = __ldg(row + lane);
+      fy[s] = __ldg(row + kLanes + lane);
+      fz[s] = __ldg(row + 2 * kLanes + lane);
+      fm[s] = __ldg(row + 3 * kLanes + lane);
+    }
+
+    if constexpr (kStage == kGather) {
+#pragma unroll
+      for (int s = 0; s < kRows; ++s) {
+        const long long e = static_cast<long long>(q) * kRows + s;
+        float* dst = a.rows + e * kRowF;
+        dst[lane] = fx[s];
+        dst[kLanes + lane] = fy[s];
+        dst[2 * kLanes + lane] = fz[s];
+        dst[3 * kLanes + lane] = fm[s];
+        if (lane == s) {
+          a.g_sv[3 * e] = svx[s >> 2];
+          a.g_sv[3 * e + 1] = svy[(s >> 1) & 1];
+          a.g_sv[3 * e + 2] = svz[s & 1];
+          a.g_slot[e] = slot[s];
+          a.g_key[e] = static_cast<float>(
+              (kx[s >> 2] << 10) | (ky[(s >> 1) & 1] << 5) | kz[s & 1]);
+        }
       }
-      const int svx = a.sv[3 * e], svy = a.sv[3 * e + 1], svz = a.sv[3 * e + 2];
-      const float key_st = floorf(meta / 128.0f);
-      const float cnt = meta - key_st * 128.0f;
-      const bool ok = key_st == a.key[e] && cnt > 0.0f && mask &&
-                      abs(svx * px + sub_x - vx) <= a.stencil[0] &&
-                      abs(svy * py + sub_y - vy) <= a.stencil[1] &&
-                      abs(svz * pz + sub_z - vz) <= a.stencil[2];
+      if (lane == 0) {
+        a.g_v[3 * q] = vx;
+        a.g_v[3 * q + 1] = vy;
+        a.g_v[3 * q + 2] = vz;
+      }
+      return;
+    }
+
+#pragma unroll
+    for (int s = 0; s < kRows; ++s) {
+      const int ix = s >> 2, iy = (s >> 1) & 1, iz = s & 1;
+      const float key = static_cast<float>((kx[ix] << 10) | (ky[iy] << 5) |
+                                           kz[iz]);
+      const float key_st = floorf(fm[s] / 128.0f);
+      const float cnt = fm[s] - key_st * 128.0f;
+      const bool ok = key_st == key && cnt > 0.0f && mask &&
+                      abs(svx[ix] * px + sub_x - vx) <= a.stencil[0] &&
+                      abs(svy[iy] * py + sub_y - vy) <= a.stencil[1] &&
+                      abs(svz[iz] * pz + sub_z - vz) <= a.stencil[2];
       const float inv_cnt = 1.0f / clamp_min(cnt, 1.0f);
-      const float bx = static_cast<float>(svx) * a.pvs[0] - qx;
-      const float by = static_cast<float>(svy) * a.pvs[1] - qy;
-      const float bz = static_cast<float>(svz) * a.pvs[2] - qz;
-      float ox = bx + off_x + sum_x * inv_cnt;
-      float oy = by + off_y + sum_y * inv_cnt;
-      float oz = bz + off_z + sum_z * inv_cnt;
+      const float bx = static_cast<float>(svx[ix]) * a.pvs[0] - qx;
+      const float by = static_cast<float>(svy[iy]) * a.pvs[1] - qy;
+      const float bz = static_cast<float>(svz[iz]) * a.pvs[2] - qz;
+      float ox = bx + off_x + fx[s] * inv_cnt;
+      float oy = by + off_y + fy[s] * inv_cnt;
+      float oz = bz + off_z + fz[s] * inv_cnt;
       float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
       if (bf16) {
         ox = round_bf16(ox);
@@ -265,18 +394,21 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
       dy[s] = oy;
       dz[s] = oz;
       d2[s] = dd;
-      if (a.blk_out[0] != nullptr) {
+    }
+    if (kStage != kRescue && a.blk_out[0] != nullptr) {
+#pragma unroll
+      for (int s = 0; s < kRows; ++s) {
         const long long c = cand0 + s * kLanes;
-        store_blk(a.blk_out[0], c, ox, bf16);
-        store_blk(a.blk_out[1], c, oy, bf16);
-        store_blk(a.blk_out[2], c, oz, bf16);
-        store_blk(a.blk_out[3], c, dd, bf16);
+        store_blk(a.blk_out[0], c, dx[s], bf16);
+        store_blk(a.blk_out[1], c, dy[s], bf16);
+        store_blk(a.blk_out[2], c, dz[s], bf16);
+        store_blk(a.blk_out[3], c, d2[s], bf16);
       }
     }
-    if constexpr (kStage == kGather) return;
   } else {
-    const float ex = a.delta[3 * q], ey = a.delta[3 * q + 1];
-    const float ez = a.delta[3 * q + 2];
+    const float ex = a.pw[3 * q] - a.pw0[3 * q];
+    const float ey = a.pw[3 * q + 1] - a.pw0[3 * q + 1];
+    const float ez = a.pw[3 * q + 2] - a.pw0[3 * q + 2];
 #pragma unroll
     for (int s = 0; s < kRows; ++s) {
       const long long c = cand0 + s * kLanes;
@@ -428,18 +560,23 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
       shape_ok = shape_ok && ev[1] > a.scatter_ratio * ev[2];
     err0 = fabsf(dist);
   }
-  const bool valid = mask && n >= static_cast<float>(a.k) && t_k < a.thres[0] &&
+  const bool valid = mask && n >= static_cast<float>(a.k) && t_k < thres &&
                      shape_ok && err0 > 1e-5f;
   if (lane == 0) {
-    const float r[9] = {mu[0],  mu[1], mu[2], vec[0], vec[1],
-                        vec[2], valid ? 1.0f : 0.0f, t_k, n};
+    if constexpr (kStage == kRescue) {
+      if (!valid) return;  // the first map's record stays
+    }
+    const float r[10] = {mu[0],  mu[1], mu[2], vec[0], vec[1], vec[2],
+                         valid ? 1.0f : 0.0f, t_k, n,
+                         kStage == kRescue ? 1.0f : 0.0f};
 #pragma unroll
-    for (int i = 0; i < 9; ++i) rec[i] = r[i];
+    for (int i = 0; i < 10; ++i) rec[i] = r[i];
     write_record(a.out, q, rec);
+    a.valid[q] = valid ? 1 : 0;
     if constexpr (kStage == kNeed) {
       const bool need = mask && !valid;
       a.need[q] = need ? 1 : 0;
-      if (need) atomicAdd(a.need_count, 1);
+      if (need && a.need_count != nullptr) atomicAdd(a.need_count, 1);
     }
   }
 }
@@ -455,20 +592,24 @@ int launch(const AssocArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // Launches the association kernel stopped after `stage` (0 GATHER, 1
-// SELECT, 2 MOMENTS, 3 EIG, 4 OUT, 5 NEED) on `stream`; returns
+// SELECT, 2 MOMENTS, 3 EIG, 4 OUT, 5 NEED, 6 RESCUE) on `stream`; returns
 // cudaGetLastError() (0 on success).  `args` is read on the host only.
 extern "C" int assoc_launch(int stage, const AssocArgs* args, void* stream) {
   if (args->m <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fresh = !args->cached;
   switch (stage) {
     case kGather:
-      if (args->cached) return static_cast<int>(cudaErrorInvalidValue);
+      if (!fresh) return static_cast<int>(cudaErrorInvalidValue);
       return launch<kGather>(*args, s);
     case kSelect: return launch<kSelect>(*args, s);
     case kMoments: return launch<kMoments>(*args, s);
     case kEig: return launch<kEig>(*args, s);
     case kOut: return launch<kOut>(*args, s);
     case kNeed: return launch<kNeed>(*args, s);
+    case kRescue:
+      if (!fresh) return static_cast<int>(cudaErrorInvalidValue);
+      return launch<kRescue>(*args, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -65,10 +65,15 @@ def build(source: str) -> str:
     return out
 
 
-def load(source: str):
-    """ctypes handle of the built `csrc/<source>` (built on first use)."""
+def load(source: str, bind=None):
+    """ctypes handle of the built `csrc/<source>` (built on first use).
+    `bind(lib)`, when given, runs once as the library loads: it sets the
+    entry points' argtypes, so a launch does not set them again."""
     if source not in _LOADED:
         import ctypes
 
-        _LOADED[source] = ctypes.CDLL(build(source))
+        lib = ctypes.CDLL(build(source))
+        if bind is not None:
+            bind(lib)
+        _LOADED[source] = lib
     return _LOADED[source]

@@ -63,71 +63,18 @@ def _rescue_cap(M, frac):
     return min(M, max(128, (mr + 127) // 128 * 128))
 
 
-def _compact_indices(fail, Mr):
-    """Indices of the first Mr True entries of `fail` (M,), padded with M."""
-    M = fail.shape[0]
-    dev = fail.device
-    pos = torch.cumsum(fail.to(torch.int32), dim=0) - 1
-    dst = torch.where(fail & (pos < Mr), pos, torch.full_like(pos, Mr))
-    sel = torch.full((Mr + 1,), M, dtype=torch.int32, device=dev)
-    sel = sel.index_put((dst.to(torch.int64),),
-                        torch.arange(M, dtype=torch.int32, device=dev))
-    return sel[:Mr]
-
-
-def _take_fill(a, idx):
-    """a[idx] with out-of-range idx (== len(a)) reading zeros."""
-    pad = torch.zeros((1,) + tuple(a.shape[1:]), dtype=a.dtype,
-                      device=a.device)
-    return torch.cat([a, pad])[idx.to(torch.int64)]
-
-
-def _set_drop(a, idx, vals):
-    """a.at[idx].set(vals, mode="drop") with idx == len(a) dropped."""
-    pad = torch.zeros((1,) + tuple(a.shape[1:]), dtype=a.dtype,
-                      device=a.device)
-    out = torch.cat([a, pad]).index_put((idx.to(torch.int64),),
-                                        vals.to(a.dtype))
-    return out[:-1]
-
-
 def associate_lines(x6, p_l, mask, vm, Rbl, tbl, cfg, thres_dist,
                     vm_local=None, cached=None, with_blocks=False):
-    """Corner association: 5-NN -> PCA line fit -> eigenvalue gate (kernel
-    K2, ops/assoc.py), with the local-map rescue of failed points (see the
-    reference)."""
+    """Corner association: 5-NN -> PCA line fit -> eigenvalue gate, with
+    the local-map rescue of failed points (kernel K2,
+    `assoc.associate_with_rescue`; see the reference)."""
     pw = _world_points(x6, p_l, Rbl, tbl)
-    k = cfg.map.knn
-    M = pw.shape[0]
-
-    def one_map_sub(vmi, mcfg, pwq, maskq, cac=None, want_blocks=False):
-        r, blo = assoc.associate(vmi, pwq, maskq, mcfg, k, assoc.LINE,
-                                 thres_dist, cached=cac,
-                                 want_blocks=want_blocks)
-        return pwq + r.mu, r.vec, r.valid, blo
-
-    c, u, valid, blocks = one_map_sub(vm, cfg.map, pw, mask, cached,
-                                      want_blocks=with_blocks)
-    if vm_local is not None:
-        Mr = _rescue_cap(M, cfg.solver.local_rescue_frac)
-        if Mr >= M:
-            c2, u2, valid2, _ = one_map_sub(vm_local, cfg.local_map, pw,
-                                            mask)
-            use2 = (~valid & valid2)[:, None]
-            c = torch.where(use2, c2, c)
-            u = torch.where(use2, u2, u)
-            valid = valid | valid2
-        else:
-            sel = _compact_indices(mask & ~valid, Mr)
-            pw_r = _take_fill(pw, sel)
-            mask_r = sel < M
-            c2, u2, valid2, _ = one_map_sub(vm_local, cfg.local_map, pw_r,
-                                            mask_r)
-            sel_ok = torch.where(valid2, sel, torch.full_like(sel, M))
-            c = _set_drop(c, sel_ok, c2)
-            u = _set_drop(u, sel_ok, u2)
-            valid = _set_drop(valid, sel_ok, torch.ones_like(valid2))
-    lt = LineTargets(p_l=p_l, c=c, u=u, valid=valid)
+    r, blocks = assoc.associate_with_rescue(
+        vm, vm_local, pw, mask, cfg.map, cfg.local_map, cfg.map.knn,
+        assoc.LINE, thres_dist, 0.0,
+        _rescue_cap(pw.shape[0], cfg.solver.local_rescue_frac),
+        cached=cached, want_blocks=with_blocks)
+    lt = LineTargets(p_l=p_l, c=pw + r.mu, u=r.vec, valid=r.valid)
     return (lt, blocks) if with_blocks else lt
 
 
@@ -150,41 +97,18 @@ def _plane_basis(omega):
 def associate_planes(x6, p_l, mask, vm, Rbl, tbl, cfg, thres_dist,
                      weight_tan, vm_local=None, cached=None,
                      with_blocks=False):
-    """Surf association: 5-NN -> TLS plane fit -> flatness gates (kernel
-    K2, ops/assoc.py), with the local-map rescue.  Returns (PlaneTargets,
-    normals, normal_valid) (+ blocks when with_blocks)."""
+    """Surf association: 5-NN -> TLS plane fit -> flatness gates, with the
+    local-map rescue (kernel K2, `assoc.associate_with_rescue`).  Returns
+    (PlaneTargets, normals, normal_valid) (+ blocks when with_blocks)."""
     pw = _world_points(x6, p_l, Rbl, tbl)
-    k = cfg.map.knn
-    M = pw.shape[0]
-
-    def one_map_sub(vmi, mcfg, pwq, maskq, cac=None, want_blocks=False):
-        r, blo = assoc.associate(vmi, pwq, maskq, mcfg, k, assoc.PLANE,
-                                 thres_dist, cfg.solver.plane_scatter_ratio,
-                                 cached=cac, want_blocks=want_blocks)
-        dist = -torch.sum(r.vec * r.mu, dim=-1)
-        return pwq - dist[:, None] * r.vec, r.vec, r.valid, blo
-
-    proj, omega, valid, blocks = one_map_sub(vm, cfg.map, pw, mask, cached,
-                                             want_blocks=with_blocks)
-    if vm_local is not None:
-        Mr = _rescue_cap(M, cfg.solver.local_rescue_frac)
-        if Mr >= M:
-            proj2, omega2, valid2, _ = one_map_sub(vm_local, cfg.local_map,
-                                                   pw, mask)
-            use2 = (~valid & valid2)[:, None]
-            proj = torch.where(use2, proj2, proj)
-            omega = torch.where(use2, omega2, omega)
-            valid = valid | valid2
-        else:
-            sel = _compact_indices(mask & ~valid, Mr)
-            pw_r = _take_fill(pw, sel)
-            mask_r = sel < M
-            proj2, omega2, valid2, _ = one_map_sub(vm_local, cfg.local_map,
-                                                   pw_r, mask_r)
-            sel_ok = torch.where(valid2, sel, torch.full_like(sel, M))
-            proj = _set_drop(proj, sel_ok, proj2)
-            omega = _set_drop(omega, sel_ok, omega2)
-            valid = _set_drop(valid, sel_ok, torch.ones_like(valid2))
+    r, blocks = assoc.associate_with_rescue(
+        vm, vm_local, pw, mask, cfg.map, cfg.local_map, cfg.map.knn,
+        assoc.PLANE, thres_dist, cfg.solver.plane_scatter_ratio,
+        _rescue_cap(pw.shape[0], cfg.solver.local_rescue_frac),
+        cached=cached, want_blocks=with_blocks)
+    omega, valid = r.vec, r.valid
+    dist = -torch.sum(omega * r.mu, dim=-1)
+    proj = pw - dist[:, None] * omega
 
     basis = _plane_basis(omega)
     wt = torch.as_tensor(weight_tan, dtype=pw.dtype, device=pw.device)

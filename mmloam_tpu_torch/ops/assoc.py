@@ -1,5 +1,6 @@
 """Fused stencil association (kernel K2): k-nearest selection, moments and
-the closed-form line / plane fit of each query against one voxel map.
+the closed-form line / plane fit of each query against one voxel map, and
+the local-map rescue of the queries the persistent map failed.
 
 Port of the archived Pallas kernel scripts/pallas_assoc.py
 (`_assoc_pallas` -> `_assoc_kernel`).  It follows the port's production
@@ -12,20 +13,33 @@ re-expresses the round-0 candidate blocks at moved queries
 `associate` launches `csrc/assoc.cu` on CUDA tensors (counted in
 LAUNCHES; raises if the kernel cannot be built or launched) and takes
 `associate_reference`, the plain torch composition, on CPU tensors.
-CALLS counts calls of the dispatcher, so a run on CUDA tensors that went
-through the kernel every time shows LAUNCHES == CALLS.
+`associate_with_rescue` adds factors' local-map rescue: on CUDA tensors
+two launches with no torch op between them (NEED against the persistent
+map, RESCUE against the local map, counted in RESCUE_LAUNCHES), on CPU
+tensors `associate_with_rescue_reference`.  The kernel computes each
+query's stencil addressing itself from pw; `voxelmap.stencil_addresses`
+is the plain version's.  CALLS counts calls of the two dispatchers, so a
+run on CUDA tensors that went through the kernel every time shows
+LAUNCHES == CALLS + RESCUE_LAUNCHES.
 
 The kernel has a compile-time stage and stops after it, writing that
 stage's result (`run_stage`; `stage_reference` is the same cut of the
 plain version).  The stages are the Mosaic lowering probes of
 scripts/bisect_mosaic.py and bisect_mosaic2.py, kept as device tests:
 
-  GATHER   the (M, 8, 128) stencil rows read (fresh entry only)
+  GATHER   the (M, 8, 128) stencil rows read and the addresses the kernel
+           computed: v (M, 3), sv (M, 8, 3), slot (M, 8), key (M, 8)
+           (fresh entry only)
   SELECT   t_k, n
   MOMENTS  + s1 (M, 3), s2 (M, 3, 3)
   EIG      evals (M, 3) ascending, vec (M, 3)
   OUT      mu, vec, valid, t_k, n (what `associate` returns)
   NEED     OUT + the rescue flag mask & ~valid and its count
+
+RESCUE, the second launch of a rescue pair, is not a cut: `run_rescue`
+returns the merged records with the flags and which map served each
+query, and `compare_rescue` holds them against the two maps' plain
+versions.
 """
 
 from __future__ import annotations
@@ -39,15 +53,18 @@ from . import linalg3, voxelmap
 
 _SOURCE = "assoc.cu"
 PLANE, LINE = 0, 1                 # mode numbers of the archived kernel
-GATHER, SELECT, MOMENTS, EIG, OUT, NEED = range(6)
+GATHER, SELECT, MOMENTS, EIG, OUT, NEED, RESCUE = range(7)
 STAGE_NAMES = ("GATHER", "SELECT", "MOMENTS", "EIG", "OUT", "NEED")
 _REC = 16                          # floats per query in the kernel's output
 _ROWS = 8                          # stencil superrows per query
 _CAND = _ROWS * 32                 # candidates per query
 
 # kernel launches made by the wrapper (counted where it launches, nowhere
-# else) and calls of `associate`; callers reset both to 0 to check a run
+# else), the second launches of rescue pairs among them, and calls of
+# `associate` and `associate_with_rescue`; callers reset all three to 0 to
+# check a run
 LAUNCHES = 0
+RESCUE_LAUNCHES = 0
 CALLS = 0
 
 
@@ -169,8 +186,9 @@ def stage_reference(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
     `run_stage`'s result.  OUT and NEED also carry `gates`, the
     (quantity, threshold) pairs of the fit's gates (see `near_threshold`)."""
     if stage == GATHER:
-        slot = voxelmap.stencil_addresses(pw, mcfg).slot
-        return dict(rows=vm.cells[slot.to(torch.int64)])
+        addr = voxelmap.stencil_addresses(pw, mcfg)
+        return dict(rows=vm.cells[addr.slot.to(torch.int64)],
+                    **addr._asdict())
     t_k, n, s1, s2, blk, _ = _neighbor_moments(vm, pw, mask, mcfg, k, cached)
     if stage == SELECT:
         return dict(t_k=t_k, n=n)
@@ -247,6 +265,9 @@ def compare(stage, got, ref, mask, mode):
         stats["max_abs_err"] = max(stats["max_abs_err"], err)
 
     if stage == GATHER:
+        for name in ("v", "sv", "slot", "key"):
+            if not torch.equal(got[name], ref[name]):
+                fail(f"{name} differs from voxelmap.stencil_addresses")
         if not torch.equal(got["rows"], ref["rows"]):
             fail("rows read differ from cells[slot]")
         return stats
@@ -288,6 +309,133 @@ def compare(stage, got, ref, mask, mode):
 
 
 # --------------------------------------------------------------------------
+# the local-map rescue, plain version
+# --------------------------------------------------------------------------
+
+def _compact_indices(fail, Mr):
+    """Indices of the first Mr True entries of `fail` (M,), padded with M."""
+    M = fail.shape[0]
+    dev = fail.device
+    pos = torch.cumsum(fail.to(torch.int32), dim=0) - 1
+    dst = torch.where(fail & (pos < Mr), pos, torch.full_like(pos, Mr))
+    sel = torch.full((Mr + 1,), M, dtype=torch.int32, device=dev)
+    sel = sel.index_put((dst.to(torch.int64),),
+                        torch.arange(M, dtype=torch.int32, device=dev))
+    return sel[:Mr]
+
+
+def _take_fill(a, idx):
+    """a[idx] with out-of-range idx (== len(a)) reading zeros."""
+    pad = torch.zeros((1,) + tuple(a.shape[1:]), dtype=a.dtype,
+                      device=a.device)
+    return torch.cat([a, pad])[idx.to(torch.int64)]
+
+
+def _set_drop(a, idx, vals):
+    """a.at[idx].set(vals, mode="drop") with idx == len(a) dropped."""
+    pad = torch.zeros((1,) + tuple(a.shape[1:]), dtype=a.dtype,
+                      device=a.device)
+    out = torch.cat([a, pad]).index_put((idx.to(torch.int64),),
+                                        vals.to(a.dtype))
+    return out[:-1]
+
+
+def associate_with_rescue_reference(vm, vm_local, pw, mask, mcfg, lcfg, k,
+                                    mode, thres_dist, scatter_ratio,
+                                    rescue_cap, cached: StackBlocks = None,
+                                    want_blocks=False):
+    """Plain version of `associate_with_rescue` on any device, factors'
+    composition as the reference runs it: associate against the persistent
+    map; compact the first `rescue_cap` failed queries (mask & ~valid, in
+    index order), associate them against the local map, and scatter back
+    those valid there (every failed query is tried when rescue_cap >= M).
+    Returns (Assoc merged, StackBlocks of the persistent map or None)."""
+    r, blocks = associate_reference(vm, pw, mask, mcfg, k, mode, thres_dist,
+                                    scatter_ratio, cached)
+    blocks = blocks if want_blocks or cached is not None else None
+    if vm_local is None:
+        return r, blocks
+    M = pw.shape[0]
+    if rescue_cap >= M:
+        r2, _ = associate_reference(vm_local, pw, mask, lcfg, k, mode,
+                                    thres_dist, scatter_ratio)
+        use2 = ~r.valid & r2.valid
+        pick = lambda a, b: torch.where(
+            use2.reshape((M,) + (1,) * (a.dim() - 1)), b, a)
+        return Assoc(*map(pick, r, r2)), blocks
+    sel = _compact_indices(mask & ~r.valid, rescue_cap)
+    r2, _ = associate_reference(vm_local, _take_fill(pw, sel), sel < M, lcfg,
+                                k, mode, thres_dist, scatter_ratio)
+    sel_ok = torch.where(r2.valid, sel, torch.full_like(sel, M))
+    return Assoc(*(_set_drop(a, sel_ok, b) for a, b in zip(r, r2))), blocks
+
+
+def _tried(need, rescue_cap):
+    """Flagged queries whose rank among the flags below them is under the
+    cap: the ones the rescue associates against the local map."""
+    rank = torch.cumsum(need.to(torch.int32), dim=0) - need.to(torch.int32)
+    return need & (rank < rescue_cap)
+
+
+def _merge(first, second, use2):
+    """Per-query `second` where use2, else `first` (dicts of stage results;
+    gate lists merged pair by pair)."""
+    out = {}
+    for name, a in first.items():
+        b = second.get(name)
+        if name == "gates":
+            out[name] = []
+            for (qa, ta), (qb, tb) in zip(a, b):
+                t = lambda x: torch.as_tensor(x, dtype=qa.dtype,
+                                              device=qa.device).expand_as(qa)
+                out[name].append((torch.where(use2, qb, qa),
+                                  torch.where(use2, t(tb), t(ta))))
+        elif b is not None and torch.is_tensor(a) and a.dim() >= 1:
+            out[name] = torch.where(
+                use2.reshape((-1,) + (1,) * (a.dim() - 1)), b, a)
+    return out
+
+
+def rescue_stage_reference(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
+                           thres_dist, scatter_ratio=0.0,
+                           cached: StackBlocks = None):
+    """The plain cuts a rescue pair is held against: NEED on the persistent
+    map and OUT on the local map, each over every query (each query's
+    association is independent of the others)."""
+    return (stage_reference(NEED, vm, pw, mask, mcfg, k, mode, thres_dist,
+                            scatter_ratio, cached),
+            stage_reference(OUT, vm_local, pw, mask, lcfg, k, mode,
+                            thres_dist, scatter_ratio))
+
+
+def compare_rescue(got, refs, mask, mode, rescue_cap):
+    """Hold a rescue pair (`run_rescue`) against `rescue_stage_reference`.
+    The kernel's own flags rank the queries, so a flag that differs from
+    the plain version's (allowed only near a gate) moves no other query's
+    rescue.  Raises AssertionError; returns `compare`'s stats plus the
+    numbers of flagged and served queries."""
+    def fail(what):
+        raise AssertionError(f"K2 RESCUE: {what}")
+
+    first, second = refs
+    need, served = got["need"], got["served"]
+    near1 = near_threshold(first["gates"], GATE_EPS) & mask
+    if bool(((need != first["need"]) & ~near1).any()):
+        fail("flags differ from the plain version away from a gate")
+    tried = _tried(need, rescue_cap)
+    if bool((served & ~tried).any()):
+        fail("a query outside the ranked flags was served by the local map")
+    if not torch.equal(got["valid"], (mask & ~need) | served):
+        fail("valid is not the first map's outside the flags, served in them")
+    near2 = near_threshold(second["gates"], GATE_EPS) & tried
+    if bool(((served != (tried & second["valid"])) & ~near2).any()):
+        fail("served differs from the local map's plain fit away from a gate")
+    stats = compare(OUT, got, _merge(first, second, served), mask, mode)
+    stats.update(flagged=int(need.sum()), served=int(served.sum()))
+    return stats
+
+
+# --------------------------------------------------------------------------
 # kernel
 # --------------------------------------------------------------------------
 
@@ -300,22 +448,39 @@ def _args_struct():
         import ctypes
 
         p = ctypes.c_void_p
+        i = ctypes.c_int
 
         class AssocArgs(ctypes.Structure):
             _fields_ = [
-                ("cells", p), ("pw", p), ("mask", p), ("v", p), ("sv", p),
-                ("slot", p), ("key", p), ("blk_in", p * 4), ("delta", p),
-                ("blk_out", p * 4), ("thres", p), ("out", p), ("rows", p),
-                ("need", p), ("need_count", p), ("n_rows", ctypes.c_longlong),
-                ("m", ctypes.c_int), ("mode", ctypes.c_int),
-                ("bf16", ctypes.c_int), ("cached", ctypes.c_int),
-                ("k", ctypes.c_int), ("pack", ctypes.c_int * 3),
-                ("stencil", ctypes.c_int * 3), ("voxel", ctypes.c_float),
-                ("pvs", ctypes.c_float * 3),
+                ("cells", p), ("pw", p), ("mask", p), ("blk_in", p * 4),
+                ("pw0", p), ("blk_out", p * 4), ("thres", p), ("out", p),
+                ("valid", p), ("rows", p), ("g_v", p), ("g_sv", p),
+                ("g_slot", p), ("g_key", p), ("need", p), ("need_count", p),
+                ("m", i), ("mode", i), ("bf16", i), ("cached", i), ("k", i),
+                ("rescue_cap", i), ("pack", i * 3),
+                ("stencil", i * 3), ("sdim", i * 3),
+                ("voxel", ctypes.c_float), ("pvs", ctypes.c_float * 3),
                 ("scatter_ratio", ctypes.c_float)]
 
+        assert ctypes.sizeof(AssocArgs) == 256, "see csrc/assoc.cu"
         _ARGS_CLS.append(AssocArgs)
     return _ARGS_CLS[0]
+
+
+def _check_map(vm, mcfg, dev):
+    if voxelmap._cpr(mcfg) != 32 or voxelmap._super_window(mcfg) != (2, 2, 2):
+        raise NotImplementedError(
+            "the association kernel assumes 32 cells per row and a "
+            "2x2x2-superrow stencil window")
+    c = vm.cells
+    if c.dtype != torch.float32 or c.dim() != 2 or c.shape[1] != 128 \
+            or not c.is_contiguous() or c.device != dev:
+        raise ValueError("cells must be a contiguous (Cs, 128) float32 "
+                         f"tensor on {dev}")
+    sd = voxelmap._sdims(mcfg)
+    if c.shape[0] != sd[0] * sd[1] * sd[2]:
+        raise ValueError(f"cells hold {c.shape[0]} superrows, the map config "
+                         f"{sd[0] * sd[1] * sd[2]}")
 
 
 def _check(vm, pw, mask, mcfg, k, mode, cached):
@@ -327,18 +492,10 @@ def _check(vm, pw, mask, mcfg, k, mode, cached):
     if mask.dtype != torch.bool or tuple(mask.shape) != (M,) \
             or mask.device != dev:
         raise ValueError(f"mask must be ({M},) bool on {dev}")
-    if voxelmap._cpr(mcfg) != 32 or voxelmap._super_window(mcfg) != (2, 2, 2):
-        raise NotImplementedError(
-            "the association kernel assumes 32 cells per row and a "
-            "2x2x2-superrow stencil window")
     if mode not in (PLANE, LINE) or not 1 <= k <= _CAND:
         raise ValueError(f"mode {mode} / k {k} not supported")
     if cached is None:
-        c = vm.cells
-        if c.dtype != torch.float32 or c.dim() != 2 or c.shape[1] != 128 \
-                or not c.is_contiguous() or c.device != dev:
-            raise ValueError("cells must be a contiguous (Cs, 128) float32 "
-                             f"tensor on {dev}")
+        _check_map(vm, mcfg, dev)
         return
     store = torch.bfloat16 if mcfg.dense_bf16 else torch.float32
     for name in ("dxd", "dyd", "dzd", "d2d"):
@@ -347,83 +504,110 @@ def _check(vm, pw, mask, mcfg, k, mode, cached):
                 or not a.is_contiguous() or a.device != dev:
             raise ValueError(f"cached.{name}: expected contiguous "
                              f"({M}, {_CAND}) {store} on {dev}")
-    if tuple(cached.pw0.shape) != (M, 3) or cached.pw0.device != dev:
-        raise ValueError("cached.pw0 must be (M, 3) on the queries' device")
+    p0 = cached.pw0
+    if tuple(p0.shape) != (M, 3) or p0.dtype != torch.float32 \
+            or not p0.is_contiguous() or p0.device != dev:
+        raise ValueError("cached.pw0 must be a contiguous (M, 3) float32 "
+                         "tensor on the queries' device")
+
+
+def _set_map(a, vm, mcfg):
+    """The per-map fields of `AssocArgs`."""
+    px, py, pz = voxelmap._pack(mcfg)
+    a.cells = vm.cells.data_ptr()
+    a.bf16 = int(bool(mcfg.dense_bf16))
+    a.pack[:] = [px, py, pz]
+    a.stencil[:] = [mcfg.stencil_x, mcfg.stencil_y, mcfg.stencil_z]
+    a.sdim[:] = list(voxelmap._sdims(mcfg))
+    a.voxel = mcfg.voxel_size
+    a.pvs[:] = [px * mcfg.voxel_size, py * mcfg.voxel_size,
+                pz * mcfg.voxel_size]
 
 
 def prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
-            cached, want_blocks):
-    """Check the inputs, compute the stencil addressing (fresh entry) and
-    allocate the outputs of one launch.  Returns (args, bufs): the ctypes
-    `AssocArgs` for `launch` and the tensors it points to, which must
-    live until the launch has run."""
+            cached, want_blocks, need_count=True):
+    """Check the inputs and allocate the outputs of one launch.  Returns
+    (args, bufs): the ctypes `AssocArgs` for `launch` and the tensors it
+    points to, which must live until the launch has run.  The NEED stage
+    counts its flags only with `need_count`."""
     _check(vm, pw, mask, mcfg, k, mode, cached)
     if stage == GATHER and cached is not None:
         raise ValueError("the GATHER stage reads map rows: fresh entry only")
     M = pw.shape[0]
     dev = pw.device
-    f32 = torch.float32
-    store = torch.bfloat16 if mcfg.dense_bf16 else f32
+    f32, i32 = torch.float32, torch.int32
     pw = pw.contiguous()
     mask = mask.contiguous()
-    px, py, pz = voxelmap._pack(mcfg)
     a = _args_struct()()
     bufs = dict(pw=pw, mask=mask,
                 thres=torch.as_tensor(thres_dist, dtype=f32,
                                       device=dev).reshape(1).contiguous(),
-                out=torch.empty((M, _REC), dtype=f32, device=dev))
+                out=torch.empty((M, _REC), dtype=f32, device=dev),
+                valid=torch.empty((M,), dtype=torch.bool, device=dev))
     if cached is None:
-        addr = voxelmap.stencil_addresses(pw, mcfg)
-        bufs.update(cells=vm.cells, v=addr.v.contiguous(),
-                    sv=addr.sv.contiguous(), slot=addr.slot.contiguous(),
-                    key=addr.key.contiguous())
+        _set_map(a, vm, mcfg)
+        bufs["cells"] = vm.cells
         if want_blocks:
+            store = torch.bfloat16 if mcfg.dense_bf16 else f32
             blk = [torch.empty((M, _CAND), dtype=store, device=dev)
                    for _ in range(4)]
             bufs["blk_out"] = blk
             a.blk_out[:] = [b.data_ptr() for b in blk]
-        a.n_rows = vm.cells.shape[0]
-    else:
-        bufs["delta"] = (pw - cached.pw0).contiguous()
+    else:                       # the cached entry reads no map
+        a.bf16 = int(bool(mcfg.dense_bf16))
+        bufs["pw0"] = cached.pw0
         a.blk_in[:] = [cached.dxd.data_ptr(), cached.dyd.data_ptr(),
                        cached.dzd.data_ptr(), cached.d2d.data_ptr()]
     if stage == GATHER:
-        bufs["rows"] = torch.empty((M, _ROWS, 128), dtype=f32, device=dev)
+        bufs.update(rows=torch.empty((M, _ROWS, 128), dtype=f32, device=dev),
+                    g_v=torch.empty((M, 3), dtype=i32, device=dev),
+                    g_sv=torch.empty((M, _ROWS, 3), dtype=i32, device=dev),
+                    g_slot=torch.empty((M, _ROWS), dtype=i32, device=dev),
+                    g_key=torch.empty((M, _ROWS), dtype=f32, device=dev))
     if stage == NEED:
-        bufs["need"] = torch.empty((M,), dtype=torch.int32, device=dev)
-        bufs["need_count"] = torch.zeros((1,), dtype=torch.int32, device=dev)
-    for name in ("cells", "pw", "mask", "v", "sv", "slot", "key", "delta",
-                 "thres", "out", "rows", "need", "need_count"):
+        # padded to whole 16-byte words: RESCUE reads 16 flags at a time
+        bufs["need"] = torch.empty(((M + 15) // 16 * 16,), dtype=torch.bool,
+                                   device=dev)
+        if need_count:
+            bufs["need_count"] = torch.zeros((1,), dtype=i32, device=dev)
+    for name in ("pw", "mask", "pw0", "thres", "out", "valid", "rows", "g_v",
+                 "g_sv", "g_slot", "g_key", "need", "need_count"):
         if name in bufs:
             setattr(a, name, bufs[name].data_ptr())
     a.m, a.mode, a.k = M, mode, k
-    a.bf16, a.cached = int(bool(mcfg.dense_bf16)), int(cached is not None)
-    a.pack[:] = [px, py, pz]
-    a.stencil[:] = [mcfg.stencil_x, mcfg.stencil_y, mcfg.stencil_z]
-    a.voxel = mcfg.voxel_size
-    a.pvs[:] = [px * mcfg.voxel_size, py * mcfg.voxel_size,
-                pz * mcfg.voxel_size]
+    a.cached = int(cached is not None)
     a.scatter_ratio = scatter_ratio
     return a, bufs
 
 
+def _bind(lib):
+    import ctypes
+
+    lib.assoc_launch.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+    lib.assoc_launch.restype = ctypes.c_int
+
+
 def launch(stage, args, device):
     """Launch the kernel stopped after `stage` on `device`'s current
-    stream (counted in LAUNCHES); raises if it cannot be built or
-    launched."""
-    global LAUNCHES
+    stream (counted in LAUNCHES, and a RESCUE launch in RESCUE_LAUNCHES);
+    raises if it cannot be built or launched."""
+    global LAUNCHES, RESCUE_LAUNCHES
     import ctypes
 
     from .. import cuda_build
 
-    fn = cuda_build.load(_SOURCE).assoc_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(stage, ctypes.byref(args), stream)
+    fn = cuda_build.load(_SOURCE, _bind).assoc_launch
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(stage, ctypes.byref(args),
+                torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(stage, ctypes.byref(args),
+                    torch.cuda.current_stream().cuda_stream)
     if args.m > 0:                  # assoc_launch launches nothing for m = 0
         LAUNCHES += 1
+        RESCUE_LAUNCHES += stage == RESCUE
     if rc != 0:
         raise RuntimeError(f"assoc_launch failed: CUDA error {rc}")
 
@@ -448,7 +632,8 @@ def _s2(rec):
 def _decode(stage, bufs):
     out = bufs["out"]
     if stage == GATHER:
-        return dict(rows=bufs["rows"])
+        return {name.removeprefix("g_"): bufs[name]
+                for name in ("rows", "g_v", "g_sv", "g_slot", "g_key")}
     if stage == SELECT:
         return dict(t_k=out[:, 7], n=out[:, 8])
     if stage == MOMENTS:
@@ -456,10 +641,13 @@ def _decode(stage, bufs):
                     n=out[:, 10])
     if stage == EIG:
         return dict(evals=out[:, 0:3], vec=out[:, 3:6])
-    res = dict(mu=out[:, 0:3], vec=out[:, 3:6], valid=out[:, 6] > 0.5,
+    res = dict(mu=out[:, 0:3], vec=out[:, 3:6], valid=bufs["valid"],
                t_k=out[:, 7], n=out[:, 8])
     if stage == NEED:
-        res.update(need=bufs["need"] != 0, need_count=bufs["need_count"][0])
+        M = out.shape[0]
+        res["need"] = bufs["need"][:M]
+        if "need_count" in bufs:
+            res["need_count"] = bufs["need_count"][0]
     return res
 
 
@@ -485,18 +673,76 @@ def associate(vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio=0.0,
     otherwise the map rows are read and, with `want_blocks`, the four dense
     candidate blocks are returned for later `cached` calls.  Returns
     (Assoc, StackBlocks or None)."""
+    return associate_with_rescue(vm, None, pw, mask, mcfg, None, k, mode,
+                                 thres_dist, scatter_ratio, 0, cached,
+                                 want_blocks)
+
+
+def _rescue_pair(vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
+                 scatter_ratio, rescue_cap, cached, want_blocks):
+    """Launch NEED on the persistent map, then RESCUE on the local map
+    (OUT alone without one); returns the buffers they wrote."""
+    dev = pw.device
+    stage = OUT if vm_local is None else NEED
+    if vm_local is not None:
+        _check_map(vm_local, lcfg, dev)
+    a, bufs = prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
+                      scatter_ratio, cached, want_blocks, need_count=False)
+    launch(stage, a, dev)
+    if vm_local is not None:
+        a2 = _args_struct().from_buffer_copy(a)
+        _set_map(a2, vm_local, lcfg)
+        a2.cached, a2.mask = 0, None
+        a2.blk_out[:] = [None] * 4
+        a2.rescue_cap = min(int(rescue_cap), pw.shape[0])
+        bufs["cells_local"] = vm_local.cells
+        launch(RESCUE, a2, dev)
+    return bufs
+
+
+def associate_with_rescue(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
+                          thres_dist, scatter_ratio, rescue_cap,
+                          cached: StackBlocks = None, want_blocks=False):
+    """Association against the persistent map `vm` with the local-map
+    rescue of factors (`vm_local` None: none): the queries that failed
+    (mask & ~valid), the first `rescue_cap` of them in index order (all
+    when rescue_cap >= M), are associated against `vm_local` with `lcfg`,
+    and take that result where it is valid.  On CUDA tensors two kernel
+    launches and no torch op; `associate_with_rescue_reference` on CPU
+    tensors.  Returns (Assoc merged, StackBlocks or None) as `associate`."""
     global CALLS
     CALLS += 1
-    keep = want_blocks or cached is not None
     if not pw.is_cuda:
-        r, blocks = associate_reference(vm, pw, mask, mcfg, k, mode,
-                                        thres_dist, scatter_ratio, cached)
-        return r, blocks if keep else None
-    bufs = _launch(OUT, vm, pw, mask, mcfg, k, mode, thres_dist,
-                   scatter_ratio, cached, want_blocks)
+        return associate_with_rescue_reference(
+            vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
+            scatter_ratio, rescue_cap, cached, want_blocks)
+    bufs = _rescue_pair(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
+                        thres_dist, scatter_ratio, rescue_cap, cached,
+                        want_blocks)
     r = Assoc(**_decode(OUT, bufs))
     if cached is not None:
         return r, cached
     if want_blocks:
         return r, StackBlocks(pw, *bufs["blk_out"])
     return r, None
+
+
+def run_rescue(vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
+               scatter_ratio, rescue_cap, cached: StackBlocks = None):
+    """A rescue pair as `associate_with_rescue` runs it, with what
+    `compare_rescue` reads: the merged mu, vec, valid, t_k, n, the first
+    launch's flags `need` and `served` (the local map answered).  The
+    kernel on CUDA tensors; on CPU tensors the plain cuts of
+    `rescue_stage_reference`, merged as the kernel merges them."""
+    if not pw.is_cuda:
+        first, second = rescue_stage_reference(
+            vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
+            scatter_ratio, cached)
+        served = _tried(first["need"], rescue_cap) & second["valid"]
+        out = _merge(first, second, served)
+        return dict({f: out[f] for f in Assoc._fields}, need=first["need"],
+                    served=served)
+    bufs = _rescue_pair(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
+                        thres_dist, scatter_ratio, rescue_cap, cached, False)
+    res = _decode(NEED, bufs)
+    return dict(res, served=bufs["out"][:, 9] > 0.5)

@@ -1,12 +1,19 @@
-"""Batched voxel-map insertion through the CUDA row-RMW kernel (K1).
+"""Batched voxel-map insertion through the CUDA aggregate-and-RMW kernel
+(K1).
 
-Port of mmloam_tpu/ops/pallas_insert.py.  The prep stays plain torch, as
-it stayed XLA outside the Pallas kernel: points are bucketed to (superrow
-slot, sub-cell, epoch key), stably sorted by slot, segment-summed into one
-128-lane update [Σx | Σy | Σz | cnt] per unique touched row, and the valid
-rows are compacted to the front with their count `nv`.  The row
-read-modify-write is `csrc/map_insert.cu` on CUDA tensors and
-`rmw_reference`, its plain PyTorch version, on CPU tensors.
+Port of mmloam_tpu/ops/pallas_insert.py.  What stays plain torch is what
+the JAX package also ran outside the Pallas kernel: the cell addressing
+(`voxelmap._voxel_coords`, `_cell_addr`) and one stable sort of the points
+by superrow slot (`sort_points`).  `csrc/map_insert.cu` (`aggregate_rmw`
+on CUDA tensors) then sums each touched row's points per sub-cell, in
+sorted order, and read-modify-writes the row.  The plain version is the
+reference's composition, `aggregate_updates` (segment-summed per-row
+updates, compacted) followed by `rmw_reference`; `insert_batched` takes it
+on CPU tensors.
+
+The kernel sums each cell's points one after another; the plain version
+sums them by the JAX package's associative scan.  Meta lanes (key and
+count) agree exactly, sum lanes within `sum_tolerance`.
 
 Cells are updated IN PLACE (the TPU kernel aliases its map buffer the same
 way, `input_output_aliases={5: 0}`).
@@ -23,10 +30,24 @@ from .downsample import _seg_scan_sum
 
 _META_MOD = voxelmap._META_MOD
 _SOURCE = "map_insert.cu"
+_MASKED = 2 ** 30          # slot of a masked point: sorts after every row
 
-# kernel launches made by `rmw` (the wrapper counts each launch, nowhere
-# else); callers reset it to 0 to check a run went through the kernel
+# kernel launches made by `aggregate_rmw` (the wrapper counts each launch,
+# nowhere else); callers reset it to 0 to check a run went through the
+# kernel
 LAUNCHES = 0
+
+
+class SortedPoints(NamedTuple):
+    """Points addressed and stably sorted by superrow slot, per batch
+    element: what the kernel reads (through `perm`)."""
+
+    slot: torch.Tensor   # (B, N) int32 slots in sorted order (_MASKED last)
+    perm: torch.Tensor   # (B, N) int64 the stable sort's permutation
+    sub: torch.Tensor    # (B, N) int32 sub-cell (points' own order)
+    key: torch.Tensor    # (B, N) f32 epoch key
+    pts: torch.Tensor    # (B, N, 3) f32 points
+    v: torch.Tensor      # (B, N, 3) int32 fine-voxel coords
 
 
 class RowUpdates(NamedTuple):
@@ -38,24 +59,30 @@ class RowUpdates(NamedTuple):
     nv: torch.Tensor         # (B,) int32 valid entries
 
 
-def aggregate_updates(pts, mask, cfg) -> RowUpdates:
-    """Bucket + stable sort + segment-sum points (B, N, 3) into per-row
-    updates, valid rows compacted to the front (`pallas_insert.py:43-105`
-    and `:228-239`)."""
+def sort_points(pts, mask, cfg) -> SortedPoints:
+    """Address points (B, N, 3) to (slot, sub-cell, key) and stably sort
+    them by slot, masked points last (`pallas_insert.py:43-70`)."""
     if voxelmap._cpr(cfg) != 32:
         raise NotImplementedError(
             "map insert assumes pack_x*pack_y*pack_z == 32 cells per row")
+    v = voxelmap._voxel_coords(pts, cfg)
+    slot, sub, key = voxelmap._cell_addr(v, cfg)
+    srt = torch.sort(torch.where(mask, slot, _MASKED), dim=1, stable=True)
+    return SortedPoints(srt.values, srt.indices, sub, key, pts, v)
+
+
+def _segment_rows(sp: SortedPoints, cfg) -> RowUpdates:
+    """Segment-sum sorted points into per-row updates, valid rows
+    compacted to the front (`pallas_insert.py:71-105` and `:228-239`)."""
+    pts = sp.pts
     B, N = pts.shape[:2]
     dtype = pts.dtype
     dev = pts.device
-
-    v = voxelmap._voxel_coords(pts, cfg)
-    slot, sub, key = voxelmap._cell_addr(v, cfg)
-    slot_m = torch.where(mask, slot, torch.full_like(slot, 2 ** 30))
-    perm = torch.sort(slot_m, dim=1, stable=True).indices
+    perm = sp.perm
     g = lambda a: torch.gather(a, 1, perm)
-    slot_s, sub_s, key_s, m_s = g(slot_m), g(sub), g(key), g(mask)
-    rel0 = pts - v.to(dtype) * cfg.voxel_size
+    slot_s, sub_s, key_s = sp.slot, g(sp.sub), g(sp.key)
+    m_s = slot_s != _MASKED
+    rel0 = pts - sp.v.to(dtype) * cfg.voxel_size
     rel = torch.gather(rel0, 1, perm[..., None].expand(B, N, 3))
     mf = m_s.to(dtype)
 
@@ -91,6 +118,13 @@ def aggregate_updates(pts, mask, cfg) -> RowUpdates:
                       row_upd.contiguous(), nv)
 
 
+def aggregate_updates(pts, mask, cfg) -> RowUpdates:
+    """Bucket + stable sort + segment-sum points (B, N, 3) into per-row
+    updates, valid rows compacted to the front (`pallas_insert.py:43-105`
+    and `:228-239`)."""
+    return _segment_rows(sort_points(pts, mask, cfg), cfg)
+
+
 def rmw_reference(cells, upd: RowUpdates, cap: float):
     """Plain PyTorch version of the kernel: gather the touched rows, apply
     `_rmw_kernel`'s math (`pallas_insert.py:165-181`), write them back.
@@ -123,60 +157,108 @@ def rmw_reference(cells, upd: RowUpdates, cap: float):
     return cells
 
 
-def _check(cells, upd: RowUpdates):
+# The kernel adds each cell's n points one after another; the plain version
+# adds the same n terms in its associative scan's order.  The terms are
+# offsets from the voxel corner, in [0, voxel), so no sum cancels: each
+# order lies within (n - 1) u of the exact sum relative to it (u = 2^-24),
+# and the add of the kept old sum and the cap's rescale round once more
+# each.  Relative differences add over a sequence of inserts, so the two
+# maps' sum lanes agree within
+#     SUM_ATOL + 2 u sum_inserts(n_max + 2) |plain|
+# where n_max is the most points one insert puts into one cell (near
+# count_cap = 100, a cell gets ~100 points, ~1e-5 relative).  SUM_ATOL
+# covers sums within a few ulps of 0.
+SUM_ATOL = 1e-6
+
+
+def cell_load(pts, mask, cfg):
+    """The most masked-in points that one insert of `pts` puts into one
+    cell of one batch element (n_max of the bound above)."""
+    v = voxelmap._voxel_coords(pts, cfg)
+    slot, sub, _ = voxelmap._cell_addr(v, cfg)
+    B = pts.shape[0]
+    lane = torch.arange(B, device=pts.device)[:, None].expand_as(slot)
+    cell = (lane.to(torch.int64) * 2 ** 40 + slot.to(torch.int64) * 32
+            + sub)[mask]
+    if cell.numel() == 0:
+        return 0
+    return int(torch.unique(cell, return_counts=True)[1].max())
+
+
+def sum_tolerance(plain_sums, loads):
+    """Per-lane bound on |kernel - plain| of the sum lanes after inserts
+    with the given `cell_load`s (see above)."""
+    rel = 2.0 * 2.0 ** -24 * sum(n + 2 for n in loads)
+    return SUM_ATOL + rel * torch.abs(plain_sums)
+
+
+def _check(cells, sp: SortedPoints):
     if cells.dtype != torch.float32 or cells.dim() != 3 \
             or cells.shape[2] != 128 or not cells.is_contiguous():
         raise ValueError("cells must be a contiguous (B, Cs, 128) float32 "
                          f"tensor, got {tuple(cells.shape)} {cells.dtype}")
-    B, Np = upd.row_slot.shape
-    want = {"row_slot": ((B, Np), torch.int32),
-            "row_key": ((B, Np), torch.float32),
-            "row_upd": ((B, Np, 128), torch.float32),
-            "nv": ((B,), torch.int32)}
+    B, N = sp.slot.shape
+    want = {"slot": ((B, N), torch.int32), "perm": ((B, N), torch.int64),
+            "sub": ((B, N), torch.int32), "key": ((B, N), torch.float32),
+            "pts": ((B, N, 3), torch.float32), "v": ((B, N, 3), torch.int32)}
     for name, (shape, dtype) in want.items():
-        a = getattr(upd, name)
+        a = getattr(sp, name)
         if tuple(a.shape) != shape or a.dtype != dtype \
                 or not a.is_contiguous() or a.device != cells.device:
             raise ValueError(f"{name}: expected contiguous {shape} {dtype} "
                              f"on {cells.device}, got {tuple(a.shape)} "
                              f"{a.dtype} on {a.device}")
     if B != cells.shape[0]:
-        raise ValueError("batch sizes of cells and updates differ")
+        raise ValueError("batch sizes of cells and points differ")
 
 
-def rmw(cells, upd: RowUpdates, cap: float):
-    """Apply the row updates to `cells` in place: the CUDA kernel for CUDA
-    tensors (counted in LAUNCHES), `rmw_reference` for CPU tensors."""
-    global LAUNCHES
-    _check(cells, upd)
-    if not cells.is_cuda:
-        return rmw_reference(cells, upd, cap)
+def _bind(lib):
     import ctypes
 
+    p = ctypes.c_void_p
+    lib.map_insert_launch.argtypes = [p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_float, p]
+    lib.map_insert_launch.restype = ctypes.c_int
+
+
+def aggregate_rmw(cells, sp: SortedPoints, cfg):
+    """Sum the sorted points per row and apply them to `cells` in place:
+    the CUDA kernel for CUDA tensors (counted in LAUNCHES), the plain
+    version (`_segment_rows` + `rmw_reference`) for CPU tensors."""
+    global LAUNCHES
+    _check(cells, sp)
+    if not cells.is_cuda:
+        return rmw_reference(cells, _segment_rows(sp, cfg), cfg.count_cap)
     from .. import cuda_build
 
-    lib = cuda_build.load(_SOURCE)
-    fn = lib.map_insert_rmw
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_float,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    B, Np = upd.row_slot.shape
-    with torch.cuda.device(cells.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(cells.data_ptr(), upd.row_slot.data_ptr(),
-                upd.row_key.data_ptr(), upd.row_upd.data_ptr(),
-                upd.nv.data_ptr(), B, Np, cells.shape[1], float(cap), stream)
+    fn = cuda_build.load(_SOURCE, _bind).map_insert_launch
+    B, N = sp.slot.shape
+    args = (cells.data_ptr(), sp.slot.data_ptr(), sp.perm.data_ptr(),
+            sp.sub.data_ptr(), sp.key.data_ptr(), sp.pts.data_ptr(),
+            sp.v.data_ptr(), B, N, cells.shape[1], cfg.voxel_size,
+            float(cfg.count_cap))
+    dev = cells.device
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     if rc != 0:
-        raise RuntimeError(f"map_insert_rmw launch failed: CUDA error {rc}")
+        raise RuntimeError(f"map_insert_launch failed: CUDA error {rc}")
     return cells
 
 
 def insert_batched(cells, pts, mask, cfg):
     """Batched map insertion: cells (B, Cs, 128) in place, pts (B, N, 3),
-    mask (B, N).  Semantics == per-lane voxelmap.insert."""
-    return rmw(cells, aggregate_updates(pts, mask, cfg), cfg.count_cap)
+    mask (B, N).  Semantics == per-lane voxelmap.insert.  On CUDA tensors
+    the torch addressing and sort, then the kernel; on CPU tensors the
+    plain version."""
+    if not cells.is_cuda:
+        return insert_batched_reference(cells, pts, mask, cfg)
+    return aggregate_rmw(cells, sort_points(pts.contiguous(), mask, cfg),
+                         cfg)
 
 
 def insert_batched_reference(cells, pts, mask, cfg):

@@ -74,8 +74,14 @@ def empty_map(cfg, device=None) -> VoxelMap:
 
 
 def _voxel_coords(pts, cfg):
-    """Integer fine-voxel coordinates (floor) of points."""
-    return torch.floor(pts / cfg.voxel_size).to(torch.int32)
+    """Integer fine-voxel coordinates (floor) of points.  The divisor is a
+    tensor on the points' device: PyTorch's CUDA division by a host scalar
+    multiplies by its reciprocal, one ulp off the correctly rounded
+    quotient that the CPU, the JAX package and the association kernel
+    floor (a voxel index one ulp off is another cell)."""
+    voxel = torch.full((), cfg.voxel_size, dtype=pts.dtype,
+                       device=pts.device)
+    return torch.floor(pts / voxel).to(torch.int32)
 
 
 def _super_decompose(sv, cfg):
@@ -203,9 +209,9 @@ class StencilAddr(NamedTuple):
 
 def stencil_addresses(q, cfg) -> StencilAddr:
     """Voxel, superrow, slot and key addressing of each query's stencil
-    window.  The float floor/division stays here, shared by the plain path
-    and the association kernel: a voxel index one ulp off is another
-    cell."""
+    window: the plain version's addressing.  The association kernel
+    computes the same integers itself (its GATHER stage writes them, held
+    bit-equal to these)."""
     px, py, pz = _pack(cfg)
     nbx, nby, nbz = _super_window(cfg)
     v = _voxel_coords(q, cfg)

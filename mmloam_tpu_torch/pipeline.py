@@ -134,10 +134,24 @@ def _empty_preint(W, dtype, device):
         sqrt_info=z(W, 15, 15), dt=z(W), bg=z(W, 3), ba=z(W, 3))
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the card when it is None.  The port's entry points run
+    on the card unless the caller asks for the CPU: with no CUDA device and
+    no `device`, this raises and never falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: the port runs on the card by '
+                           'default; pass device="cpu" to run on the CPU')
+    return torch.device("cuda")
+
+
 def init_state(cfg, Rbl=None, tbl=None, dtype=torch.float32, kf_imu_cap=256,
                device=None):
-    """Fresh per-sequence state with maps and window on `device`."""
+    """Fresh per-sequence state with maps and window on `device` (the card
+    when None, see `resolve_device`)."""
     _check_supported(cfg)
+    device = resolve_device(device)
     W = cfg.solver.window
     sc = cfg.scan
     z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
@@ -236,13 +250,14 @@ def state_from_numpy(tree, device=None) -> LIOState:
     """Port LIOState from a NamedTuple of numpy arrays with the reference's
     field names (e.g. a JAX LIOState after np.asarray on each leaf).
     Floats become float32 and integers int32, as the reference keeps them
-    outside x64 test runs."""
-    return _from_numpy(tree, device)
+    outside x64 test runs.  On the card unless `device` says otherwise."""
+    return _from_numpy(tree, resolve_device(device))
 
 
 def scan_from_numpy(tree, device=None) -> ScanInput:
-    """Port ScanInput (possibly with leading time/batch axes) from numpy."""
-    return _from_numpy(tree, device)
+    """Port ScanInput (possibly with leading time/batch axes) from numpy,
+    on the card unless `device` says otherwise."""
+    return _from_numpy(tree, resolve_device(device))
 
 
 def state_to_numpy(state):

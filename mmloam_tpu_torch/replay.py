@@ -37,7 +37,9 @@ def make_sequence(world, traj, t0, n_scans, cfg, scan_hz=10.0, imu_rate=200.0,
     """Stacked ScanInput of `n_scans` scans + ground truth (gt_R, gt_p).
 
     Same construction as the reference's builder; leaves are numpy arrays
-    when `device` is None, else tensors on `device`.
+    when `device` is None, else tensors on `device`.  The numpy default is
+    deliberate: it is the shared input both packages take, not a compute
+    path, so it does not default to the card as `pipeline.init_state` does.
     """
     rng = np.random.default_rng(seed)
     period = 1.0 / scan_hz

@@ -20,6 +20,17 @@ seeded raycast queries, three of them masked and one NaN.
   sums in another order, which XLA also contracts into FMAs); directions
   within DIR_ATOL = 1e-4, since the eigenvector column divides the moment
   rounding by the eigenvalue gap, and up to sign, which no residual sees.
+  The same calls equal, bit for bit, the composition factors ran before
+  the rescue was fused into `assoc.associate_with_rescue` (two
+  `associate` calls, compaction, scatter).
+* The rescue pair's plain form (`run_rescue` on CPU tensors: both maps
+  over every query, merged by the flags' ranks as the kernel's two
+  launches merge) equals `associate_with_rescue_reference` bit for bit,
+  with a cap that binds and with every failure tried.
+* The kernel's integer addressing (floor division and remainder from C's
+  truncating / and %, the key clamp and packing), written out in Python,
+  equals `voxelmap.stencil_addresses` at voxel and superrow boundaries, at
+  negative coordinates and across the torus wrap.
 * The dispatcher takes the plain version for CPU tensors and counts the
   call; each stage's plain cut agrees with the full plain version.
 """
@@ -218,8 +229,11 @@ def test_production_association_matches_jax(mode, rescue_frac, jax_assoc):
     tj, blk_j = fj(jnp.asarray(x6), jnp.asarray(p_l), jnp.asarray(mask), jvm,
                    jvml, thres, None, jcfg)
     tt, blk_t = port(x6, None)
-    assert assoc.CALLS == before + 2       # persistent + local tier
+    assert assoc.CALLS == before + 1       # persistent + local tier, fused
     _assert_targets(mode, tt, tj)
+    _assert_same_targets(mode, tt, _old_composition(
+        mode, torch.from_numpy(x6), torch.from_numpy(p_l),
+        torch.from_numpy(mask), tvm, tvml, cfg, torch.tensor(thres)))
     for name in ("dxd", "dyd", "dzd", "d2d"):
         a = _np(getattr(blk_t, name).float())
         b = np.asarray(getattr(blk_j, name).astype(jnp.float32))
@@ -233,6 +247,52 @@ def test_production_association_matches_jax(mode, rescue_frac, jax_assoc):
                 jvm, jvml, thres, blk_j, jcfg)
     tt2, _ = port(x6_moved, blk_t)
     _assert_targets(mode, tt2, tj2)
+    _assert_same_targets(mode, tt2, _old_composition(
+        mode, torch.from_numpy(x6_moved), torch.from_numpy(p_l),
+        torch.from_numpy(mask), tvm, tvml, cfg, torch.tensor(thres), blk_t))
+
+
+def _old_composition(mode, x6, p_l, mask, vm, vml, cfg, thres, cached=None):
+    """factors' association as it stood before the rescue was fused: two
+    `associate` calls, the second on the compacted failures, merged after
+    each map's post-processing.  Returns (targets, omega, valid) for the
+    plane mode, (c, u, valid) for the line mode."""
+    pw = tfac._world_points(x6, p_l, torch.eye(3), torch.zeros(3))
+    M = pw.shape[0]
+    sr = cfg.solver.plane_scatter_ratio if mode == assoc.PLANE else 0.0
+
+    def one(vmi, mcfg, pwq, maskq, cac=None):
+        r, _ = assoc.associate(vmi, pwq, maskq, mcfg, K, mode, thres, sr,
+                               cached=cac)
+        if mode == assoc.LINE:
+            return pwq + r.mu, r.vec, r.valid
+        dist = -torch.sum(r.vec * r.mu, dim=-1)
+        return pwq - dist[:, None] * r.vec, r.vec, r.valid
+
+    p, v, valid = one(vm, cfg.map, pw, mask, cached)
+    Mr = tfac._rescue_cap(M, cfg.solver.local_rescue_frac)
+    if Mr >= M:
+        p2, v2, valid2 = one(vml, cfg.local_map, pw, mask)
+        use2 = (~valid & valid2)[:, None]
+        return (torch.where(use2, p2, p), torch.where(use2, v2, v),
+                valid | valid2)
+    sel = assoc._compact_indices(mask & ~valid, Mr)
+    p2, v2, valid2 = one(vml, cfg.local_map, assoc._take_fill(pw, sel),
+                         sel < M)
+    ok = torch.where(valid2, sel, torch.full_like(sel, M))
+    return (assoc._set_drop(p, ok, p2), assoc._set_drop(v, ok, v2),
+            assoc._set_drop(valid, ok, torch.ones_like(valid2)))
+
+
+def _assert_same_targets(mode, tt, old):
+    """The fused rescue's targets are the old composition's, bit for bit."""
+    if mode == assoc.LINE:
+        got = (tt.c, tt.u, tt.valid)
+    else:
+        pt, omega, valid = tt
+        got = (pt.proj, omega, valid)
+    for a, b in zip(got, old):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
 def _assert_targets(mode, tt, tj):
@@ -306,3 +366,114 @@ def test_near_threshold_flags_only_close_gates():
     thr = torch.tensor([0.2, 0.2, 0.2, 1e-5, 1e-5])
     near = assoc.near_threshold([(q, thr)], 1e-3)
     assert near.tolist() == [True, True, False, True, False]
+
+
+@pytest.mark.parametrize("rescue_frac", [0.5, 1.0])
+@pytest.mark.parametrize("mode", [assoc.PLANE, assoc.LINE])
+def test_rescue_pair_plain_forms_agree(mode, rescue_frac):
+    """`run_rescue`'s plain form (both maps over every query, merged by the
+    flags' ranks, as the kernel's two launches merge) equals the
+    compaction of `associate_with_rescue_reference`, bit for bit, and
+    `compare_rescue` accepts it and refuses a wrong merge."""
+    seed, origin = ((0, (0.9, 0.5, 0.05)) if mode == assoc.PLANE
+                    else (5, (0.3, -0.4, 0.0)))
+    cells, cells_l, pw, mask = _queries(seed, origin)
+    M = pw.shape[0]
+    vm = voxelmap.VoxelMap(torch.from_numpy(cells))
+    vml = voxelmap.VoxelMap(torch.from_numpy(cells_l))
+    sr = CFG.solver.plane_scatter_ratio if mode == assoc.PLANE else 0.0
+    args = (vm, vml, torch.from_numpy(pw), torch.from_numpy(mask), CFG.map,
+            CFG.local_map, K, mode, torch.tensor(1.0), sr)
+    # a cap that binds (half the failures), or every failure tried
+    n_fail = int(assoc.run_rescue(*args, M)["need"].sum())
+    cap = n_fail // 2 if rescue_frac < 1.0 else M
+    r, _ = assoc.associate_with_rescue_reference(*args, cap)
+    got = assoc.run_rescue(*args, cap)
+    for name in assoc.Assoc._fields:
+        torch.testing.assert_close(got[name], getattr(r, name), rtol=0,
+                                   atol=0, equal_nan=True, msg=name)
+    assert n_fail > 20 and int(got["need"].sum()) == n_fail
+    assert 0 < int(got["served"].sum()) < min(cap, n_fail)
+    refs = assoc.rescue_stage_reference(*args)
+    stats = assoc.compare_rescue(got, refs, args[3], mode, cap)
+    assert stats["max_abs_err"] == 0.0 and stats["near"] == 0
+    with pytest.raises(AssertionError, match="RESCUE"):
+        assoc.compare_rescue(dict(got, served=got["need"]), refs, args[3],
+                             mode, cap)
+
+
+def _c_div(a, b):
+    """C's integer `/` (truncates toward zero), as the kernel divides."""
+    q = abs(a) // abs(b)
+    return q if (a < 0) == (b < 0) else -q
+
+
+def _kernel_addresses(q, cfg):
+    """csrc/assoc.cu's stencil addressing of one query, line for line:
+    voxel_index (floor of the correctly rounded f32 quotient), floor_div
+    and floor_mod from C's truncating / and % (shift and mask for a
+    power-of-two divisor), stencil_axis, the "ij" slot order and the key
+    packing."""
+    pow2 = lambda b: b > 0 and not b & (b - 1)
+
+    def floor_div(a, b):
+        if pow2(b):                  # arithmetic shift (Python's >> too)
+            return a >> (b.bit_length() - 1)
+        q = _c_div(a, b)
+        return q - 1 if a - b * q != 0 and (a < 0) != (b < 0) else q
+
+    def floor_mod(a, b):
+        if pow2(b):                  # two's-complement mask (Python's too)
+            return a & (b - 1)
+        r = a - b * _c_div(a, b)
+        return r + b if r != 0 and (r < 0) != (b < 0) else r
+
+    voxel = np.float32(cfg.voxel_size)
+    v = [int(np.floor(np.float32(c) / voxel)) for c in q]
+    sd = voxelmap._sdims(cfg)
+    axes = []
+    for c, st, p, d in zip(v, (cfg.stencil_x, cfg.stencil_y, cfg.stencil_z),
+                           voxelmap._pack(cfg), sd):
+        s0 = floor_div(c - st, p)
+        sv = [s0, s0 + 1]
+        mt = [floor_mod(x, d) for x in sv]
+        kq = [min(max(floor_div(x - m, d) + 16, 0), 31)
+              for x, m in zip(sv, mt)]
+        axes.append((sv, mt, kq))
+    (svx, mx, kx), (svy, my, ky), (svz, mz, kz) = axes
+    rows = [(s >> 2, (s >> 1) & 1, s & 1) for s in range(8)]
+    sv = [[svx[i], svy[j], svz[k]] for i, j, k in rows]
+    slot = [(mx[i] * sd[1] + my[j]) * sd[2] + mz[k] for i, j, k in rows]
+    key = [float((kx[i] << 10) | (ky[j] << 5) | kz[k]) for i, j, k in rows]
+    return v, sv, slot, key
+
+
+def test_kernel_integer_addressing_matches_stencil_addresses():
+    """The kernel's addressing formulas, written in Python with C's
+    truncating division, give `voxelmap.stencil_addresses` exactly at
+    voxel and superrow boundaries (and one f32 ulp either side), at
+    negative coordinates, across the torus wrap and beyond the key clamp."""
+    cfg = CFG.map
+    vox = np.float32(cfg.voxel_size)
+    period = np.float32(cfg.dim_x) * vox
+    base = np.array([0.0, 1.0, 2.0, 3.0, 4.0, 7.0, 8.0, 17.0], np.float32)
+    edges = np.concatenate([base * vox, -base * vox,
+                            base * vox + period, base * vox - period,
+                            base * vox - np.float32(17) * period,
+                            base * vox + np.float32(16) * period])
+    vals = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                           np.nextafter(edges, np.float32(-np.inf)),
+                           np.float32([-1e-7, 1e-7, -0.2, 0.2, -0.5, 613.0,
+                                       -700.0, 700.0])])
+    rng = np.random.default_rng(0)
+    q = np.stack([vals, rng.permutation(vals), rng.permutation(vals)],
+                 axis=1).astype(np.float32)
+    addr = voxelmap.stencil_addresses(torch.from_numpy(q), cfg)
+    want = [_kernel_addresses(row, cfg) for row in q]
+    np.testing.assert_array_equal(_np(addr.v), [w[0] for w in want])
+    np.testing.assert_array_equal(_np(addr.sv), [w[1] for w in want])
+    np.testing.assert_array_equal(_np(addr.slot), [w[2] for w in want])
+    np.testing.assert_array_equal(_np(addr.key), [w[3] for w in want])
+    keys = _np(addr.key).astype(np.int64)
+    assert ((keys >> 10) == 0).any() and ((keys >> 10) == 31).any()
+    assert (q < 0).any() and (_np(addr.v) < 0).any()

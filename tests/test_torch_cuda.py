@@ -5,11 +5,17 @@ This file imports torch only, so it also runs on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 K1 (csrc/map_insert.cu) is held against its plain PyTorch version on CUDA
-tensors: the kernel is built with -fmad=false, so the maps are bit-equal.
-K2 (csrc/assoc.cu) and each of its stages are held against the same cut of
-the plain version (`assoc.compare` states the bounds) on a small map of
-noisy planes and lines written by K1.  A CUDA tensor whose kernel library
-cannot be built raises; nothing falls back to the plain version.
+tensors: meta lanes exactly, sum lanes within `map_insert.sum_tolerance`
+(the kernel sums each cell in sorted order, the plain version by an
+associative scan).  K2 (csrc/assoc.cu) and each of its stages are held
+against the same cut of the plain version (`assoc.compare` states the
+bounds) on a small map of noisy planes and lines written by K1; the
+addresses it computes are bit-equal to `voxelmap.stencil_addresses` on
+voxel and superrow boundaries, at negative coordinates and across the
+torus wrap; the fused local-map rescue agrees with both maps' plain
+versions (`assoc.compare_rescue`) and is `associate_with_rescue`.  A CUDA
+tensor whose kernel library cannot be built raises; nothing falls back to
+the plain version.
 """
 
 import dataclasses
@@ -45,6 +51,14 @@ def _steps(B, N, seed):
             (pts + period, mask)]
 
 
+def _assert_maps(ck, cp, loads):
+    """Meta lanes exact, sum lanes within the stated bound."""
+    assert torch.equal(ck[..., 96:], cp[..., 96:])
+    diff = (ck[..., :96] - cp[..., :96]).abs()
+    assert bool((diff <= map_insert.sum_tolerance(cp[..., :96], loads))
+                .all()), float(diff.max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N", [(1, 128), (3, 1000)])
 def test_kernel_matches_plain_version_on_card(B, N):
@@ -53,15 +67,17 @@ def test_kernel_matches_plain_version_on_card(B, N):
     ck = torch.zeros(shape, device=dev)
     cp = torch.zeros(shape, device=dev)
     before = map_insert.LAUNCHES
+    loads = []
     for pts, mask in _steps(B, N, seed=B):
         p = torch.from_numpy(pts).to(dev)
         m = torch.from_numpy(mask).to(dev)
         assert map_insert.insert_batched(ck, p, m, MCFG) is ck
         map_insert.insert_batched_reference(cp, p, m, MCFG)
+        loads.append(map_insert.cell_load(p, m, MCFG))
     torch.cuda.synchronize()
     assert map_insert.LAUNCHES == before + 3
-    assert torch.equal(ck, cp)
-    assert bool((ck[..., 96:] > 0).any())
+    _assert_maps(ck, cp, loads)
+    assert bool((ck[..., 96:] > 0).any()) and max(loads) > 1
 
 
 @pytest.mark.cuda
@@ -99,10 +115,10 @@ def test_kernel_at_flagship_row_count():
     map_insert.insert_batched(ck, pts, mask, mcfg)
     map_insert.insert_batched_reference(cp, pts, mask, mcfg)
     torch.cuda.synchronize()
-    assert torch.equal(ck, cp)
+    _assert_maps(ck, cp, [map_insert.cell_load(pts, mask, mcfg)])
 
 
-def _scene(dev, n_pts=4000, M=512, seed=3):
+def _scene(dev, n_pts=4000, M=512, seed=3, mcfg=MCFG):
     """A map of two noisy planes and a line (K1 inserts) and M queries
     near them, 5 % masked."""
     rng = np.random.default_rng(seed)
@@ -112,11 +128,11 @@ def _scene(dev, n_pts=4000, M=512, seed=3):
     wall = np.stack([np.full(n_pts, 1.1), u[:, 0], u[:, 1]], -1)
     line = np.stack([u[:, 0], np.full(n_pts, -0.9), np.full(n_pts, 0.7)], -1)
     pts = np.concatenate([floor, wall, line]) + np.concatenate([noise] * 3)
-    cells = torch.zeros((1,) + tuple(voxelmap.empty_map(MCFG).cells.shape),
+    cells = torch.zeros((1,) + tuple(voxelmap.empty_map(mcfg).cells.shape),
                         device=dev)
     p = torch.from_numpy(pts.astype(np.float32)).to(dev)[None]
     ones = torch.ones(p.shape[:2], dtype=torch.bool, device=dev)
-    map_insert.insert_batched(cells, p, ones, MCFG)
+    map_insert.insert_batched(cells, p, ones, mcfg)
     q = pts[rng.choice(len(pts), M)] + rng.normal(0, 0.05, (M, 3))
     mask = rng.random(M) > 0.05
     return (voxelmap.VoxelMap(cells[0]),
@@ -183,3 +199,74 @@ def test_assoc_cuda_tensor_without_kernel_raises(monkeypatch):
         assoc.associate(voxelmap.VoxelMap(cells), pw, mask, MCFG, 5,
                         assoc.LINE, 1.0)
     assert assoc.LAUNCHES == launches
+
+
+def _boundary_queries(mcfg):
+    """Queries on voxel and superrow boundaries and one f32 ulp either
+    side, at negative coordinates and a torus period or more away."""
+    vox = np.float32(mcfg.voxel_size)
+    period = np.float32(mcfg.dim_x) * vox
+    base = np.arange(0, 9, dtype=np.float32) * vox
+    edges = np.concatenate([base, -base, base + period, base - period,
+                            base - np.float32(17) * period])
+    vals = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                           np.nextafter(edges, np.float32(-np.inf))])
+    rng = np.random.default_rng(5)
+    return np.stack([vals, rng.permutation(vals), rng.permutation(vals)],
+                    axis=1).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_assoc_addresses_bit_equal_on_card():
+    """The addresses K2 computes (its GATHER stage) are
+    `voxelmap.stencil_addresses`' bit for bit, and so are the rows."""
+    dev = _device()
+    vm, _, _ = _scene(dev)
+    q = torch.from_numpy(_boundary_queries(MCFG)).to(dev)
+    mask = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+    args = (vm, q, mask, MCFG, 5, assoc.PLANE, 1.0)
+    got = assoc.run_stage(assoc.GATHER, *args)
+    ref = assoc.stage_reference(assoc.GATHER, *args)
+    torch.cuda.synchronize()
+    assoc.compare(assoc.GATHER, got, ref, mask, assoc.PLANE)
+    assert bool((got["v"] < 0).any())
+    keys = got["key"].to(torch.int64)
+    assert bool(((keys >> 10) != 16).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("mode", [assoc.PLANE, assoc.LINE])
+def test_fused_rescue_matches_plain_version_on_card(mode, full):
+    """The NEED + RESCUE pair against both maps' plain versions, with a
+    cap that binds and with every failure tried, fresh and cached; and
+    `associate_with_rescue` returns the pair's merged records."""
+    dev = _device()
+    vm, pw, mask = _scene(dev)
+    # the persistent map loses every third superrow, so many queries fail
+    # there; the local map holds the same scene on a finer grid
+    cells = vm.cells.clone()
+    cells[::3] = 0.0
+    vm = voxelmap.VoxelMap(cells)
+    lcfg = dataclasses.replace(MCFG, voxel_size=0.2)
+    vml, _, _ = _scene(dev, mcfg=lcfg)
+    thres = torch.tensor(1.0, device=dev)
+    args = (vm, vml, pw, mask, MCFG, lcfg, 5, mode, thres, 0.01)
+    n_fail = int(assoc.run_rescue(*args, pw.shape[0])["need"].sum())
+    assert n_fail > 10
+    cap = pw.shape[0] if full else n_fail // 2
+    _, blocks = assoc.associate_reference(vm, pw, mask, MCFG, 5, mode, thres,
+                                          0.01)
+    for cached, q in ((None, pw), (blocks, pw + 0.02)):
+        qargs = (vm, vml, q) + args[3:]
+        got = assoc.run_rescue(*qargs, cap, cached)
+        refs = assoc.rescue_stage_reference(*qargs, cached)
+        torch.cuda.synchronize()
+        st = assoc.compare_rescue(got, refs, mask, mode, cap)
+        assert st["served"] > 0
+        l0, r0, c0 = assoc.LAUNCHES, assoc.RESCUE_LAUNCHES, assoc.CALLS
+        r, _ = assoc.associate_with_rescue(*qargs, cap, cached)
+        assert (assoc.LAUNCHES, assoc.RESCUE_LAUNCHES, assoc.CALLS) == (
+            l0 + 2, r0 + 1, c0 + 1)
+        for name in assoc.Assoc._fields:
+            assert torch.equal(getattr(r, name), got[name]), name

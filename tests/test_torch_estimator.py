@@ -92,7 +92,7 @@ def _window():
 
     tp._try_init = spy
     try:
-        st = tp.init_state(CFG)
+        st = tp.init_state(CFG, device="cpu")
         snaps = {}
         for t in range(11):
             sc = tree_map(lambda a: a[t], scans)
@@ -213,7 +213,7 @@ def _solve_inputs():
     # factors built by the port at the entry window (identical inputs for
     # both solvers from here on)
     rfs = a["cached_rfs"]
-    st = tp.state_from_numpy(snaps[10]["state"])
+    st = tp.state_from_numpy(snaps[10]["state"], device="cpu")
     res = test_.estimate(**_port_est_args(a), cfg=CFG)
     return a, _np(res.rfs), rfs, st
 

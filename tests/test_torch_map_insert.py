@@ -5,8 +5,11 @@ kernel K1) is held against the Pallas kernel in interpret mode and against
 `vmap(voxelmap.insert)` on the cases of tests/test_pallas_insert.py: meta
 lanes exactly, sum lanes within 1e-5.  The port's scatter insert, dense
 candidate blocks (bf16 equal) and tie-inclusive k-th smallest are compared
-with JAX directly.  The CUDA kernel itself is compared with this plain
-version on the card by tests/test_torch_cuda.py (and by chip_smoke.py).
+with JAX directly.  The kernel's inputs (`sort_points`) and its wrapper's
+plain version on CPU tensors are checked here; the CUDA kernel itself is
+compared with the plain version on the card by tests/test_torch_cuda.py
+(and by chip_smoke.py): meta lanes exactly, sums within
+`map_insert.sum_tolerance`.
 """
 
 import numpy as np
@@ -194,12 +197,45 @@ def test_cpu_tensors_never_touch_the_cuda_build(monkeypatch):
 
 def test_wrapper_rejects_bad_inputs():
     pts, mask = _cases()["accumulate_and_cap"][0]
-    upd = map_insert.aggregate_updates(torch.from_numpy(pts),
-                                       torch.from_numpy(mask), MCFG)
+    sp = map_insert.sort_points(torch.from_numpy(pts),
+                                torch.from_numpy(mask), MCFG)
     cells = torch.zeros((2,) + tuple(tvm.empty_map(MCFG).cells.shape))
     with pytest.raises(ValueError):
-        map_insert.rmw(cells.double(), upd, 10.0)
+        map_insert.aggregate_rmw(cells.double(), sp, MCFG)
     with pytest.raises(ValueError):
-        map_insert.rmw(cells[:1], upd, 10.0)
+        map_insert.aggregate_rmw(cells[:1], sp, MCFG)
     with pytest.raises(ValueError):
-        map_insert.rmw(cells, upd._replace(nv=upd.nv.long()), 10.0)
+        map_insert.aggregate_rmw(cells, sp._replace(perm=sp.perm.int()),
+                                 MCFG)
+    with pytest.raises(ValueError):
+        map_insert.aggregate_rmw(cells, sp._replace(pts=sp.pts.double()),
+                                 MCFG)
+
+
+@pytest.mark.parametrize("case", ["accumulate_and_cap", "stale_epoch"])
+def test_kernel_inputs_and_plain_version(case):
+    """The kernel's inputs (`sort_points`) are the stable slot order with
+    masked points last, and the kernel wrapper's plain version on CPU
+    tensors is the reference composition, bit for bit; `sum_tolerance`
+    grows with the cells' loads."""
+    steps = _cases()[case]
+    B = steps[0][0].shape[0]
+    ca = torch.zeros((B,) + tuple(tvm.empty_map(MCFG).cells.shape))
+    cb = ca.clone()
+    loads = []
+    for pts, mask in steps:
+        p, m = torch.from_numpy(pts), torch.from_numpy(mask)
+        sp = map_insert.sort_points(p, m, MCFG)
+        slot, sub, key = tvm._cell_addr(tvm._voxel_coords(p, MCFG), MCFG)
+        assert torch.equal(sp.slot, torch.gather(
+            torch.where(m, slot, 2 ** 30), 1, sp.perm))
+        assert bool((sp.slot[:, 1:] >= sp.slot[:, :-1]).all())
+        assert torch.equal(sp.sub, sub) and torch.equal(sp.key, key)
+        assert map_insert.aggregate_rmw(ca, sp, MCFG) is ca
+        map_insert.insert_batched_reference(cb, p, m, MCFG)
+        loads.append(map_insert.cell_load(p, m, MCFG))
+    assert torch.equal(ca, cb)
+    assert min(loads) >= 1 and (max(loads) > 1 or case == "stale_epoch")
+    tol = map_insert.sum_tolerance(cb[..., :96], loads)
+    assert bool((tol >= map_insert.SUM_ATOL).all())
+    assert map_insert.SUM_ATOL < float(tol.max()) < 1e-4

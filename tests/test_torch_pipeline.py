@@ -26,6 +26,8 @@
   boundaries of map inserts at scans 6-7, which the chained solves carry
   to 7.3e-3 m at scan 17 (CPU).  ROADMAP queue 3 records it.
 * `import mmloam_tpu_torch` leaves jax out of sys.modules.
+* The entry points (`init_state`, `state_from_numpy`, `scan_from_numpy`)
+  run on the card unless given `device="cpu"`, and raise without one.
 """
 
 import dataclasses
@@ -52,6 +54,7 @@ from mmloam_tpu.data import synthetic as jsyn  # noqa: E402
 from mmloam_tpu_torch import pipeline as tp  # noqa: E402
 from mmloam_tpu_torch import replay as tr  # noqa: E402
 from mmloam_tpu_torch.config import faithful_config, tiny_config  # noqa: E402,E501
+from mmloam_tpu_torch.data import synthetic as tsyn  # noqa: E402
 from mmloam_tpu_torch.tree import tree_map  # noqa: E402
 
 CFG = tiny_config()
@@ -96,7 +99,7 @@ def _ate(pose_p, t, gt_R, gt_p):
 
 def test_init_state_matches_jax():
     sj = jax.tree.map(np.asarray, jp.init_state(JCFG))
-    st = tp.init_state(CFG)
+    st = tp.init_state(CFG, device="cpu")
     assert type(st).__name__ == type(sj).__name__
     assert st._fields == sj._fields
     for name in sj._fields:
@@ -175,13 +178,13 @@ def _check_teacher_step(rec, t, cfg, scale=1.0, stack_rtol=0.0,
     sj, (cj_state, cj_out, cj_pend), aj = (rec["state"], rec["core"],
                                            rec["after"])
     assert bool(sj.inited) == (t == 10)
-    st = tp.state_from_numpy(sj)
+    st = tp.state_from_numpy(sj, device="cpu")
     # the handover itself is lossless, both ways
     back = tp.state_to_numpy(st)
     assert type(back) is type(st)
     for a, b in zip(jax.tree.leaves(sj), jax.tree.leaves(back)):
         np.testing.assert_array_equal(b, a.astype(b.dtype))
-    scan = tp.scan_from_numpy(rec["scan"])
+    scan = tp.scan_from_numpy(rec["scan"], device="cpu")
     s1, out, pend = tp.step_core(st, scan, cfg)
 
     for name in ("fail", "degenerate", "inited", "n_corner", "n_surf",
@@ -260,8 +263,9 @@ def test_replay_batch_matches_jax():
     _, oj = jr.replay_batch(
         jr.stack_states([jp.init_state(JCFG_H) for _ in range(B)]),
         jax.tree.map(jnp.asarray, scans), JCFG_H)
-    states = tr.stack_states([tp.init_state(CFG_H) for _ in range(B)])
-    st, ot = tr.replay_batch(states, tp.scan_from_numpy(scans), CFG_H)
+    states = tr.stack_states([tp.init_state(CFG_H, device="cpu") for _ in range(B)])
+    st, ot = tr.replay_batch(states, tp.scan_from_numpy(scans, device="cpu"),
+                              CFG_H)
     assert ot.pose_p.shape == (T, B, 3)
     for name in ("inited", "fail", "hori_merged"):
         np.testing.assert_array_equal(_np(getattr(ot, name)),
@@ -280,7 +284,8 @@ def test_replay_batch_matches_jax():
 def test_hall_replay_against_golden():
     scans, gt_R, gt_p = _hall(25, 0.0)
     g = np.load(GOLDEN)
-    _, outs = tr.replay(tp.init_state(CFG), tp.scan_from_numpy(scans), CFG)
+    _, outs = tr.replay(tp.init_state(CFG, device="cpu"),
+                        tp.scan_from_numpy(scans, device="cpu"), CFG)
     np.testing.assert_array_equal(_np(outs.inited), g["inited"])
     np.testing.assert_array_equal(_np(outs.fail), g["fail"])
     np.testing.assert_array_equal(_np(outs.t), g["t"])
@@ -328,4 +333,23 @@ def test_off_default_options_raise():
         tp.init_state(CFG.replace(
             local_map=dataclasses.replace(CFG.local_map, pack_z=1)))
     # the reference-faithful settings are ported
-    tp.init_state(FCFG)
+    tp.init_state(FCFG, device="cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no CUDA device, the entry points raise and name device="cpu"
+    unless the caller asks for the CPU; nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tp.init_state(CFG)
+    scans, _, _ = _hall(2, 0.0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tp.scan_from_numpy(scans)
+    st = tp.init_state(CFG, device="cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tp.state_from_numpy(tp.state_to_numpy(st))
+    assert st.vm_surf.cells.device.type == "cpu"
+    assert tp.scan_from_numpy(scans, device="cpu").pts.device.type == "cpu"
+    assert isinstance(tr.make_sequence(
+        tsyn.default_world(), tsyn.Trajectory(speed=0.8), 0.0, 1, CFG,
+        n_az=90)[0].pts, np.ndarray)
