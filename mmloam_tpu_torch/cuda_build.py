@@ -1,11 +1,13 @@
-"""Build-at-first-use for the port's hand-written CUDA kernels.
+"""Build-at-first-use for the port's native libraries.
 
 Each kernel is a `csrc/*.cu` file with a plain C entry point, compiled by
 `nvcc` for `sm_90a` into a shared library under `mmloam_tpu_torch/_build/`
-and loaded with `ctypes`.  The library name carries a hash of the source
-and the flags, so an edited source rebuilds and a stale library is never
-loaded.  Nothing here runs at import time: `ctypes` is imported and `nvcc`
-looked up only when a CUDA tensor first needs a kernel.
+and loaded with `ctypes`.  The rosbag decoder (`native/src/
+rosbag_decode.cpp`, host C++) is built the same way by the host compiler
+(`build_host`).  A library's name carries a hash of its source and flags,
+so an edited source rebuilds and a stale library is never loaded.  Nothing
+here runs at import time: `ctypes` is imported and a compiler looked up
+only when a library is first needed.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# the flags of native/CMakeLists.txt (whose own build writes into the JAX
+# package, so the port never runs it)
+HOST_FLAGS = ("-O2", "-Wall", "-std=c++17", "-shared", "-fPIC")
+HOST_LIBS = ("-ldl",)
 
 _LOADED = {}
 
@@ -38,31 +44,61 @@ def find_nvcc():
                        "the port's kernels")
 
 
-def library_path(source: str) -> str:
-    """Build-output path for `csrc/<source>`, keyed by content and flags."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(source)[0]
+def find_cxx():
+    """The host C++ compiler: $CXX, else g++ or c++ on PATH."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler found (set CXX): the rosbag "
+                       "decoder is built from native/src at first use")
+
+
+def _hashed_path(src_path, flags):
+    with open(src_path, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    stem = os.path.splitext(os.path.basename(src_path))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
-def build(source: str) -> str:
-    """Compile `csrc/<source>` unless its hashed library exists; returns
-    the library path.  Raises with nvcc's output when the build fails."""
-    out = library_path(source)
+def library_path(source: str) -> str:
+    """Build-output path for `csrc/<source>`, keyed by content and flags."""
+    return _hashed_path(os.path.join(CSRC, source), NVCC_FLAGS)
+
+
+def _compile(src_path, out, cmd_head, tail=()):
+    """Run `cmd_head -o <tmp> src tail` and move the result to `out`
+    unless it exists; raises with the compiler's output on failure."""
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
+    cmd = [*cmd_head, "-o", tmp, src_path, *tail]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
+                           f"({proc.returncode}) on {src_path}:\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)      # atomic: concurrent builders never see halves
     return out
+
+
+def build(source: str) -> str:
+    """Compile `csrc/<source>` unless its hashed library exists; returns
+    the library path.  Raises with nvcc's output when the build fails."""
+    return _compile(os.path.join(CSRC, source), library_path(source),
+                    [find_nvcc(), *NVCC_FLAGS])
+
+
+def build_host(src_path: str) -> str:
+    """Compile the host C++ file `src_path` into a hashed shared library
+    under `_build/` (flags HOST_FLAGS, linked with HOST_LIBS) unless it
+    exists; returns the library path."""
+    flags = HOST_FLAGS + HOST_LIBS
+    return _compile(src_path, _hashed_path(src_path, flags),
+                    [find_cxx(), *HOST_FLAGS], HOST_LIBS)
 
 
 def load(source: str, bind=None):

@@ -1,2 +1,3 @@
 """Host-side data layer: synthetic worlds (a numpy-only copy of
-mmloam_tpu/data/synthetic.py)."""
+mmloam_tpu/data/synthetic.py), the rosbag reader and writer, bag-to-tensor
+decode, rig calibration and export."""

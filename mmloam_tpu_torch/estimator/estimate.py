@@ -84,8 +84,6 @@ def estimate(x0, stacks: Stacks, cached_rfs, vm_corner, vm_surf, preint,
              cfg, full_window, refresh_slot, do_marginalize=None,
              vm_local_corner=None, vm_local_surf=None, vm_non=None):
     """One scan's window optimization (see the reference docstring)."""
-    if cfg.use_nonfeature:
-        raise NotImplementedError("use_nonfeature is not ported")
     s = cfg.solver
     W = x0.shape[0]
     dtype, dev = x0.dtype, x0.device
@@ -103,10 +101,11 @@ def estimate(x0, stacks: Stacks, cached_rfs, vm_corner, vm_surf, preint,
 
     vm_lc = vm_local_corner if cfg.use_local_map else None
     vm_ls = vm_local_surf if cfg.use_local_map else None
+    vm_n = vm_non if cfg.use_nonfeature else None
 
     def assoc(x, slot, thres, cached=None):
         return _assoc_frame(x, stacks, slot, vm_corner, vm_surf, vm_lc,
-                            vm_ls, None, Rbl, tbl, cfg, thres, weight_tan,
+                            vm_ls, vm_n, Rbl, tbl, cfg, thres, weight_tan,
                             huber, frame_valid, cached=cached)
 
     # ---- round 0: newest frame + stalest old slots ----

@@ -44,7 +44,8 @@ def empty_reduced(dtype=torch.float32, device=None) -> ReducedFactor:
 
 
 class BlocksCache(NamedTuple):
-    """One frame's persistent-tier candidate blocks (corner/surf)."""
+    """One frame's persistent-tier candidate blocks (corner/surf, and the
+    non-feature stack's under cfg.use_nonfeature)."""
 
     corner: factors.StackBlocks
     surf: factors.StackBlocks
@@ -83,9 +84,10 @@ def build_reduced(x6, stacks_frame, vm_corner, vm_surf, Rbl, tbl, cfg,
 
     Returns (ReducedFactor, BlocksCache); passing the cache back via
     `cached` re-associates from the same persistent-map stencil rows.
+    `vm_non` adds the non-feature stack as zero-tangent plane factors
+    (Cost_NonFeature_ICP), associated against `vm_non` alone: a K2 launch
+    with no local-map rescue.
     """
-    if vm_non is not None:
-        raise NotImplementedError("use_nonfeature is not ported")
     dtype = x6.dtype
     cpts, cmask = stacks_frame.corner, stacks_frame.corner_mask & frame_ok
     spts, smask = stacks_frame.surf, stacks_frame.surf_mask & frame_ok
@@ -118,17 +120,35 @@ def build_reduced(x6, stacks_frame, vm_corner, vm_surf, Rbl, tbl, cfg,
                              P0 - o)
 
     # plane factors
-    a_p = spts @ Rbl.T + tbl[None, :]
-    pw_p = spts @ R0w.T + t0w[None, :]
-    r0_p = pw_p - pt.proj
-    pn_p = torch.clamp(torch.sqrt(torch.sum(pw_p * pw_p, dim=-1)), min=1e-6)
-    w_p = 1.0 - 0.9 * torch.sqrt(torch.sum(r0_p * r0_p, dim=-1) + 1e-12) \
-        / torch.sqrt(pn_p)
-    rw = factors._mv(pt.sqrt_info, w_p[:, None] * r0_p)
-    w_p = w_p * factors.huber_weight(torch.sum(rw * rw, dim=-1), huber_delta)
-    S_p = pt.sqrt_info * w_p[:, None, None]
-    Qp, gp, cp = _accumulate(a_p, pt.proj - o[None, :], S_p, pt.valid, Rwb0,
-                             P0 - o)
+    def plane_accum(ppts, ptgt):
+        a_p = ppts @ Rbl.T + tbl[None, :]
+        pw_p = ppts @ R0w.T + t0w[None, :]
+        r0_p = pw_p - ptgt.proj
+        pn_p = torch.clamp(torch.sqrt(torch.sum(pw_p * pw_p, dim=-1)),
+                           min=1e-6)
+        w_p = 1.0 - 0.9 * torch.sqrt(torch.sum(r0_p * r0_p, dim=-1)
+                                     + 1e-12) / torch.sqrt(pn_p)
+        rw = factors._mv(ptgt.sqrt_info, w_p[:, None] * r0_p)
+        w_p = w_p * factors.huber_weight(torch.sum(rw * rw, dim=-1),
+                                         huber_delta)
+        S_p = ptgt.sqrt_info * w_p[:, None, None]
+        return _accumulate(a_p, ptgt.proj - o[None, :], S_p, ptgt.valid,
+                           Rwb0, P0 - o)
+
+    Qp, gp, cp = plane_accum(spts, pt)
+    n_plane = torch.sum(pt.valid)
+
+    blk_n = None
+    if vm_non is not None and stacks_frame.non is not None:
+        npts = stacks_frame.non
+        nmask = stacks_frame.non_mask & frame_ok
+        ptn, _, _, blk_n = factors.associate_planes(
+            x6, npts, nmask, vm_non, Rbl, tbl, cfg, thres_dist,
+            torch.zeros((), dtype=dtype, device=x6.device),
+            cached=None if cached is None else cached.non, with_blocks=True)
+        Qn, gn, cn = plane_accum(npts, ptn)
+        Qp, gp, cp = Qp + Qn, gp + gn, cp + cn
+        n_plane = n_plane + torch.sum(ptn.valid)
 
     m = nvalid.to(dtype)
     om = omega * m[:, None]
@@ -136,9 +156,9 @@ def build_reduced(x6, stacks_frame, vm_corner, vm_surf, Rbl, tbl, cfg,
         Q=Ql + Qp, g0=gl + gp, c0=cl + cp,
         z0=_zvec(Rwb0, P0, o), o=o, NtN=om.T @ om,
         n_line=torch.sum(lt.valid).to(torch.int32),
-        n_plane=torch.sum(pt.valid).to(torch.int32),
+        n_plane=n_plane.to(torch.int32),
         n_normal=torch.sum(nvalid).to(torch.int32))
-    return rf, BlocksCache(corner=blk_c, surf=blk_s, non=None)
+    return rf, BlocksCache(corner=blk_c, surf=blk_s, non=blk_n)
 
 
 def eval_reduced(x6, rf: ReducedFactor):

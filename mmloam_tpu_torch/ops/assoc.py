@@ -18,9 +18,11 @@ two launches with no torch op between them (NEED against the persistent
 map, RESCUE against the local map, counted in RESCUE_LAUNCHES), on CPU
 tensors `associate_with_rescue_reference`.  The kernel computes each
 query's stencil addressing itself from pw; `voxelmap.stencil_addresses`
-is the plain version's.  CALLS counts calls of the two dispatchers, so a
-run on CUDA tensors that went through the kernel every time shows
-LAUNCHES == CALLS + RESCUE_LAUNCHES.
+is the plain version's.  CALLS counts calls of the two dispatchers and
+LOCAL_CALLS those given a local map, so a run on CUDA tensors that went
+through the kernel every time shows LAUNCHES == CALLS + RESCUE_LAUNCHES
+and RESCUE_LAUNCHES == LOCAL_CALLS (the non-feature association has no
+local map and launches no rescue).
 
 The kernel has a compile-time stage and stops after it, writing that
 stage's result (`run_stage`; `stage_reference` is the same cut of the
@@ -60,12 +62,13 @@ _ROWS = 8                          # stencil superrows per query
 _CAND = _ROWS * 32                 # candidates per query
 
 # kernel launches made by the wrapper (counted where it launches, nowhere
-# else), the second launches of rescue pairs among them, and calls of
-# `associate` and `associate_with_rescue`; callers reset all three to 0 to
-# check a run
+# else), the second launches of rescue pairs among them, calls of
+# `associate` and `associate_with_rescue`, and the calls among them given a
+# local map; callers reset all four to 0 to check a run
 LAUNCHES = 0
 RESCUE_LAUNCHES = 0
 CALLS = 0
+LOCAL_CALLS = 0
 
 
 class StackBlocks(NamedTuple):
@@ -710,8 +713,9 @@ def associate_with_rescue(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
     and take that result where it is valid.  On CUDA tensors two kernel
     launches and no torch op; `associate_with_rescue_reference` on CPU
     tensors.  Returns (Assoc merged, StackBlocks or None) as `associate`."""
-    global CALLS
+    global CALLS, LOCAL_CALLS
     CALLS += 1
+    LOCAL_CALLS += vm_local is not None
     if not pw.is_cuda:
         return associate_with_rescue_reference(
             vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,

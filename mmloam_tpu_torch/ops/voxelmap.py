@@ -317,9 +317,30 @@ def kth_smallest_dense(d2d, k: int):
     return torch.amin(torch.where(cnts >= k, mstack, inf), dim=1)
 
 
+def kth_smallest(d2, ok, k: int):
+    """k-th smallest valid entry per query of an (M, S, cpr) candidate
+    block (inf when fewer than k are valid), tie-inclusive as
+    `kth_smallest_dense`."""
+    M = d2.shape[0]
+    cur = torch.where(ok, d2, torch.full_like(d2, float("inf")))
+    return kth_smallest_dense(cur.reshape(M, -1), k)
+
+
+def select_k_smallest(d2, ok, k: int):
+    """Value-threshold k-smallest selection over the candidate axes:
+    (t_k (M,), n (M,) selected count, w (M, S, cpr) selection mask).  Plain
+    torch, as in the reference (XLA there, not a Pallas kernel); it serves
+    calibration, not the estimator."""
+    t = kth_smallest(d2, ok, k)
+    w = ok & (d2 <= t[:, None, None])
+    n = torch.sum(w, dim=(1, 2))
+    return t, n, w
+
+
 def query_knn(vm: VoxelMap, q, mask, cfg):
     """k nearest map centroids per query: (neighbors (M,K,3), valid (M,K),
-    dist2 (M,K)), ascending; ties keep the lower candidate index."""
+    dist2 (M,K)), ascending; ties keep the lower candidate index, as the
+    reference's `lax.top_k` does."""
     cpr = _cpr(cfg)
     M = q.shape[0]
     dx, dy, dz, d2, ok = query_candidates(vm, q, mask, cfg)

@@ -8,9 +8,9 @@ deferred map inserts, and the IMU-init bookkeeping.  The reference's
 `lax.cond`s on per-sequence flags are Python branches here (one host read
 each); everything else keeps the reference's select-based form.
 
-The default path and `config.faithful_config()` are ported; the other
-off-default options listed in `_check_supported` raise
-NotImplementedError.
+The default path, `config.faithful_config()` and the rig's modes
+(`imu_mode` 0/1, `velo_only_mode`, `use_nonfeature`) are ported; the
+options listed in `_check_supported` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -108,12 +108,6 @@ def _check_supported(cfg):
     """Raise NotImplementedError naming any off-default option this port
     does not carry yet (queued in ROADMAP)."""
     bad = []
-    if cfg.velo_only_mode:
-        bad.append("velo_only_mode=True")
-    if cfg.imu_mode != 2:
-        bad.append(f"imu_mode={cfg.imu_mode}")
-    if cfg.use_nonfeature:
-        bad.append("use_nonfeature=True")
     for name in ("map", "local_map"):
         m = getattr(cfg, name)
         if m.dedup_gather:
@@ -158,10 +152,16 @@ def init_state(cfg, Rbl=None, tbl=None, dtype=torch.float32, kf_imu_cap=256,
     b = lambda *s: torch.zeros(s, dtype=torch.bool, device=device)
 
     def make_stacks(n):
+        extra = {}
+        if cfg.use_nonfeature:
+            extra = dict(non=z(n, sc.max_nonfeature, 3),
+                         non_mask=b(n, sc.max_nonfeature),
+                         non_rel=z(n, sc.max_nonfeature))
         return est.Stacks(
             corner=z(n, sc.max_corner, 3), corner_mask=b(n, sc.max_corner),
             surf=z(n, sc.max_surf, 3), surf_mask=b(n, sc.max_surf),
-            corner_rel=z(n, sc.max_corner), surf_rel=z(n, sc.max_surf))
+            corner_rel=z(n, sc.max_corner), surf_rel=z(n, sc.max_surf),
+            **extra)
 
     def placeholder(mcfg):
         return voxelmap.VoxelMap(cells=z(1, voxelmap._cpr(mcfg) * 4,
@@ -179,7 +179,9 @@ def init_state(cfg, Rbl=None, tbl=None, dtype=torch.float32, kf_imu_cap=256,
         prior=solver.empty_prior(dtype, device),
         vm_corner=voxelmap.empty_map(cfg.map, device),
         vm_surf=voxelmap.empty_map(cfg.map, device),
-        vm_non=placeholder(cfg.map),
+        # the non-feature map is a 1-row placeholder unless it is used
+        vm_non=(voxelmap.empty_map(cfg.map, device) if cfg.use_nonfeature
+                else placeholder(cfg.map)),
         vm_local_corner=(voxelmap.empty_map(cfg.local_map, device)
                          if cfg.use_local_map else placeholder(cfg.local_map)),
         vm_local_surf=(voxelmap.empty_map(cfg.local_map, device)
@@ -314,16 +316,28 @@ class FrameStack(NamedTuple):
 
 
 def _build_stacks(flat_pts, flat_rel, flat_labels, flat_valid, cfg, dtype):
-    """Label split + voxel downsample into one frame's fixed stacks."""
+    """Label split + voxel downsample into one frame's fixed stacks; with
+    cfg.use_nonfeature the unlabelled points form a third class."""
     sc = cfg.scan
     masks = [flat_valid & (flat_labels == 1), flat_valid & (flat_labels == 2)]
-    outs = downsample.voxel_downsample_multi(
-        flat_pts, masks, [sc.filter_corner, sc.filter_surf],
-        [sc.max_corner, sc.max_surf], extra=flat_rel)
+    leaves = [sc.filter_corner, sc.filter_surf]
+    caps = [sc.max_corner, sc.max_surf]
+    if cfg.use_nonfeature:
+        masks.append(flat_valid & (flat_labels == 0))
+        leaves.append(sc.filter_nonfeature)
+        caps.append(sc.max_nonfeature)
+    outs = downsample.voxel_downsample_multi(flat_pts, masks, leaves, caps,
+                                             extra=flat_rel)
     (corner, cmask, _, crel), (surf, smask, _, srel) = outs[0], outs[1]
+    extra = {}
+    if cfg.use_nonfeature:
+        non, nmask, _, nrel = outs[2]
+        extra = dict(non=non.to(dtype), non_mask=nmask,
+                     non_rel=nrel.to(dtype))
     return FrameStack(corner=corner.to(dtype), corner_mask=cmask,
                       surf=surf.to(dtype), surf_mask=smask,
-                      corner_rel=crel.to(dtype), surf_rel=srel.to(dtype))
+                      corner_rel=crel.to(dtype), surf_rel=srel.to(dtype),
+                      **extra)
 
 
 class PreparedFrame(NamedTuple):
@@ -361,7 +375,7 @@ def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
                                             scan.n_valid, cfg)
     ring_valid = (torch.arange(scan.pts.shape[1], device=dev)[None, :]
                   < scan.n_valid[:, None])
-    use_hori = scan.hori_pts is not None
+    use_hori = scan.hori_pts is not None and not cfg.velo_only_mode
     if use_hori:
         hlabels = features.extract_scan_features(
             scan.hori_pts, scan.hori_intensity, scan.hori_n_valid, cfg)
@@ -407,7 +421,11 @@ def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
     else:
         p_pred_full = p_prev + lie.quat_rotate(q_prev, pre.dp)
         v_pred_full = x_prev[6:9] + lie.quat_rotate(q_prev, pre.dv)
-    q_pred_pre = lie.quat_normalize(lie.quat_mul(q_prev, dq_gyro))
+    # imu_mode 0 has no IMU: the pre-init rotation replays the previous
+    # body delta; modes >= 1 integrate the gyro (modes <= 1 never
+    # initialize, so this is their steady state)
+    dq_pre = state.dqb if cfg.imu_mode == 0 else dq_gyro
+    q_pred_pre = lie.quat_normalize(lie.quat_mul(q_prev, dq_pre))
     p_pred_pre = p_prev + lie.quat_rotate(q_prev, state.dtb)
 
     inited = state.inited
@@ -508,6 +526,8 @@ def _insert_targets(cfg):
     """(state field, PendingInsert points field, map config, gate field)."""
     out = [("vm_corner", "corner", cfg.map, "do_map"),
            ("vm_surf", "surf", cfg.map, "do_map")]
+    if cfg.use_nonfeature:
+        out.append(("vm_non", "non", cfg.map, "do_map"))
     if cfg.use_local_map:
         out += [("vm_local_corner", "corner", cfg.local_map, "do_map_local"),
                 ("vm_local_surf", "surf", cfg.local_map, "do_map_local")]
@@ -646,7 +666,10 @@ def step_core(state: LIOState, scan: ScanInput, cfg):
         corner=_redeskew(stacks_w.corner, stacks_w.corner_rel,
                          stacks_w.corner_mask),
         surf=_redeskew(stacks_w.surf, stacks_w.surf_rel,
-                       stacks_w.surf_mask))
+                       stacks_w.surf_mask),
+        **(dict(non=_redeskew(stacks_w.non, stacks_w.non_rel,
+                              stacks_w.non_mask))
+           if cfg.use_nonfeature else {}))
 
     # ---- 8. map update (deferred; gating as in the reference) ----
     # the local map is move-gated at map_move_dist_sq only under
@@ -663,7 +686,8 @@ def step_core(state: LIOState, scan: ScanInput, cfg):
     pend = PendingInsert(
         corner=front_stack.corner, corner_mask=front_stack.corner_mask,
         surf=front_stack.surf, surf_mask=front_stack.surf_mask,
-        Rwl=Rwl, p=p_pub, do_map=do_map, do_map_local=do_map_local)
+        Rwl=Rwl, p=p_pub, do_map=do_map, do_map_local=do_map_local,
+        non=front_stack.non, non_mask=front_stack.non_mask)
     last_map_pos = torch.where(do_map_local, p_pub, state.last_map_pos)
     map_has_data = state.map_has_data | do_map
 
@@ -703,7 +727,8 @@ def step_core(state: LIOState, scan: ScanInput, cfg):
                                    prior=s.prior._replace(lin_J=lin_J,
                                                           x0=px0))
 
-    if not bool(state.inited):
+    # modes <= 1 never initialize (init needs the accelerometer)
+    if not (bool(state.inited) or cfg.imu_mode <= 1):
         new_state = _init_bookkeeping(
             new_state, scan, q_pub, p_pub,
             tree_map(lambda a: a[-1], stacks_w), cfg)

@@ -13,9 +13,12 @@ bounds) on a small map of noisy planes and lines written by K1; the
 addresses it computes are bit-equal to `voxelmap.stencil_addresses` on
 voxel and superrow boundaries, at negative coordinates and across the
 torus wrap; the fused local-map rescue agrees with both maps' plain
-versions (`assoc.compare_rescue`) and is `associate_with_rescue`.  A CUDA
-tensor whose kernel library cannot be built raises; nothing falls back to
-the plain version.
+versions (`assoc.compare_rescue`) and is `associate_with_rescue`.  Under
+`use_nonfeature` the non-feature association is one K2 launch with no
+rescue, and the batched insert writes `vm_non` through K1 (five launches).
+The rosbag decoder builds on the card's machine and decodes onto the card.
+A CUDA tensor whose kernel library cannot be built raises; nothing falls
+back to the plain version.
 """
 
 import dataclasses
@@ -270,3 +273,111 @@ def test_fused_rescue_matches_plain_version_on_card(mode, full):
             l0 + 2, r0 + 1, c0 + 1)
         for name in assoc.Assoc._fields:
             assert torch.equal(getattr(r, name), got[name]), name
+
+
+@pytest.mark.cuda
+def test_nonfeature_association_launches_no_rescue_on_card():
+    """The non-feature association (a plane fit against vm_non alone, zero
+    tangent weight) is one K2 launch with no rescue, and agrees with the
+    plain version (`assoc.compare`'s bounds)."""
+    dev = _device()
+    from mmloam_tpu_torch.config import LIOConfig
+    from mmloam_tpu_torch.estimator import factors
+
+    vm, pw, mask = _scene(dev)
+    cfg = LIOConfig().replace(map=MCFG)
+    x6 = torch.zeros(6, device=dev)
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    thres = torch.tensor(1.0, device=dev)
+    counts = lambda: (assoc.LAUNCHES, assoc.RESCUE_LAUNCHES, assoc.CALLS,
+                      assoc.LOCAL_CALLS)
+    c0 = counts()
+    pt, omega, valid, _ = factors.associate_planes(
+        x6, pw, mask, vm, eye, zero, cfg, thres, torch.zeros((), device=dev),
+        vm_local=None, with_blocks=True)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(c0, counts())) == (1, 0, 1, 0)
+    # the same launch through the dispatcher, held against the plain cut
+    sr = cfg.solver.plane_scatter_ratio
+    r, _ = assoc.associate_with_rescue(vm, None, pw, mask, MCFG, None,
+                                       MCFG.knn, assoc.PLANE, thres, sr,
+                                       pw.shape[0])
+    ref = assoc.stage_reference(assoc.OUT, vm, pw, mask, MCFG, MCFG.knn,
+                                assoc.PLANE, thres, sr)
+    torch.cuda.synchronize()
+    assoc.compare(assoc.OUT, r._asdict(), ref, mask, assoc.PLANE)
+    assert torch.equal(r.valid, valid) and torch.equal(r.vec, omega)
+    assert int(valid.sum()) > 50
+    # zero tangent weight: only the normal row of the sqrt-information
+    assert float(pt.sqrt_info[:, 1:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_nonfeature_third_insert_on_card():
+    """Under use_nonfeature the batched insert writes vm_non through K1:
+    three persistent maps and two local ones, five launches, each against
+    the plain version (meta exact, sums within the bound)."""
+    dev = _device()
+    from mmloam_tpu_torch import pipeline, replay
+    from mmloam_tpu_torch.config import tiny_config
+
+    cfg = tiny_config().replace(use_nonfeature=True)
+    B = 2
+    states = replay.stack_states([pipeline.init_state(cfg, device=dev)
+                                  for _ in range(B)])
+    rng = np.random.default_rng(7)
+    sc = cfg.scan
+    pts = lambda k: torch.from_numpy(rng.uniform(
+        -6, 6, (B, k, 3)).astype(np.float32)).to(dev)
+    msk = lambda k: torch.from_numpy(rng.random((B, k)) > 0.1).to(dev)
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    pend = pipeline.PendingInsert(
+        corner=pts(sc.max_corner), corner_mask=msk(sc.max_corner),
+        surf=pts(sc.max_surf), surf_mask=msk(sc.max_surf),
+        Rwl=torch.eye(3, device=dev).expand(B, 3, 3).contiguous(),
+        p=torch.zeros((B, 3), device=dev), do_map=ones, do_map_local=ones,
+        non=pts(sc.max_nonfeature), non_mask=msk(sc.max_nonfeature))
+    plain = {f: getattr(states, f).cells.clone() for f in pipeline.MAP_FIELDS}
+    before = map_insert.LAUNCHES
+    pipeline.apply_inserts_batched(states, pend, cfg)
+    torch.cuda.synchronize()
+    assert map_insert.LAUNCHES == before + 5
+    for field, pts_f, mcfg, gate_f in pipeline._insert_targets(cfg):
+        wpts = getattr(pend, pts_f)
+        ok = getattr(pend, pts_f + "_mask") & voxelmap.insert_guard(
+            wpts, pend.p, mcfg)
+        map_insert.insert_batched_reference(plain[field], wpts, ok, mcfg)
+        _assert_maps(getattr(states, field).cells, plain[field],
+                     [map_insert.cell_load(wpts, ok, mcfg)])
+    assert bool((states.vm_non.cells[..., 96:] > 0).any())
+
+
+@pytest.mark.cuda
+def test_native_reader_and_decode_onto_card(tmp_path):
+    """The rosbag decoder builds on the card's machine from
+    native/src/rosbag_decode.cpp, and a synthetic bag decodes onto the
+    card equal to the direct sequence (points exactly)."""
+    dev = _device()
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.config import tiny_config
+    from mmloam_tpu_torch.data import decode, rosbag, synthetic, synthetic_bag
+
+    cfg = tiny_config()
+    scans, _, _ = replay.make_sequence(
+        synthetic.default_world(), synthetic.Trajectory(speed=0.8), 0.0, 3,
+        cfg, n_az=360, with_hori=True, hori_n_az=240, dtype=np.float32)
+    path = tmp_path / "seq.bag"
+    synthetic_bag.sequence_to_bag(scans, path, hori_offset=0.05)
+    bag = rosbag.BagReader(path)
+    assert bag.topics()["/velodyne_points"] == ("sensor_msgs/PointCloud2", 3)
+    dec = decode.sequence_from_bag(bag, cfg, n_lines=16, max_pts=360,
+                                   hori_topic="/livox/lidar",
+                                   time_offset=0.05, device=dev)
+    assert dec.pts.device.type == "cuda"
+    assert torch.equal(dec.pts.cpu(), torch.from_numpy(scans.pts))
+    assert torch.equal(dec.hori_n_valid.cpu(),
+                       torch.from_numpy(scans.hori_n_valid))
+    n_az = scans.hori_pts.shape[2]
+    assert torch.equal(dec.hori_pts[:, :, :n_az].cpu(),
+                       torch.from_numpy(scans.hori_pts))
+    bag.close()

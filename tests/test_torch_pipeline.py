@@ -57,6 +57,8 @@ from mmloam_tpu_torch.config import faithful_config, tiny_config  # noqa: E402,E
 from mmloam_tpu_torch.data import synthetic as tsyn  # noqa: E402
 from mmloam_tpu_torch.tree import tree_map  # noqa: E402
 
+import torch_teacher as tt  # noqa: E402
+
 CFG = tiny_config()
 JCFG = jax_tiny_config()
 # the synthetic hall yields few Horizon corners: the batch test lowers the
@@ -68,8 +70,6 @@ JCFG_H = JCFG.replace(solver=dataclasses.replace(JCFG.solver,
 FCFG = faithful_config(CFG)
 FJCFG = jax_faithful_config(JCFG)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "hall_25.npz")
-POSE_ATOL = 1e-5
-SUM_ATOL = 1e-5
 FAITHFUL_SCALE = 10.0
 FAITHFUL_STACK_RTOL = 1e-4
 FAITHFUL_MAP_ATOL = 1e-3
@@ -78,17 +78,11 @@ GOLDEN_POSE_ATOL = 0.01
 GOLDEN_ATE_SLACK = 0.01
 
 
-def _np(a):
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
-        else np.asarray(a)
+_np = tt.np_
 
 
 def _hall(n_scans, range_noise, seed=0, **kw):
-    return jr.make_sequence(jsyn.default_world(),
-                            jsyn.Trajectory(speed=0.8, z_amp=0.15), 0.0,
-                            n_scans, JCFG, n_az=360, dtype=np.float32,
-                            range_noise=range_noise, seed=seed,
-                            to_device=False, **kw)
+    return tt.hall(JCFG, n_scans, range_noise, seed=seed, **kw)
 
 
 def _ate(pose_p, t, gt_R, gt_p):
@@ -117,33 +111,7 @@ def _teacher_record(faithful=False):
     """JAX step_core + apply_inserts over hall scans 0..10 (3 mm range
     noise): the pre-step states at scans 5 (pre-init) and 10 (post-init)
     and what the reference makes of that scan."""
-    cfg = FJCFG if faithful else JCFG
-    scans, _, _ = _hall(11, 0.003, seed=1)
-
-    @jax.jit
-    def parts(s, sc):
-        s1, out, pend = jp.step_core(s, sc, cfg)
-        return s1, out, pend, jp.apply_inserts(s1, pend, cfg)
-
-    st = jp.init_state(cfg)
-    rec = {}
-    for t in range(11):
-        sc = jax.tree.map(lambda a: jnp.asarray(a[t]), scans)
-        s1, out, pend, s2 = parts(st, sc)
-        if t in (5, 10):
-            rec[t] = dict(state=jax.tree.map(np.asarray, st),
-                          scan=jax.tree.map(lambda a: a[t], scans),
-                          core=jax.tree.map(np.asarray, (s1, out, pend)),
-                          after=jax.tree.map(np.asarray, s2))
-        st = s2
-    return rec
-
-
-def _assert_maps(got, want, name, atol=SUM_ATOL):
-    got, want = _np(got), np.asarray(want)
-    np.testing.assert_array_equal(got[:, 96:], want[:, 96:], err_msg=name)
-    np.testing.assert_allclose(got[:, :96], want[:, :96], atol=atol,
-                               err_msg=name)
+    return tt.teacher_record(FJCFG if faithful else JCFG, 11, (5, 10))[0]
 
 
 @pytest.mark.parametrize("t", [5, 10])
@@ -170,77 +138,11 @@ def test_teacher_forced_faithful_step_matches_jax(t):
 
 
 def _check_teacher_step(rec, t, cfg, scale=1.0, stack_rtol=0.0,
-                        map_atol=SUM_ATOL):
-    """Float bounds are the default step's times `scale`; with
-    `stack_rtol`, each re-deskewed stack point is held within
-    POSE_ATOL * scale + stack_rtol * its range (a rotation error grows
-    with range), and the inserted map sums `map_atol`."""
-    sj, (cj_state, cj_out, cj_pend), aj = (rec["state"], rec["core"],
-                                           rec["after"])
-    assert bool(sj.inited) == (t == 10)
-    st = tp.state_from_numpy(sj, device="cpu")
-    # the handover itself is lossless, both ways
-    back = tp.state_to_numpy(st)
-    assert type(back) is type(st)
-    for a, b in zip(jax.tree.leaves(sj), jax.tree.leaves(back)):
-        np.testing.assert_array_equal(b, a.astype(b.dtype))
-    scan = tp.scan_from_numpy(rec["scan"], device="cpu")
-    s1, out, pend = tp.step_core(st, scan, cfg)
-
-    for name in ("fail", "degenerate", "inited", "n_corner", "n_surf",
-                 "fast_rotation", "hori_merged", "n_assoc_line",
-                 "n_assoc_plane", "t"):
-        np.testing.assert_array_equal(_np(getattr(out, name)),
-                                      np.asarray(getattr(cj_out, name)),
-                                      err_msg=name)
-    for name in ("pose_p", "pose_q"):
-        np.testing.assert_allclose(_np(getattr(out, name)),
-                                   getattr(cj_out, name),
-                                   atol=POSE_ATOL * scale, err_msg=name)
-    np.testing.assert_allclose(_np(out.sv_min), cj_out.sv_min,
-                               rtol=1e-4 * scale)
-
-    # window: poses to POSE_ATOL; velocity/bias columns are less observed
-    # and move with the LM iterates' rounding, so they get 1e-4
-    x, xj = _np(s1.x), cj_state.x
-    np.testing.assert_allclose(x[:, 0:6], xj[:, 0:6], atol=POSE_ATOL * scale)
-    np.testing.assert_allclose(x[:, 6:15], xj[:, 6:15], atol=1e-4 * scale)
-    np.testing.assert_array_equal(_np(s1.frame_valid), cj_state.frame_valid)
-    np.testing.assert_array_equal(_np(s1.inited), cj_state.inited)
-    np.testing.assert_array_equal(_np(s1.prior.valid), cj_state.prior.valid)
-    np.testing.assert_allclose(_np(s1.prior.x0), cj_state.prior.x0,
-                               atol=1e-4 * scale)
-    # lin_J/lin_r come out of an f32 Schur complement whose pseudo-inverse
-    # threshold sits inside the eigenvalue noise: the reference's own jit
-    # and eager runs disagree there, so they are held in
-    # test_torch_estimator.py::test_marginalize against that spread
-    for name in ("corner", "surf"):
-        np.testing.assert_array_equal(_np(getattr(s1.stacks, name + "_mask")),
-                                      getattr(cj_state.stacks,
-                                              name + "_mask"))
-        got, want = _np(getattr(s1.stacks, name)), getattr(cj_state.stacks,
-                                                           name)
-        if stack_rtol:
-            err = np.linalg.norm(got - want, axis=-1)
-            bound = POSE_ATOL * scale + stack_rtol * np.linalg.norm(want,
-                                                                   axis=-1)
-            assert (err <= bound).all(), (name, (err - bound).max())
-        else:
-            np.testing.assert_allclose(got, want, atol=POSE_ATOL * scale,
-                                       err_msg=name)
-    np.testing.assert_array_equal(_np(pend.do_map), cj_pend.do_map)
-    np.testing.assert_array_equal(_np(pend.do_map_local),
-                                  cj_pend.do_map_local)
-    np.testing.assert_allclose(_np(s1.last_map_pos), cj_state.last_map_pos,
-                               atol=POSE_ATOL * scale)
-    np.testing.assert_allclose(_np(pend.p), cj_pend.p, atol=POSE_ATOL * scale)
-
-    s2 = tp.apply_inserts(s1, pend, cfg)
-    for name in tp.MAP_FIELDS:
-        _assert_maps(getattr(s2, name).cells, getattr(aj, name).cells, name,
-                     map_atol)
-    # the scatter insert returns new maps: the step's input maps are intact
-    _assert_maps(s1.vm_surf.cells, sj.vm_surf.cells, "input map")
+                        map_atol=tt.SUM_ATOL):
+    """`torch_teacher.check_teacher_step` (float bounds the default step's
+    times `scale`) on the record of scan t (post-init at t = 10)."""
+    tt.check_teacher_step(rec, t == 10, cfg, scale, stack_rtol=stack_rtol,
+                          map_atol=map_atol)
 
 
 def _batch_inputs(B, n_scans):
@@ -307,7 +209,12 @@ def test_hall_replay_against_golden():
 
 def test_port_imports_no_jax():
     code = ("import sys, mmloam_tpu_torch, mmloam_tpu_torch.pipeline, "
-            "mmloam_tpu_torch.replay, mmloam_tpu_torch.ops.map_insert; "
+            "mmloam_tpu_torch.replay, mmloam_tpu_torch.ops.map_insert, "
+            "mmloam_tpu_torch.checkpoint, mmloam_tpu_torch.metrics, "
+            "mmloam_tpu_torch.data.rosbag, mmloam_tpu_torch.data.decode, "
+            "mmloam_tpu_torch.data.calibration, "
+            "mmloam_tpu_torch.data.export, "
+            "mmloam_tpu_torch.data.synthetic_bag; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'mmloam_tpu.'))] "
             "+ (['mmloam_tpu'] if 'mmloam_tpu' in sys.modules else []); "
@@ -320,20 +227,17 @@ def test_port_imports_no_jax():
 
 
 def test_off_default_options_raise():
-    with pytest.raises(NotImplementedError, match="use_nonfeature"):
-        tp.init_state(CFG.replace(use_nonfeature=True))
-    with pytest.raises(NotImplementedError, match="imu_mode"):
-        tp.init_state(CFG.replace(imu_mode=1))
     with pytest.raises(NotImplementedError, match="dedup_gather"):
         tp.init_state(CFG.replace(
             map=dataclasses.replace(CFG.map, dedup_gather=True)))
-    with pytest.raises(NotImplementedError, match="velo_only_mode"):
-        tp.init_state(CFG.replace(velo_only_mode=True))
     with pytest.raises(NotImplementedError, match="pack_x"):
         tp.init_state(CFG.replace(
             local_map=dataclasses.replace(CFG.local_map, pack_z=1)))
-    # the reference-faithful settings are ported
+    # the reference-faithful settings and the rig's modes are ported
     tp.init_state(FCFG, device="cpu")
+    for kw in (dict(use_nonfeature=True), dict(imu_mode=0),
+               dict(imu_mode=1), dict(velo_only_mode=True)):
+        tp.init_state(CFG.replace(**kw), device="cpu")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
