@@ -70,7 +70,7 @@ Phases (any failure ends the run with a non-zero exit code):
    launches, K2 counts as phase 4, initialized, ATE < 0.15 m);
    `checkpoint.save`/`restore` of the final state bit-equal; and
    `export.save_map_pcd` writing one point per valid surf cell;
-8. the rig's modes at `LIOConfig()`: `replay_batch` B=2 x T=12 under
+8. the rig's modes at `LIOConfig()`: `replay_batch` B=2 x T=10 under
    `use_nonfeature` (K1 5*T launches, the non-feature K2 calls without a
    rescue: RESCUE_LAUNCHES == LOCAL_CALLS < CALLS, vm_non filled),
    `imu_mode` 1 and 0 (never initialized) and `velo_only_mode` (no
@@ -79,7 +79,34 @@ Phases (any failure ends the run with a non-zero exit code):
    against their plain versions: K2's non-feature association (lane 0's
    newest non stack, M=512, plane mode on vm_non, every stage, fresh and
    cached, as phase 5) and K1's insert of every lane's non stack into
-   vm_non (as phase 2).
+   vm_non (as phase 2);
+9. every map option through both kernels at `LIOConfig()` map widths: K1
+   against its plain version at packs (2,2,2) and (1,1,1) (phase 2's
+   persistent cases); K2 at those packs on lane 0's maps from phase 4
+   (`repack`ed: the same fine cells), every stage, fresh and cached, surf
+   (M=2048, plane) and corner (M=512, line), and each rescue pair (as
+   phase 5, bf16 blocks, the cap binding and not); the same at phase
+   10's maps (persistent (2,2,2), local (1,1,1), dedup_gather on both:
+   the pair's launches of two geometries, the local bound from the NEED
+   flags); `dedup_gather` at capacity 2 on the newest surf
+   stack and its rescue pair, and at capacity 1 on M=2048 queries spread
+   over the torus, which must overflow: the rows the kernel dropped are
+   held equal to the plain dedup gather's.  Times and bounds per case as
+   phase 5;
+10. `replay_batch` at `LIOConfig()` with `map` at pack (2,2,2), `local_map`
+   at (1,1,1) and `dedup_gather` on both, B=2 x T=12 built as phase 4
+   builds its inputs, split over [cuda:0, cuda:0]: every lane
+   initialized, finite poses, ATE < 0.15 m per lane (logged beside phase
+   4's), K1 4*T launches per shard and K2 counts as phase 4;
+11. the reference's multi-device dry run (`__graft_entry__.
+   dryrun_multichip`) through the port's split: B=8 x 14 scans at
+   `tiny_config` over [cuda:0] x 4 against the unsplit run (made at the
+   same time by a second process on the card, `--unsplit`; discrete
+   outputs equal, poses bit-equal), every lane initialized and moved off
+   the origin, pose_p within 3e-2 of tests/golden/multichip_phase1.npz;
+   then the flagship map dims at B=8 x 2 scans over [cuda:0] x 8 (one
+   sequence a shard): 164 MiB of maps a sequence, and the peak device
+   memory (`torch.cuda.max_memory_allocated`).
 
 Before the last line come a JSON object with each kernel's launches,
 error and times ("ms" is the launch incl. host, "device_ms" the kernel's
@@ -257,12 +284,17 @@ K2_RESULT_BYTES = 33
 
 
 def row_bytes(pw, mcfg):
-    """Bytes of the distinct superrows (512 B each) whose stencils this
-    run's queries touch, counted with torch.unique."""
+    """Bytes of the distinct superrows (16 B a cell: 512 B at the default
+    pack) whose stencils this run's queries touch, counted with
+    torch.unique; under dedup_gather only the rows the dedup keeps."""
     from mmloam_tpu_torch.ops import voxelmap
 
     slots = voxelmap.stencil_addresses(pw, mcfg).slot
-    return int(torch.unique(slots).numel()) * 512
+    if mcfg.dedup_gather:
+        thr = voxelmap.dedup_threshold(
+            slots, voxelmap.dedup_capacity(mcfg, pw.shape[0]))
+        slots = slots[slots <= thr]
+    return int(torch.unique(slots).numel()) * 16 * voxelmap._cpr(mcfg)
 
 
 def k2_work(vm, pw, mcfg, fresh, want_blocks):
@@ -272,14 +304,17 @@ def k2_work(vm, pw, mcfg, fresh, want_blocks):
     queries, K2_RESULT_BYTES per query, the blocks when asked) and its f32
     operations (~30 per candidate: offsets, d2, selection compares,
     moments)."""
+    from mmloam_tpu_torch.ops import voxelmap
+
     M = pw.shape[0]
-    blk = 4 * M * 256 * (2 if mcfg.dense_bf16 else 4)
+    C = int(np.prod(voxelmap._super_window(mcfg))) * voxelmap._cpr(mcfg)
+    blk = 4 * M * C * (2 if mcfg.dense_bf16 else 4)
     nbytes = M * (12 + 1) + 4 + M * K2_RESULT_BYTES
     if fresh:
         nbytes += row_bytes(pw, mcfg) + (blk if want_blocks else 0)
     else:
         nbytes += M * 12 + blk
-    return nbytes, M * 256 * 30
+    return nbytes, M * C * 30
 
 
 def k1_bytes(map_insert, pts, mask, mcfg):
@@ -287,8 +322,11 @@ def k1_bytes(map_insert, pts, mask, mcfg):
     read once, and each row it touches (counted from this run's points)
     read and written once.  The sorted order and the addresses are the
     kernel's own intermediates and are not counted."""
+    from mmloam_tpu_torch.ops import voxelmap
+
     rows = int(map_insert.aggregate_updates(pts, mask, mcfg).nv.sum())
-    return pts.shape[0] * pts.shape[1] * (12 + 1) + rows * 1024
+    return (pts.shape[0] * pts.shape[1] * (12 + 1)
+            + rows * 32 * voxelmap._cpr(mcfg))
 
 
 # --------------------------------------------------------------------------
@@ -389,21 +427,40 @@ def _insert_cases(mcfg, B, N, rng):
     return [("accumulate_and_cap", accumulate), ("stale_epoch", evict)]
 
 
-def check_map_insert(dev):
+def _assert_k1(ck, cp, loads, what):
+    """K1 against the plain version: meta lanes equal, sum lanes within
+    `map_insert.sum_tolerance`; returns (max |sum err|, its bound)."""
+    from mmloam_tpu_torch.ops import map_insert
+
+    s3 = 3 * (ck.shape[-1] // 4)
+    if not torch.equal(ck[..., s3:], cp[..., s3:]):
+        raise AssertionError(f"K1 meta lanes differ: {what}")
+    diff = (ck[..., :s3] - cp[..., :s3]).abs()
+    tol = map_insert.sum_tolerance(cp[..., :s3], loads)
+    err = float(diff.max())
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"K1 sums differ by up to {err}, over the "
+                             f"bound: {what}")
+    return err, float(tol.max())
+
+
+def check_map_insert(dev, shapes=None):
+    """K1 against its plain version on `shapes` ((label, map config, B,
+    N), ...; the flagship persistent and local maps when None)."""
     from mmloam_tpu_torch.config import LIOConfig
     from mmloam_tpu_torch.ops import map_insert, voxelmap
 
     cfg = LIOConfig()
-    shapes = [("persistent", cfg.map, 16, 2048),
-              ("local", cfg.local_map, 16, 512)]
+    shapes = shapes or [("persistent", cfg.map, 16, 2048),
+                        ("local", cfg.local_map, 16, 512)]
     rng = np.random.default_rng(0)
     max_err = 0.0
     timing = {}
     for label, base, B, N in shapes:
         mcfg = dataclasses.replace(base, count_cap=10.0)
-        Cs = voxelmap.empty_map(mcfg).cells.shape[0]
+        Cs, R = voxelmap.empty_map(mcfg).cells.shape
         for case, steps in _insert_cases(mcfg, B, N, rng):
-            ck = torch.zeros((B, Cs, 128), device=dev)
+            ck = torch.zeros((B, Cs, R), device=dev)
             cp = torch.zeros_like(ck)
             loads = []
             for pts, mask in steps:
@@ -417,22 +474,16 @@ def check_map_insert(dev):
                 sp = map_insert.sort_points(p, m, mcfg)
                 cells = ck.clone()
             torch.cuda.synchronize()
-            if not torch.equal(ck[..., 96:], cp[..., 96:]):
-                raise AssertionError(f"K1 meta lanes differ: {label} {case}")
-            diff = (ck[..., :96] - cp[..., :96]).abs()
-            tol = map_insert.sum_tolerance(cp[..., :96], loads)
-            err = float(diff.max())
-            if not bool((diff <= tol).all()):
-                raise AssertionError(f"K1 sums differ by up to {err}, over "
-                                     f"the bound: {label} {case}")
-            counts = ck[..., 96:] - torch.floor(ck[..., 96:] / 128.0) * 128.0
+            err, tol = _assert_k1(ck, cp, loads, f"{label} {case}")
+            meta = ck[..., 3 * R // 4:]
+            counts = meta - torch.floor(meta / 128.0) * 128.0
             if case == "accumulate_and_cap" and not bool(
                     (counts == mcfg.count_cap).any()):
                 raise AssertionError("cap case never reached the cap")
             max_err = max(max_err, err)
             log(f"  K1 {label:10s} {case:18s} B={B} N={N} Cs={Cs}: meta "
-                f"equal, max |sum err| {err:.3g} (bound {float(tol.max()):.3g}"
-                f", cell loads {loads})")
+                f"equal, max |sum err| {err:.3g} (bound {tol:.3g}, cell "
+                f"loads {loads})")
         # time the kernel on the accumulate case's second insert
         p, m = p_acc, m_acc
         launch = lambda: map_insert.aggregate_rmw(cells, sp, mcfg)
@@ -717,52 +768,63 @@ def time_k2(dev, cargs, cached, want):
                 bytes=nbytes, bound_ms=bound, bound_by=by)
 
 
-def check_k2_case(dev, cfg, thres, case, timing):
+def check_k2_case(dev, cfg, thres, case, timing, variants=None):
     """One case (see `_assoc_cases`): K2 and each of its stages against
-    the plain version, fresh and from cached blocks, with dense_bf16 on and
-    off (and a plane fit also without the scatter gate); each variant's
-    times go into `timing`.  Returns (max error, queries near a gate)."""
+    the plain version, fresh and from cached blocks, in each (dense_bf16,
+    scatter ratio) of `variants` (by default bf16 on and off, and a plane
+    fit also without the scatter gate); each variant's times, and the
+    rows a dedup gather dropped (the kernel's GATHER stage, held equal to
+    the plain version's), go into `timing`.  Returns (max error, queries
+    near a gate)."""
     from mmloam_tpu_torch.ops import assoc
 
     label, vm, pw, mask, mcfg0, mode, sr, moved = case
     k = cfg.map.knn
     max_err, near = 0.0, 0
-    for bf16 in (True, False):
+    if variants is None:
         # the plane fit also without the scatter gate (faithful_config)
-        for ratio in ([sr, 0.0] if bf16 and sr > 0 else [sr]):
-            mcfg = dataclasses.replace(mcfg0, dense_bf16=bf16)
-            args = (vm, pw, mask, mcfg, k, mode, thres, ratio)
-            _, blocks = assoc.associate_reference(*args)
-            for entry, cached, q in (("fresh", None, pw),
-                                     ("cached", blocks, moved)):
-                cargs = (vm, q) + args[2:]
-                errs, n_near = [], 0
-                for stage in range(len(assoc.STAGE_NAMES)):
-                    if stage == assoc.GATHER and cached is not None:
-                        continue
-                    got = assoc.run_stage(stage, *cargs, cached=cached)
-                    ref = assoc.stage_reference(stage, *cargs, cached=cached)
-                    torch.cuda.synchronize()
-                    st = assoc.compare(stage, got, ref, mask, mode)
-                    errs.append(st["max_abs_err"])
-                    n_near = max(n_near, st["near"])
-                want = cached is None and "persistent" in label
-                t = time_k2(dev, cargs, cached, want)
-                r, _ = assoc.associate_reference(*cargs, cached=cached)
-                n_valid = int(r.valid.sum())
-                name = f"{label} {entry} bf16={int(bf16)} scatter={ratio:g}"
-                timing[name] = dict(t, M=int(pw.shape[0]), valid=n_valid,
-                                    near=n_near, max_abs_err=max(errs))
-                log(f"  K2 {name:42s} M={pw.shape[0]:4d}: all stages "
-                    f"agree, max err {max(errs):.3g}, {n_near} near a "
-                    f"gate, {n_valid} valid; device {t['device_ms']:.4f}"
-                    f" ms, launch incl. host {t['ms']:.4f} ms, entry "
-                    f"{t['entry_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-                    f"ms, bound {t['bound_ms']:.4f} ms")
-                if name == K2_TIMED_CASE:
-                    timing[name]["stages"] = time_stages(dev, cargs)
-                max_err = max(max_err, max(errs))
-                near += n_near
+        variants = [(True, r) for r in ([sr, 0.0] if sr > 0 else [sr])]
+        variants.append((False, sr))
+    for bf16, ratio in variants:
+        mcfg = dataclasses.replace(mcfg0, dense_bf16=bf16)
+        args = (vm, pw, mask, mcfg, k, mode, thres, ratio)
+        _, blocks = assoc.associate_reference(*args)
+        for entry, cached, q in (("fresh", None, pw),
+                                 ("cached", blocks, moved)):
+            cargs = (vm, q) + args[2:]
+            errs, n_near, dropped = [], 0, None
+            for stage in range(len(assoc.STAGE_NAMES)):
+                if stage == assoc.GATHER and cached is not None:
+                    continue
+                got = assoc.run_stage(stage, *cargs, cached=cached)
+                ref = assoc.stage_reference(stage, *cargs, cached=cached)
+                torch.cuda.synchronize()
+                st = assoc.compare(stage, got, ref, mask, mode)
+                errs.append(st["max_abs_err"])
+                n_near = max(n_near, st["near"])
+                if stage == assoc.GATHER:
+                    dropped = st["dropped"]
+            want = cached is None and "persistent" in label
+            t = time_k2(dev, cargs, cached, want)
+            r, _ = assoc.associate_reference(*cargs, cached=cached)
+            n_valid = int(r.valid.sum())
+            name = f"{label} {entry} bf16={int(bf16)} scatter={ratio:g}"
+            timing[name] = dict(t, M=int(pw.shape[0]), valid=n_valid,
+                                near=n_near, max_abs_err=max(errs),
+                                dropped_rows=dropped)
+            drops = ("" if dropped is None else
+                     f", {dropped} window rows dropped (as plain)")
+            log(f"  K2 {name:42s} M={pw.shape[0]:4d}: all stages "
+                f"agree, max err {max(errs):.3g}, {n_near} near a "
+                f"gate, {n_valid} valid{drops}; device "
+                f"{t['device_ms']:.4f}"
+                f" ms, launch incl. host {t['ms']:.4f} ms, entry "
+                f"{t['entry_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                f"ms, bound {t['bound_ms']:.4f} ms")
+            if name == K2_TIMED_CASE:
+                timing[name]["stages"] = time_stages(dev, cargs)
+            max_err = max(max_err, max(errs))
+            near += n_near
     return max_err, near
 
 
@@ -798,17 +860,24 @@ def check_rescue(dev, cfg, thres, label, vm, vml, pw, mask, mode, sr, moved):
             args = (vm, vml, q, mask, cfg.map, cfg.local_map, k, mode, thres,
                     sr)
             got = assoc.run_rescue(*args, cap, cached)
-            refs = assoc.rescue_stage_reference(*args, cached)
+            # the kernel's own flags pick the rescue's query set, whose
+            # rows rank together under the local map's dedup_gather
+            refs = assoc.rescue_stage_reference(*args, cached, cap,
+                                                got["need"])
             torch.cuda.synchronize()
             st = assoc.compare_rescue(got, refs, mask, mode, cap)
             name = f"{label} {entry} cap={cap}"
+            dropped = local_rows_dropped(pw, got["need"], cfg.local_map, cap)
+            drops = ("" if dropped is None else
+                     f", {dropped} local window rows over the dedup bound")
             log(f"  K2 {name:42s} M={M:4d}: agrees, max err "
                 f"{st['max_abs_err']:.3g}, {st['near']} near a gate, "
-                f"{st['flagged']} flagged, {st['served']} served")
+                f"{st['flagged']} flagged, {st['served']} served{drops}")
             max_err, near = max(max_err, st["max_abs_err"]), near + st["near"]
             timing[name] = dict(M=M, flagged=st["flagged"],
                                 served=st["served"], near=st["near"],
-                                max_abs_err=st["max_abs_err"])
+                                max_abs_err=st["max_abs_err"],
+                                local_dropped_rows=dropped)
             if entry != "fresh" or cap == M:
                 continue
             call = lambda: assoc.associate_with_rescue(
@@ -819,7 +888,8 @@ def check_rescue(dev, cfg, thres, label, vm, vml, pw, mask, mode, sr, moved):
             tried = q[assoc._tried(got["need"], cap)]
             b1, o1 = k2_work(vm, q, cfg.map, True, True)
             nbytes = b1 + row_bytes(tried, cfg.local_map)
-            bound, by = bound_ms(nbytes, o1 + tried.shape[0] * 256 * 30)
+            bound, by = bound_ms(nbytes, o1 + tried.shape[0] * 30
+                                 * assoc.n_candidates(cfg.local_map))
             timing[name].update(
                 device_ms=d_ms, device_how=how,
                 entry_ms=cuda_ms(call), plain_ms=cuda_ms(
@@ -831,6 +901,23 @@ def check_rescue(dev, cfg, thres, label, vm, vml, pw, mask, mode, sr, moved):
                 f"associate_with_rescue {t['entry_ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, bound {bound:.4f} ms")
     return max_err, near, timing
+
+
+def local_rows_dropped(pw, need, lcfg, cap):
+    """Under the local map's dedup_gather, the window rows of the rescue's
+    query set (every query when the cap does not bind, else the first cap
+    flagged and the pads, as `assoc._rescue_pair` ranks them) whose slot
+    lies over the bound; None without dedup_gather."""
+    from mmloam_tpu_torch.ops import assoc, voxelmap
+
+    if not lcfg.dedup_gather:
+        return None
+    M = pw.shape[0]
+    pw_r = pw if cap >= M else assoc._rescue_queries(pw, need, cap)[1]
+    slot = voxelmap.stencil_addresses(pw_r, lcfg).slot
+    thr = voxelmap.dedup_threshold(
+        slot, voxelmap.dedup_capacity(lcfg, pw_r.shape[0]))
+    return int((slot > thr).sum())
 
 
 # --------------------------------------------------------------------------
@@ -1209,7 +1296,7 @@ def _leaves(tree):
 # phase 8: the rig's modes at full width
 # --------------------------------------------------------------------------
 
-MODE_B, MODE_T = 2, 12
+MODE_B, MODE_T = 2, 10
 # ATE bounds beside the reference's own: tests/test_imu_modes.py (gyro only
 # 0.6 m, no IMU 0.8 m; both never initialize), the flagship's 0.15 m for
 # the tightly coupled modes (tests/test_hori_fusion.py:41 allows the fused
@@ -1259,15 +1346,8 @@ def check_nonfeature_insert(st, cfg):
     map_insert.insert_batched(ck, pts, mask, mcfg)
     map_insert.insert_batched_reference(cp, pts, mask, mcfg)
     torch.cuda.synchronize()
-    if not torch.equal(ck[..., 96:], cp[..., 96:]):
-        raise AssertionError("K1 meta lanes differ on the vm_non insert")
-    diff = (ck[..., :96] - cp[..., :96]).abs()
-    tol = map_insert.sum_tolerance(
-        cp[..., :96], [map_insert.cell_load(pts, mask, mcfg)])
-    err = float(diff.max())
-    if not bool((diff <= tol).all()):
-        raise AssertionError(f"K1 sums differ by up to {err} on the vm_non "
-                             "insert, over the bound")
+    err, _ = _assert_k1(ck, cp, [map_insert.cell_load(pts, mask, mcfg)],
+                        "the vm_non insert")
     n = int(mask.sum())
     if n == 0:
         raise AssertionError("the vm_non insert has no point")
@@ -1275,9 +1355,9 @@ def check_nonfeature_insert(st, cfg):
 
 
 def check_modes(dev):
-    """Phase 8: replay_batch B=2 x T=12 at LIOConfig() widths
-    (`merging_config`, so the Horizon path runs) under each mode.  T=12
-    reaches IMU init (scan 8) and three post-init scans.  As the
+    """Phase 8: replay_batch B=2 x T=10 at LIOConfig() widths
+    (`merging_config`, so the Horizon path runs) under each mode.  T=10
+    reaches IMU init (scan 8) and a post-init scan.  As the
     reference's tests, imu_mode=1 runs with the accelerometer zeroed and
     imu_mode=0 with the whole IMU zeroed.  After the use_nonfeature run,
     the two kernel calls only that mode makes are held against their plain
@@ -1362,11 +1442,371 @@ def check_modes(dev):
     return res, errs
 
 
+# --------------------------------------------------------------------------
+# phase 9: K1 and K2 at other superrow packs, and under dedup_gather
+# --------------------------------------------------------------------------
+
+NEW_PACKS = ((2, 2, 2), (1, 1, 1))
+
+
+def with_pack(mcfg, pack, **kw):
+    return dataclasses.replace(mcfg, pack_x=pack[0], pack_y=pack[1],
+                               pack_z=pack[2], **kw)
+
+
+def repack(cells, src, dst):
+    """The same fine cells laid out at `dst`'s superrow pack: cells (Cs,
+    4 cpr) of map config `src` to (Cs', 4 cpr') of `dst`.  A cell's sums,
+    count and key do not depend on the pack (the key's period quotients
+    are floor(v / dim) at any pack), so this only moves cells."""
+    from mmloam_tpu_torch.ops import voxelmap
+
+    dev = cells.device
+    (px, py, pz), (qx, qy, qz) = voxelmap._pack(src), voxelmap._pack(dst)
+    sd, td = voxelmap._sdims(src), voxelmap._sdims(dst)
+    cpr, cpr2 = px * py * pz, qx * qy * qz
+    idx = torch.arange(cells.shape[0] * cpr, device=dev)
+    slot, sub = idx // cpr, idx % cpr
+    fx = slot // (sd[1] * sd[2]) * px + sub // (py * pz)
+    fy = (slot // sd[2]) % sd[1] * py + (sub // pz) % py
+    fz = slot % sd[2] * pz + sub % pz
+    slot2 = (fx // qx * td[1] + fy // qy) * td[2] + fz // qz
+    sub2 = ((fx % qx) * qy + fy % qy) * qz + fz % qz
+    out = torch.empty((td[0] * td[1] * td[2], 4 * cpr2), device=dev)
+    for f in range(4):
+        out[slot2, f * cpr2 + sub2] = cells[slot, f * cpr + sub]
+    return out
+
+
+def spread_queries(mcfg, M, dev, seed=5):
+    """M queries spread over the map's torus (within 0.45 of a period of
+    the origin per axis): their stencil rows are nearly all distinct."""
+    rng = np.random.default_rng(seed)
+    half = 0.45 * np.array([mcfg.dim_x, mcfg.dim_y, mcfg.dim_z]) \
+        * mcfg.voxel_size
+    q = rng.uniform(-half, half, (M, 3)).astype(np.float32)
+    return torch.from_numpy(q).to(dev)
+
+
+def check_packs_and_dedup(dev, lane0):
+    """Phase 9 at `LIOConfig()` map widths.  K1 against its plain version
+    at packs (2,2,2) and (1,1,1) on the persistent map (phase 2's cases);
+    K2 at those packs on lane 0's maps from phase 4 (repacked), every
+    stage, fresh and cached, surf (M=2048, plane) and corner (M=512,
+    line), and each rescue pair, as phase 5 runs them (bf16 blocks, the
+    default's); the same at `pack_dedup_config()` (phase 10's maps, tag
+    "mixed"), with each rescue pair's local rows over the dedup bound
+    logged; then `dedup_gather` at the default pack, capacity 2 on
+    the newest surf stack (clustered queries), its rescue pair with the
+    local map under the same dedup, and capacity 1 on M=2048 queries
+    spread over the torus, which must overflow.  Rows dropped are the
+    GATHER stage's, held equal to the plain dedup gather's."""
+    from mmloam_tpu_torch.config import LIOConfig
+    from mmloam_tpu_torch.ops import assoc, voxelmap
+
+    cfg0 = LIOConfig()
+    shapes = [("pack{}{}{} persistent".format(*p), with_pack(cfg0.map, p),
+               16, 2048) for p in NEW_PACKS]
+    k1_err, k1_timing = check_map_insert(dev, shapes)
+    thres = torch.tensor(cfg0.solver.thres_dist, device=dev)
+    timing, max_err, near = {}, 0.0, 0
+
+    def k2(cfg, case, pair=False):
+        nonlocal max_err, near
+        if pair:
+            err, n_near, t = check_rescue(dev, cfg, thres, *case)
+            timing.update(t)
+        else:
+            err, n_near = check_k2_case(dev, cfg, thres, case, timing,
+                                        variants=[(True, case[6])])
+        max_err, near = max(max_err, err), near + n_near
+
+    geoms = [("pack{}{}{} ".format(*p),
+              cfg0.replace(map=with_pack(cfg0.map, p),
+                           local_map=with_pack(cfg0.local_map, p)))
+             for p in NEW_PACKS]
+    # phase 10's configuration: each launch of a rescue pair carries its
+    # own map's geometry, and the local bound ranks the NEED flags'
+    # compacted set (with the cap binding) or every query (not binding)
+    geoms.append(("mixed ", pack_dedup_config()))
+    for tag, cfg in geoms:
+        lane = dict(lane0)
+        for f in ("vm_corner", "vm_surf"):
+            lane[f] = repack(lane0[f], cfg0.map, cfg.map)
+        for f in ("vm_local_corner", "vm_local_surf"):
+            lane[f] = repack(lane0[f], cfg0.local_map, cfg.local_map)
+        cases, pairs = _assoc_cases(lane, cfg)
+        for case in cases:
+            k2(cfg, (tag + case[0],) + case[1:])
+        for pair in pairs:
+            k2(cfg, (tag + pair[0],) + pair[1:], pair=True)
+        lane = None
+
+    cases, pairs = _assoc_cases(lane0, cfg0)
+    surf = next(c for c in cases if c[0] == "surf persistent")
+    rescue = next(p for p in pairs if p[0] == "surf rescue")
+    dd = cfg0.replace(
+        map=dataclasses.replace(cfg0.map, dedup_gather=True),
+        local_map=dataclasses.replace(cfg0.local_map, dedup_gather=True))
+    assert dd.map.dedup_capacity == 2
+    k2(dd, ("dedup2 surf persistent", surf[1], surf[2], surf[3], dd.map)
+       + surf[5:])
+    k2(dd, ("dedup2 surf rescue",) + rescue[1:], pair=True)
+    spread = dataclasses.replace(cfg0.map, dedup_gather=True,
+                                 dedup_capacity=1)
+    q = spread_queries(spread, 2048, dev)
+    ones = torch.ones(2048, dtype=torch.bool, device=dev)
+    k2(dd, ("dedup1 spread persistent", surf[1], q, ones, spread,
+            assoc.PLANE, surf[6], q + 3e-3))
+    dropped = timing["dedup1 spread persistent fresh bf16=1 scatter="
+                     f"{surf[6]:g}"]["dropped_rows"]
+    kept2 = timing[f"dedup2 surf persistent fresh bf16=1 scatter="
+                   f"{surf[6]:g}"]["dropped_rows"]
+    mixed = {}
+    for n, t in timing.items():
+        d = t.get("dropped_rows", t.get("local_dropped_rows"))
+        if n.startswith("mixed") and d is not None:
+            mixed[n] = d
+    log(f"  dedup: capacity 2 on the surf stack dropped {kept2} window "
+        f"rows; capacity 1 on spread queries dropped {dropped} of "
+        f"{2048 * assoc.window_rows(spread)}; pack (2,2,2) / local (1,1,1) "
+        "(phase 10's maps): " + ", ".join(f"{n} {d}"
+                                          for n, d in mixed.items()))
+    if not dropped > 0:
+        raise AssertionError("capacity 1 on spread queries did not overflow")
+    return dict(k1=k1_timing, k2=timing, k1_max_abs_err=k1_err,
+                k2_max_abs_err=max_err, k2_near=near,
+                dedup_dropped=dict(capacity2_stack=kept2,
+                                   capacity1_spread=dropped, mixed=mixed))
+
+
+# --------------------------------------------------------------------------
+# phase 10: the pack and dedup options through a split replay at full width
+# --------------------------------------------------------------------------
+
+PACK_B, PACK_T = 2, 12
+
+
+def pack_dedup_config():
+    """`LIOConfig()` with `map` at pack (2,2,2), `local_map` at (1,1,1)
+    and dedup_gather on both (capacity 2, the default)."""
+    from mmloam_tpu_torch.config import LIOConfig
+
+    cfg = LIOConfig()
+    return cfg.replace(
+        map=with_pack(cfg.map, (2, 2, 2), dedup_gather=True),
+        local_map=with_pack(cfg.local_map, (1, 1, 1), dedup_gather=True))
+
+
+def check_pack_replay(dev, flag):
+    """Phase 10: `replay_batch` at `pack_dedup_config()`, B=2 x T=12 built
+    as phase 4 builds its inputs (the same seeds), split over [dev, dev]:
+    every lane initialized, finite poses, ATE < ATE_MAX per lane, K1
+    4 T launches per shard and every association call through K2 with
+    its rescue (as phase 4)."""
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.ops import map_insert
+
+    cfg = pack_dedup_config()
+    mesh = [dev, dev]
+    scans, gts = flagship_inputs(cfg, PACK_B, PACK_T, 7, dev)
+    states = fresh_states(cfg, PACK_B, dev)
+    torch.cuda.synchronize()
+    map_insert.LAUNCHES = 0
+    _reset_k2_counts()
+    t0 = time.perf_counter()
+    shards, outs = replay.replay_batch(states, scans, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1 = map_insert.LAUNCHES
+    k2 = _check_k2_counts("pack/dedup replay")
+    pose = outs.pose_p.cpu().numpy()
+    inited = outs.inited.cpu().numpy()
+    ts = outs.t.cpu().numpy()
+    ate = [_ate(pose[:, b], ts[:, b], *gts[b]) for b in range(PACK_B)]
+    ref = [flag["lanes"][b]["ate"] for b in range(PACK_B)]
+    log(f"  pack/dedup replay B={PACK_B} T={PACK_T} over {len(mesh)} "
+        f"shards: {secs:.1f} s, K1 launches {k1}, ATE "
+        + ", ".join(f"{a:.4f}" for a in ate) + " m (phase 4's lanes, "
+        f"default maps, T={FLAGSHIP_T}: "
+        + ", ".join(f"{a:.4f}" for a in ref) + " m), inited "
+        f"{inited[-1].tolist()}")
+    if k1 != 4 * PACK_T * len(mesh):
+        raise AssertionError(f"K1 launched {k1} times, want "
+                             f"{4 * PACK_T * len(mesh)}")
+    if not (inited[-1].all() and np.isfinite(pose).all()
+            and max(ate) < ATE_MAX):
+        raise AssertionError("pack/dedup replay outside its bounds")
+    if any(s.vm_surf.cells.shape[-1] != 32 for s in shards):
+        raise AssertionError("the persistent map is not at pack (2,2,2)")
+    return dict(B=PACK_B, T=PACK_T, shards=len(mesh), secs=secs,
+                k1_launches=k1, k2_launches=k2, ate=ate,
+                phase4_ate=ref)
+
+
+# --------------------------------------------------------------------------
+# phase 11: the reference's multi-device dry run through the port
+# --------------------------------------------------------------------------
+
+SPLIT_B, SPLIT_T = 8, 14          # __graft_entry__.PHASE1_B, PHASE1_SCANS
+SPLIT_GOLDEN_ATOL = 3e-2          # the dry run's own bound (see below)
+SPLIT_CHILD_TIMEOUT = 600         # s the unsplit run may outlast the split
+DISCRETE = ("inited", "fail", "degenerate", "n_corner", "n_surf",
+            "fast_rotation", "hori_merged", "n_assoc_line", "n_assoc_plane",
+            "t")
+
+
+def split_inputs(cfg, dev, n_scans, seed0, yaw=True):
+    """`__graft_entry__.phase1_inputs`' recipe (`__graft_entry__.py:82-103`)
+    through the port: B=8 trajectories, seeded scans at n_az=360."""
+    from mmloam_tpu_torch import pipeline, replay
+    from mmloam_tpu_torch.data import synthetic
+
+    seqs = []
+    for b in range(SPLIT_B):
+        kw = dict(yaw_rate=0.15 + 0.03 * b) if yaw else {}
+        traj = synthetic.Trajectory(speed=0.6 + 0.05 * b, z_amp=0.1, **kw)
+        scans, _, _ = replay.make_sequence(
+            synthetic.default_world(), traj, 0.0, n_scans, cfg, n_az=360,
+            seed=seed0 + b, dtype=np.float32)
+        seqs.append(scans)
+    return pipeline.scan_from_numpy(replay.stack_sequences(seqs), dev)
+
+
+def unsplit_child(out):
+    """Phase 11's unsplit reference run, in a process of its own on the
+    card (`chip_smoke.py --unsplit OUT`): B=8 x 14 scans at `tiny_config`
+    through `replay_batch` without a mesh; its outputs and wall time go
+    to the .npz OUT."""
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.config import tiny_config
+
+    dev = torch.device("cuda", 0)
+    cfg = tiny_config()
+    scans = split_inputs(cfg, dev, SPLIT_T, 0)
+    t0 = time.perf_counter()
+    _, whole = replay.replay_batch(fresh_states(cfg, SPLIT_B, dev), scans,
+                                   cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    np.savez(out, secs=secs, **{n: getattr(whole, n).cpu().numpy()
+                                for n in DISCRETE + ("pose_p",)})
+    return 0
+
+
+def start_unsplit():
+    """Start `unsplit_child` beside the split run: both replays are bound
+    by the host, so they overlap on the card's machine.  Returns (process,
+    output path); the caller waits for it, or kills it."""
+    out = os.path.join(ROOT, "chip_smoke_out", "split_unsplit.npz")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--unsplit", out], cwd=ROOT,
+                            stdout=subprocess.DEVNULL)
+    return proc, out
+
+
+def check_split(dev):
+    """Phase 11: `dryrun_multichip`'s two phases (`__graft_entry__.py:
+    107-215`) through the port's split.  Phase 1: B=8 x 14 scans at
+    `tiny_config`, split over [dev] x 4 against the unsplit run (discrete
+    outputs equal, poses bit-equal), every lane initialized and moved off
+    the origin, pose_p within 3e-2 of tests/golden/multichip_phase1.npz
+    (the reference's bound: its golden was made with
+    jax_disable_most_optimizations).  Phase 2: the flagship map dims
+    (256x256x64 and 192x192x32), B=8 x 2 scans, split over [dev] x 8, one
+    sequence a shard: the map bytes present per sequence (164 MiB without
+    use_nonfeature) and the peak device memory."""
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.config import MapConfig, tiny_config
+
+    cfg = tiny_config()
+    proc, out = start_unsplit()
+    try:
+        scans = split_inputs(cfg, dev, SPLIT_T, 0)
+        t0 = time.perf_counter()
+        shards, outs = replay.replay_batch(fresh_states(cfg, SPLIT_B, dev),
+                                           scans, cfg, mesh=[dev] * 4)
+        torch.cuda.synchronize()
+        t_split = time.perf_counter() - t0
+        rc = proc.wait(timeout=SPLIT_CHILD_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"the unsplit run's process exited {rc}")
+    whole = np.load(out)
+    t_whole = float(whole["secs"])
+    for name in DISCRETE:
+        if not np.array_equal(getattr(outs, name).cpu().numpy(),
+                              whole[name]):
+            raise AssertionError(f"split {name} differs from the unsplit run")
+    pose = outs.pose_p.cpu().numpy()
+    pose_diff = float(np.abs(pose - whole["pose_p"]).max())
+    golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                  "multichip_phase1.npz"))
+    if int(golden["n_scans"]) != SPLIT_T or int(golden["B"]) != SPLIT_B:
+        raise AssertionError("multichip golden of another shape")
+    g_err = float(np.abs(pose - golden["pose_p"]).max())
+    inited = outs.inited.cpu().numpy()
+    log(f"  phase 1: B={SPLIT_B} x {SPLIT_T} scans over 4 shards on one "
+        f"card: {t_split:.1f} s (unsplit {t_whole:.1f} s, in a second "
+        f"process at the same time); discrete "
+        f"outputs equal, max |pose - unsplit| {pose_diff:.3g} m, max "
+        f"|pose - golden| {g_err:.4f} m, inited {inited[-1].tolist()}")
+    if pose_diff != 0.0:
+        raise AssertionError(f"split poses differ from the unsplit run by "
+                             f"{pose_diff}")
+    if not (inited[-1].all() and np.isfinite(pose).all()
+            and (np.abs(pose[-1]) > 1e-3).any(axis=-1).all()
+            and g_err < SPLIT_GOLDEN_ATOL):
+        raise AssertionError("split phase 1 outside its bounds")
+    shards = whole = outs = None
+
+    cfg_fs = cfg.replace(map=MapConfig(dim_x=256, dim_y=256, dim_z=64),
+                         local_map=MapConfig(voxel_size=0.2, dim_x=192,
+                                             dim_y=192, dim_z=32))
+    scans = split_inputs(cfg_fs, dev, 2, 100, yaw=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    shards, outs = replay.replay_batch(fresh_states(cfg_fs, SPLIT_B, dev),
+                                       scans, cfg_fs, mesh=[dev] * SPLIT_B)
+    torch.cuda.synchronize()
+    t_fs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    mib = [sum(getattr(s, f).cells.numel() * 4 for f in
+               ("vm_surf", "vm_corner", "vm_non", "vm_local_surf",
+                "vm_local_corner")) / 2 ** 20 / s.x.shape[0] for s in shards]
+    log(f"  phase 2: flagship maps, B={SPLIT_B} x 2 scans over "
+        f"{len(shards)} shards: {t_fs:.1f} s, map state "
+        f"{min(mib):.4f}-{max(mib):.4f} MiB a sequence, peak device "
+        f"memory {peak / 2 ** 30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    if not (all(abs(m - 164.0) < 0.01 and m > 100.0 for m in mib)
+            and np.isfinite(outs.pose_p.cpu().numpy()).all()):
+        raise AssertionError(f"split phase 2: map state {mib} MiB")
+    return dict(phase1=dict(secs=t_split, unsplit_secs=t_whole,
+                            pose_diff=pose_diff, golden_err=g_err),
+                phase2=dict(secs=t_fs, map_mib_per_seq=max(mib),
+                            peak_bytes=int(peak)))
+
+
 def main():
+    if sys.argv[1:2] == ["--unsplit"] and len(sys.argv) == 3:
+        return unsplit_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+
+    def phase(msg):
+        log(f"{msg} [at {time.perf_counter() - t_start:.0f} s]")
+
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}")
@@ -1377,7 +1817,7 @@ def main():
     from mmloam_tpu_torch.ops import assoc, map_insert
 
     binds = {"map_insert.cu": map_insert._bind, "assoc.cu": assoc._bind}
-    log("phase 1: build K1 and K2")
+    phase("phase 1: build K1 and K2")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
         futs = {src: ex.submit(cuda_build.build, src)
@@ -1388,36 +1828,50 @@ def main():
         cuda_build.load(src, binds[src])
     log(f"  both built in {time.perf_counter() - t0:.1f} s")
 
-    log("phase 1b: the kernels of one association and one insert")
+    phase("phase 1b: the kernels of one association and one insert")
     traces = check_traces(dev)
 
-    log("phase 2: K1 against its plain version")
+    phase("phase 2: K1 against its plain version")
     max_err, k1_timing = check_map_insert(dev)
 
-    log("phase 3: tiny hall replay against tests/golden/hall_25.npz")
+    phase("phase 3: tiny hall replay against tests/golden/hall_25.npz")
     check_hall_golden(dev)
 
-    log("phase 4: flagship replay_batch")
+    phase("phase 4: flagship replay_batch")
     flag, lane0 = check_flagship(dev)
 
-    log("phase 5: K2 against its plain version at flagship shapes")
+    phase("phase 5: K2 against its plain version at flagship shapes")
     from mmloam_tpu_torch.config import LIOConfig
 
     k2_err, k2_near, k2_timing = check_assoc(dev, lane0, LIOConfig())
     log(f"  {k2_near} query results excused near a gate threshold in all")
-    lane0 = None
 
-    log("phase 6: faithful_config hall replay")
+    phase("phase 6: faithful_config hall replay")
     faithful = check_faithful(dev)
 
-    log("phase 7: the recorded-log path at full width")
+    phase("phase 7: the recorded-log path at full width")
     recorded = check_recorded_log(dev)
 
-    log("phase 8: the rig's modes at full width")
+    phase("phase 8: the rig's modes at full width")
     modes, mode_errs = check_modes(dev)
     max_err = max(max_err, mode_errs["k1"])
     k2_err = max(k2_err, mode_errs["k2"])
 
+    phase("phase 9: K1 and K2 at packs (2,2,2) and (1,1,1), and under "
+        "dedup_gather")
+    packs = check_packs_and_dedup(dev, lane0)
+    lane0 = None
+    max_err = max(max_err, packs["k1_max_abs_err"])
+    k2_err = max(k2_err, packs["k2_max_abs_err"])
+
+    phase("phase 10: pack (2,2,2) / local (1,1,1) with dedup_gather, a split "
+        "replay_batch at full width")
+    pack_replay = check_pack_replay(dev, flag)
+
+    phase("phase 11: the reference's multi-device dry run through the split")
+    split = check_split(dev)
+
+    phase("all phases passed")
     t = k1_timing["persistent"]
     t2 = k2_timing[K2_TIMED_CASE]
     kernels = {"kernels": [
@@ -1440,7 +1894,8 @@ def main():
               "w") as f:
         json.dump(dict(card=card, traces=traces, k1=k1_timing, k2=k2_timing,
                        flagship=flag, faithful=faithful, recorded=recorded,
-                       modes=modes), f, indent=1)
+                       modes=modes, packs=packs, pack_replay=pack_replay,
+                       split=split), f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,11 +16,11 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   and `associate_lines` with the local rescue, `assoc.associate_with_rescue`
   where the tree has it, and `map_insert.insert_batched`;
 - then on the flagship `replay_batch` (LIOConfig(), B=4 x T=16, inputs as
-  chip_smoke.py phase 4 builds them): replay scans/sec (a warm-up run,
-  then two timed runs; host clock around work that ends in a
-  synchronize), and the device busy share over scans 14-15 of a third run
-  under torch.profiler (kernel device time over the profiled wall, and
-  over the unprofiled wall of the timed runs);
+  chip_smoke.py phase 4 builds them): each lane's ATE (the warm-up run),
+  replay scans/sec (a warm-up run, then two timed runs; host clock around
+  work that ends in a synchronize), and the device busy share over scans
+  14-15 of a third run under torch.profiler (kernel device time over the
+  profiled wall, and over the unprofiled wall of the timed runs);
 - K2 on lane 0's maps (surf M=2048 fresh with blocks, surf from cached
   blocks, corner M=512 fresh): the kernel's device time (torch.profiler
   self device time over its launches, or a CUDA graph of 100 launches
@@ -139,9 +139,11 @@ def _replay(cs, cfg, dev):
     from mmloam_tpu_torch.estimator import factors
 
     B, T = 4, 16
-    scans, _ = cs.flagship_inputs(cfg, B, T, 7, dev)
-    st, _ = replay.replay_batch(cs.fresh_states(cfg, B, dev), scans, cfg)
+    scans, gts = cs.flagship_inputs(cfg, B, T, 7, dev)
+    st, outs = replay.replay_batch(cs.fresh_states(cfg, B, dev), scans, cfg)
     torch.cuda.synchronize()
+    pose, ts = outs.pose_p.cpu().numpy(), outs.t.cpu().numpy()
+    ate = [cs._ate(pose[:, b], ts[:, b], *gts[b]) for b in range(B)]
     lane0 = cs._lane0(st)
     # the main path's own insert: each lane's newest surf stack into its
     # persistent surf map
@@ -178,7 +180,7 @@ def _replay(cs, cfg, dev):
     lane_scans = B * 2
     per_scan_unprof = min(secs) / (B * T)
     return lane0, main_insert, dict(
-        B=B, T=T, timed_secs=secs,
+        B=B, T=T, ate=ate, timed_secs=secs,
         scans_per_sec=[B * T / s for s in secs],
         busy_window="scans 14-15", device_ms_per_lane_scan=dev_us / 1e3
         / lane_scans, busy_share_profiled=dev_us / 1e6 / wall,

@@ -10,7 +10,9 @@ Containers are NamedTuples with the reference's field names and order;
 `tree.tree_map` walks them.  Functions keep the reference's unbatched
 signatures; `replay.replay_batch` runs B sequences in lockstep with the
 per-lane step in a Python loop and one batched map insert per map through
-the hand-written CUDA kernel `csrc/map_insert.cu` (`ops/map_insert.py`).
+the hand-written CUDA kernel `csrc/map_insert.cu` (`ops/map_insert.py`),
+and with `mesh=[device, ...]` splits the batch over devices, whole
+sequences to a device.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Checkpoint / resume for the LIO state (port of mmloam_tpu/checkpoint.py).
 
-    checkpoint.save(path, state)
+    checkpoint.save(path, state)            # or a split replay's shards
     state = checkpoint.restore(path, template_state)
 
 A checkpoint is a plain `.npz` with one array per leaf, keyed as the
@@ -59,9 +59,18 @@ def _host(leaf):
 
 
 def save(path, state):
-    """Write a state (NamedTuples, dicts and tensors) to `path` (.npz)."""
-    np.savez_compressed(path, **{k: _host(v)
-                                 for k, v in _leaves_with_keys(state)})
+    """Write a state (NamedTuples, dicts and tensors) to `path` (.npz).  A
+    list of batched states (the shards of a split `replay.replay_batch`,
+    on any devices) is written as the one batched state of their lanes in
+    order, so it restores onto one device as the unsplit state (the
+    reference gathers a mesh-sharded state the same way)."""
+    if isinstance(state, list):
+        parts = [dict(_leaves_with_keys(s)) for s in state]
+        leaves = {k: np.concatenate([_host(p[k]) for p in parts])
+                  for k in parts[0]}
+    else:
+        leaves = {k: _host(v) for k, v in _leaves_with_keys(state)}
+    np.savez_compressed(path, **leaves)
 
 
 def restore(path, template):

@@ -7,7 +7,7 @@
 // scripts/bisect_mosaic2.py (_run_variant, _run_solo), which become this
 // kernel's compile-time stages (ops/assoc.py lists them).
 //
-// Per query point, from the 8 stencil superrows of one map: the query's fine
+// Per query point, from the stencil superrows of one map: the query's fine
 // voxel, superrow window, torus slots and epoch keys
 // (voxelmap.stencil_addresses, computed here); candidate offsets and squared
 // distances, rounded to bf16 when the map keeps its dense blocks in bf16
@@ -49,6 +49,22 @@
 // checks each lane's own candidates and votes.  A rescue warp finds its rank
 // from the flag bytes below it: 16 flags per 16-byte load, popc, warp sum.
 //
+// Other maps.  The above is the default map's instance (32 cells a row, a
+// 2x2x2-superrow window).  Any other pack and stencil (S superrows of cpr
+// cells, voxelmap._super_window, C = S cpr candidates a query) runs a general
+// instance: candidate c lives on lane c mod 32, kPer = 4, 8 or 16 of them
+// a lane, the fewest that hold ceil(C / 32) (up to 512 candidates; a larger
+// window is refused and the wrapper raises NotImplementedError), and each lane
+// decomposes its candidates in the reference's order (window meshgrid "ij",
+// then sub-cell meshgrid "ij") from the window extents and the pack, which
+// are run-time arguments.  Padding candidates hold d2 = NaN, so they are
+// never selected, counted or weighted.  With MapConfig.dedup_gather the
+// wrapper computes one bound a launch on the device
+// (voxelmap.dedup_threshold: the largest slot whose unique rank is below the
+// compact table's capacity); a row above it is invalid and reads the bound's
+// row, which is what the reference's compact table serves it
+// (voxelmap._dedup_gather_rows), so the candidates agree bit for bit.
+//
 // What bounds it on an H100: a fresh query reads 4 KB of rows (less where
 // neighbouring queries share superrows, which L2 serves) and 16 B of query,
 // and writes 64 B (+ 2 KB of bf16 blocks when asked); a flagship surf call
@@ -69,34 +85,41 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 // Launch arguments, mirrored field for field by ops/assoc._args_struct
 // (ctypes).  Outside the anonymous namespace: assoc_launch takes it, and a
 // C entry point must not have a parameter of internal linkage.
 struct AssocArgs {
-  const float* cells;          // fresh: (rows, 128) map superrows
+  const float* cells;          // fresh: (rows, 4 cpr) map superrows
   const float* pw;             // (m, 3) queries
   const unsigned char* mask;   // (m,) bool (unused by RESCUE)
-  const void* blk_in[4];       // cached: dx, dy, dz, d2 blocks (m, 256)
+  const void* blk_in[4];       // cached: dx, dy, dz, d2 blocks (m, ncand)
   const float* pw0;            // cached: (m, 3) queries the blocks were made at
   void* blk_out[4];            // fresh: blocks to write, or null
   const float* thres;          // (1,) squared-distance gate
   float* out;                  // (m, 16) records
   unsigned char* valid;        // OUT, NEED, RESCUE: (m,) bool, record's lane
-  float* rows;                 // GATHER: (m, 8, 128) rows read
+  float* rows;                 // GATHER: (m, S, 4 cpr) rows read
   int* g_v;                    // GATHER: (m, 3) fine-voxel coords
-  int* g_sv;                   // GATHER: (m, 8, 3) superrow coords
-  int* g_slot;                 // GATHER: (m, 8) torus slots
-  float* g_key;                // GATHER: (m, 8) expected epoch keys
+  int* g_sv;                   // GATHER: (m, S, 3) superrow coords
+  int* g_slot;                 // GATHER: (m, S) torus slots
+  float* g_key;                // GATHER: (m, S) expected epoch keys
   unsigned char* need;         // NEED: (m,) written; RESCUE: read (padded
                                // to a multiple of 16 bytes)
   int* need_count;             // NEED: (1,) number of flags, or null
+  const int* dedup_thr;        // fresh: (1,) dedup bound (MapConfig.
+                               // dedup_gather), or null
+  unsigned char* g_keep;       // GATHER: (m, S) rows the dedup kept
   int m, mode, bf16, cached, k, rescue_cap;
   int pack[3], stencil[3], sdim[3];
+  int nb[3];                   // superrows of the window per axis (S = their
+                               // product)
+  int cpr, ncand;              // cells a row; candidates a query, S cpr
   float voxel, pvs[3], scatter_ratio;
 };
-static_assert(sizeof(AssocArgs) == 256, "AssocArgs layout changed: update "
+static_assert(sizeof(AssocArgs) == 296, "AssocArgs layout changed: update "
               "ops/assoc._args_struct");
 
 namespace {
@@ -105,6 +128,8 @@ constexpr int kLanes = 32;             // sub-cells per superrow
 constexpr int kRows = 8;               // stencil superrows per query
 constexpr int kRowF = 4 * kLanes;      // floats per superrow
 constexpr int kCand = kRows * kLanes;  // candidates per query
+constexpr int kMaxPer = 16;            // the most candidates a lane holds:
+                                       // 512 a query (ops/assoc.MAX_PER_LANE)
 constexpr int kRec = 16;               // output floats per query
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
@@ -282,9 +307,49 @@ __device__ __forceinline__ void write_record(float* out, int q,
                          rec[4 * i + 3]);
 }
 
-template <int kStage>
+// The window geometry of one map, read once a warp: the general instances'
+// candidate addressing (the default instance has its own, compile-time)
+struct Geom {
+  int cpr, nb1, nb2, nyz, p1, p2, pyz;
+  int pack[3], sd[3], s0[3];
+};
+
+// Candidate c of a query in voxelmap.query_candidates' order: window row
+// s = c / cpr (meshgrid "ij" over the window), sub-cell j = c % cpr
+// (meshgrid "ij" over the pack); the row's superrow coords, torus slot
+// and key fields, and the sub-cell's offsets within the superrow
+struct Cand {
+  int s, j, slot;
+  int sv[3], sub[3], kq[3];
+};
+
+__device__ __forceinline__ Cand candidate(int c, const Geom& g) {
+  Cand e;
+  e.s = c / g.cpr;
+  e.j = c - e.s * g.cpr;
+  const int o[3] = {e.s / g.nyz, (e.s / g.nb2) % g.nb1, e.s % g.nb2};
+  e.sub[0] = e.j / g.pyz;
+  e.sub[1] = (e.j / g.p2) % g.p1;
+  e.sub[2] = e.j % g.p2;
+  int mt[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    e.sv[ax] = g.s0[ax] + o[ax];
+    mt[ax] = floor_mod(e.sv[ax], g.sd[ax]);
+    e.kq[ax] = min(max(floor_div(e.sv[ax] - mt[ax], g.sd[ax]) + 16, 0), 31);
+  }
+  e.slot = (mt[0] * g.sd[1] + mt[1]) * g.sd[2] + mt[2];
+  return e;
+}
+
+// kPer candidates a lane (candidate c on lane c % 32), so up to 32 kPer a
+// query; the rest are padding (d2 NaN: never below a threshold, never
+// counted, zero weight).  kDefault: the default map (32 cells a row, a
+// 2x2x2-superrow window, no dedup), kPer = 8 with compile-time addressing.
+template <int kStage, int kPer, bool kDefault>
 __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
     assoc_kernel(const AssocArgs a) {
+  static_assert(!kDefault || kPer == kRows, "the default window is 8 rows");
   const int wid = threadIdx.x / kLanes;
   const int q = blockIdx.x * kWarpsPerBlock + wid;
   const int lane = threadIdx.x % kLanes;
@@ -300,109 +365,243 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
     mask = a.mask[q] != 0;
   }
   const bool bf16 = a.bf16 != 0;
-  const long long cand0 = static_cast<long long>(q) * kCand + lane;
+  const int ncand = kDefault ? kCand : a.ncand;
+  const float kPadD2 = __int_as_float(0x7fc00000);  // quiet NaN: padding
+  const long long cand0 = static_cast<long long>(q) * ncand + lane;
 
   // ---- candidates: offsets (dx, dy, dz) and squared distance d2 ----
-  float dx[kRows], dy[kRows], dz[kRows], d2[kRows];
+  float dx[kPer], dy[kPer], dz[kPer], d2[kPer];
   if (kStage == kRescue || !a.cached) {
-    const int px = a.pack[0], py = a.pack[1], pz = a.pack[2];
-    const int sub_x = lane / (py * pz);
-    const int sub_y = (lane / pz) % py;
-    const int sub_z = lane % pz;
-    const float off_x = static_cast<float>(sub_x) * a.voxel;
-    const float off_y = static_cast<float>(sub_y) * a.voxel;
-    const float off_z = static_cast<float>(sub_z) * a.voxel;
-    const float qx = a.pw[3 * q], qy = a.pw[3 * q + 1], qz = a.pw[3 * q + 2];
+    if constexpr (kDefault) {
+      const int px = a.pack[0], py = a.pack[1], pz = a.pack[2];
+      const int sub_x = lane / (py * pz);
+      const int sub_y = (lane / pz) % py;
+      const int sub_z = lane % pz;
+      const float off_x = static_cast<float>(sub_x) * a.voxel;
+      const float off_y = static_cast<float>(sub_y) * a.voxel;
+      const float off_z = static_cast<float>(sub_z) * a.voxel;
+      const float qx = a.pw[3 * q], qy = a.pw[3 * q + 1], qz = a.pw[3 * q + 2];
 
-    // stencil addressing (voxelmap.stencil_addresses), per axis
-    const int vx = voxel_index(qx, a.voxel), vy = voxel_index(qy, a.voxel);
-    const int vz = voxel_index(qz, a.voxel);
-    int svx[2], svy[2], svz[2], mx[2], my[2], mz[2], kx[2], ky[2], kz[2];
-    stencil_axis(vx, a.stencil[0], px, a.sdim[0], svx, mx, kx);
-    stencil_axis(vy, a.stencil[1], py, a.sdim[1], svy, my, ky);
-    stencil_axis(vz, a.stencil[2], pz, a.sdim[2], svz, mz, kz);
-    int slot[kRows];
+      // stencil addressing (voxelmap.stencil_addresses), per axis
+      const int vx = voxel_index(qx, a.voxel), vy = voxel_index(qy, a.voxel);
+      const int vz = voxel_index(qz, a.voxel);
+      int svx[2], svy[2], svz[2], mx[2], my[2], mz[2], kx[2], ky[2], kz[2];
+      stencil_axis(vx, a.stencil[0], px, a.sdim[0], svx, mx, kx);
+      stencil_axis(vy, a.stencil[1], py, a.sdim[1], svy, my, ky);
+      stencil_axis(vz, a.stencil[2], pz, a.sdim[2], svz, mz, kz);
+      int slot[kRows];
 #pragma unroll
-    for (int s = 0; s < kRows; ++s)  // meshgrid "ij" order of the window
-      slot[s] = (mx[s >> 2] * a.sdim[1] + my[(s >> 1) & 1]) * a.sdim[2] +
-                mz[s & 1];
+      for (int s = 0; s < kRows; ++s)  // meshgrid "ij" order of the window
+        slot[s] = (mx[s >> 2] * a.sdim[1] + my[(s >> 1) & 1]) * a.sdim[2] +
+                  mz[s & 1];
 
-    // every row load of the query in flight before the first use
-    float fx[kRows], fy[kRows], fz[kRows], fm[kRows];
-    const float* __restrict__ cells = a.cells;
-#pragma unroll
-    for (int s = 0; s < kRows; ++s) {
-      const float* row = cells + static_cast<long long>(slot[s]) * kRowF;
-      fx[s] = __ldg(row + lane);
-      fy[s] = __ldg(row + kLanes + lane);
-      fz[s] = __ldg(row + 2 * kLanes + lane);
-      fm[s] = __ldg(row + 3 * kLanes + lane);
-    }
-
-    if constexpr (kStage == kGather) {
+      // every row load of the query in flight before the first use
+      float fx[kRows], fy[kRows], fz[kRows], fm[kRows];
+      const float* __restrict__ cells = a.cells;
 #pragma unroll
       for (int s = 0; s < kRows; ++s) {
-        const long long e = static_cast<long long>(q) * kRows + s;
-        float* dst = a.rows + e * kRowF;
-        dst[lane] = fx[s];
-        dst[kLanes + lane] = fy[s];
-        dst[2 * kLanes + lane] = fz[s];
-        dst[3 * kLanes + lane] = fm[s];
-        if (lane == s) {
-          a.g_sv[3 * e] = svx[s >> 2];
-          a.g_sv[3 * e + 1] = svy[(s >> 1) & 1];
-          a.g_sv[3 * e + 2] = svz[s & 1];
-          a.g_slot[e] = slot[s];
-          a.g_key[e] = static_cast<float>(
-              (kx[s >> 2] << 10) | (ky[(s >> 1) & 1] << 5) | kz[s & 1]);
+        const float* row = cells + static_cast<long long>(slot[s]) * kRowF;
+        fx[s] = __ldg(row + lane);
+        fy[s] = __ldg(row + kLanes + lane);
+        fz[s] = __ldg(row + 2 * kLanes + lane);
+        fm[s] = __ldg(row + 3 * kLanes + lane);
+      }
+
+      if constexpr (kStage == kGather) {
+#pragma unroll
+        for (int s = 0; s < kRows; ++s) {
+          const long long e = static_cast<long long>(q) * kRows + s;
+          float* dst = a.rows + e * kRowF;
+          dst[lane] = fx[s];
+          dst[kLanes + lane] = fy[s];
+          dst[2 * kLanes + lane] = fz[s];
+          dst[3 * kLanes + lane] = fm[s];
+          if (lane == s) {
+            a.g_sv[3 * e] = svx[s >> 2];
+            a.g_sv[3 * e + 1] = svy[(s >> 1) & 1];
+            a.g_sv[3 * e + 2] = svz[s & 1];
+            a.g_slot[e] = slot[s];
+            a.g_key[e] = static_cast<float>(
+                (kx[s >> 2] << 10) | (ky[(s >> 1) & 1] << 5) | kz[s & 1]);
+            a.g_keep[e] = 1;
+          }
+        }
+        if (lane == 0) {
+          a.g_v[3 * q] = vx;
+          a.g_v[3 * q + 1] = vy;
+          a.g_v[3 * q + 2] = vz;
+        }
+        return;
+      }
+
+#pragma unroll
+      for (int s = 0; s < kRows; ++s) {
+        const int ix = s >> 2, iy = (s >> 1) & 1, iz = s & 1;
+        const float key = static_cast<float>((kx[ix] << 10) | (ky[iy] << 5) |
+                                             kz[iz]);
+        const float key_st = floorf(fm[s] / 128.0f);
+        const float cnt = fm[s] - key_st * 128.0f;
+        const bool ok = key_st == key && cnt > 0.0f && mask &&
+                        abs(svx[ix] * px + sub_x - vx) <= a.stencil[0] &&
+                        abs(svy[iy] * py + sub_y - vy) <= a.stencil[1] &&
+                        abs(svz[iz] * pz + sub_z - vz) <= a.stencil[2];
+        const float inv_cnt = 1.0f / clamp_min(cnt, 1.0f);
+        const float bx = static_cast<float>(svx[ix]) * a.pvs[0] - qx;
+        const float by = static_cast<float>(svy[iy]) * a.pvs[1] - qy;
+        const float bz = static_cast<float>(svz[iz]) * a.pvs[2] - qz;
+        float ox = bx + off_x + fx[s] * inv_cnt;
+        float oy = by + off_y + fy[s] * inv_cnt;
+        float oz = bz + off_z + fz[s] * inv_cnt;
+        float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
+        if (bf16) {
+          ox = round_bf16(ox);
+          oy = round_bf16(oy);
+          oz = round_bf16(oz);
+          dd = round_bf16(dd);
+        }
+        dx[s] = ox;
+        dy[s] = oy;
+        dz[s] = oz;
+        d2[s] = dd;
+      }
+      if (kStage != kRescue && a.blk_out[0] != nullptr) {
+#pragma unroll
+        for (int s = 0; s < kRows; ++s) {
+          const long long c = cand0 + s * kLanes;
+          store_blk(a.blk_out[0], c, dx[s], bf16);
+          store_blk(a.blk_out[1], c, dy[s], bf16);
+          store_blk(a.blk_out[2], c, dz[s], bf16);
+          store_blk(a.blk_out[3], c, d2[s], bf16);
         }
       }
-      if (lane == 0) {
-        a.g_v[3 * q] = vx;
-        a.g_v[3 * q + 1] = vy;
-        a.g_v[3 * q + 2] = vz;
+    } else {
+      // the general window: any pack and stencil, and the dedup bound
+      const float qx = a.pw[3 * q], qy = a.pw[3 * q + 1];
+      const float qz = a.pw[3 * q + 2];
+      const int vx = voxel_index(qx, a.voxel);
+      const int vy = voxel_index(qy, a.voxel);
+      const int vz = voxel_index(qz, a.voxel);
+      Geom g;
+      g.cpr = a.cpr;
+      g.nb1 = a.nb[1];
+      g.nb2 = a.nb[2];
+      g.nyz = a.nb[1] * a.nb[2];
+      g.p1 = a.pack[1];
+      g.p2 = a.pack[2];
+      g.pyz = a.pack[1] * a.pack[2];
+      const int v[3] = {vx, vy, vz};
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        g.pack[ax] = a.pack[ax];
+        g.sd[ax] = a.sdim[ax];
+        g.s0[ax] = floor_div(v[ax] - a.stencil[ax], a.pack[ax]);
       }
-      return;
-    }
+      // a row whose slot is above the dedup bound is dropped and reads the
+      // bound's row, as the reference's compact table serves it
+      const int thr = a.dedup_thr != nullptr ? *a.dedup_thr : INT_MAX;
+      const int thr_row = max(thr, 0);  // a bound below every slot reads row 0
+      const long long rowf = 4LL * g.cpr;
+      const float* __restrict__ cells = a.cells;
+
+      // every row load of the query in flight before the first use
+      float fx[kPer], fy[kPer], fz[kPer], fm[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int c = lane + kLanes * i;
+        fx[i] = fy[i] = fz[i] = fm[i] = 0.0f;
+        if (c < ncand) {
+          const Cand e = candidate(c, g);
+          const int rs = e.slot <= thr ? e.slot : thr_row;
+          const float* row = cells + rs * rowf + e.j;
+          fx[i] = __ldg(row);
+          fy[i] = __ldg(row + g.cpr);
+          fz[i] = __ldg(row + 2 * g.cpr);
+          fm[i] = __ldg(row + 3 * g.cpr);
+        }
+      }
+
+      if constexpr (kStage == kGather) {
+        const int S = ncand / g.cpr;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int c = lane + kLanes * i;
+          if (c >= ncand) continue;
+          const Cand e = candidate(c, g);
+          const long long es = static_cast<long long>(q) * S + e.s;
+          float* dst = a.rows + es * rowf + e.j;
+          dst[0] = fx[i];
+          dst[g.cpr] = fy[i];
+          dst[2 * g.cpr] = fz[i];
+          dst[3 * g.cpr] = fm[i];
+          if (e.j == 0) {  // one lane a row writes the row's addresses
+            a.g_sv[3 * es] = e.sv[0];
+            a.g_sv[3 * es + 1] = e.sv[1];
+            a.g_sv[3 * es + 2] = e.sv[2];
+            a.g_slot[es] = e.slot;
+            a.g_key[es] = static_cast<float>((e.kq[0] << 10) |
+                                             (e.kq[1] << 5) | e.kq[2]);
+            a.g_keep[es] = e.slot <= thr ? 1 : 0;
+          }
+        }
+        if (lane == 0) {
+          a.g_v[3 * q] = vx;
+          a.g_v[3 * q + 1] = vy;
+          a.g_v[3 * q + 2] = vz;
+        }
+        return;
+      }
 
 #pragma unroll
-    for (int s = 0; s < kRows; ++s) {
-      const int ix = s >> 2, iy = (s >> 1) & 1, iz = s & 1;
-      const float key = static_cast<float>((kx[ix] << 10) | (ky[iy] << 5) |
-                                           kz[iz]);
-      const float key_st = floorf(fm[s] / 128.0f);
-      const float cnt = fm[s] - key_st * 128.0f;
-      const bool ok = key_st == key && cnt > 0.0f && mask &&
-                      abs(svx[ix] * px + sub_x - vx) <= a.stencil[0] &&
-                      abs(svy[iy] * py + sub_y - vy) <= a.stencil[1] &&
-                      abs(svz[iz] * pz + sub_z - vz) <= a.stencil[2];
-      const float inv_cnt = 1.0f / clamp_min(cnt, 1.0f);
-      const float bx = static_cast<float>(svx[ix]) * a.pvs[0] - qx;
-      const float by = static_cast<float>(svy[iy]) * a.pvs[1] - qy;
-      const float bz = static_cast<float>(svz[iz]) * a.pvs[2] - qz;
-      float ox = bx + off_x + fx[s] * inv_cnt;
-      float oy = by + off_y + fy[s] * inv_cnt;
-      float oz = bz + off_z + fz[s] * inv_cnt;
-      float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
-      if (bf16) {
-        ox = round_bf16(ox);
-        oy = round_bf16(oy);
-        oz = round_bf16(oz);
-        dd = round_bf16(dd);
-      }
-      dx[s] = ox;
-      dy[s] = oy;
-      dz[s] = oz;
-      d2[s] = dd;
-    }
-    if (kStage != kRescue && a.blk_out[0] != nullptr) {
+      for (int i = 0; i < kPer; ++i) {
+        const int c = lane + kLanes * i;
+        if (c >= ncand) {  // padding
+          dx[i] = dy[i] = dz[i] = 0.0f;
+          d2[i] = kPadD2;
+          continue;
+        }
+        const Cand e = candidate(c, g);
+        const float key = static_cast<float>((e.kq[0] << 10) |
+                                             (e.kq[1] << 5) | e.kq[2]);
+        const float key_st = floorf(fm[i] / 128.0f);
+        const float cnt = fm[i] - key_st * 128.0f;
+        bool ok = e.slot <= thr && key_st == key && cnt > 0.0f && mask;
 #pragma unroll
-      for (int s = 0; s < kRows; ++s) {
-        const long long c = cand0 + s * kLanes;
-        store_blk(a.blk_out[0], c, dx[s], bf16);
-        store_blk(a.blk_out[1], c, dy[s], bf16);
-        store_blk(a.blk_out[2], c, dz[s], bf16);
-        store_blk(a.blk_out[3], c, d2[s], bf16);
+        for (int ax = 0; ax < 3; ++ax)
+          ok = ok && abs(e.sv[ax] * g.pack[ax] + e.sub[ax] - v[ax]) <=
+                         a.stencil[ax];
+        const float inv_cnt = 1.0f / clamp_min(cnt, 1.0f);
+        const float bx = static_cast<float>(e.sv[0]) * a.pvs[0] - qx;
+        const float by = static_cast<float>(e.sv[1]) * a.pvs[1] - qy;
+        const float bz = static_cast<float>(e.sv[2]) * a.pvs[2] - qz;
+        // (bx + sub * voxel) + sum * inv_cnt, as the plain version rounds it
+        float ox = bx + static_cast<float>(e.sub[0]) * a.voxel +
+                   fx[i] * inv_cnt;
+        float oy = by + static_cast<float>(e.sub[1]) * a.voxel +
+                   fy[i] * inv_cnt;
+        float oz = bz + static_cast<float>(e.sub[2]) * a.voxel +
+                   fz[i] * inv_cnt;
+        float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
+        if (bf16) {
+          ox = round_bf16(ox);
+          oy = round_bf16(oy);
+          oz = round_bf16(oz);
+          dd = round_bf16(dd);
+        }
+        dx[i] = ox;
+        dy[i] = oy;
+        dz[i] = oz;
+        d2[i] = dd;
+      }
+      if (kStage != kRescue && a.blk_out[0] != nullptr) {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          if (lane + kLanes * i >= ncand) continue;
+          const long long c = cand0 + i * kLanes;
+          store_blk(a.blk_out[0], c, dx[i], bf16);
+          store_blk(a.blk_out[1], c, dy[i], bf16);
+          store_blk(a.blk_out[2], c, dz[i], bf16);
+          store_blk(a.blk_out[3], c, d2[i], bf16);
+        }
       }
     }
   } else {
@@ -410,7 +609,12 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
     const float ey = a.pw[3 * q + 1] - a.pw0[3 * q + 1];
     const float ez = a.pw[3 * q + 2] - a.pw0[3 * q + 2];
 #pragma unroll
-    for (int s = 0; s < kRows; ++s) {
+    for (int s = 0; s < kPer; ++s) {
+      if (!kDefault && lane + kLanes * s >= ncand) {  // padding
+        dx[s] = dy[s] = dz[s] = 0.0f;
+        d2[s] = kPadD2;
+        continue;
+      }
       const long long c = cand0 + s * kLanes;
       // torch.isfinite: false for inf and NaN
       const bool ok = fabsf(load_blk(a.blk_in[3], c, bf16)) < INFINITY;
@@ -441,22 +645,22 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
   for (int i = 0; i < a.k; ++i) {
     float mn = INFINITY;
 #pragma unroll
-    for (int s = 0; s < kRows; ++s)
+    for (int s = 0; s < kPer; ++s)
       mn = fminf(mn, d2[s] > last ? d2[s] : INFINITY);
     mn = warp_min(mn);
     int c = 0;
 #pragma unroll
-    for (int s = 0; s < kRows; ++s) c += d2[s] <= mn;
+    for (int s = 0; s < kPer; ++s) c += d2[s] <= mn;
     if (__reduce_add_sync(kFull, c) >= a.k) {
       t_k = mn;
       break;
     }
     last = mn;
   }
-  float w[kRows];
+  float w[kPer];
   int nl = 0;
 #pragma unroll
-  for (int s = 0; s < kRows; ++s) {
+  for (int s = 0; s < kPer; ++s) {
     w[s] = d2[s] <= t_k ? 1.0f : 0.0f;
     nl += d2[s] <= t_k;
   }
@@ -474,7 +678,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
   float s1x = 0.f, s1y = 0.f, s1z = 0.f, sxx = 0.f, sxy = 0.f, sxz = 0.f;
   float syy = 0.f, syz = 0.f, szz = 0.f;
 #pragma unroll
-  for (int s = 0; s < kRows; ++s) {
+  for (int s = 0; s < kPer; ++s) {
     const float wx = dx[s] * w[s], wy = dy[s] * w[s], wz = dz[s] * w[s];
     s1x += wx;
     s1y += wy;
@@ -550,7 +754,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
     const float dist = -(vec[0] * mu[0] + vec[1] * mu[1] + vec[2] * mu[2]);
     bool bad = false;
 #pragma unroll
-    for (int s = 0; s < kRows; ++s) {
+    for (int s = 0; s < kPer; ++s) {
       const float dev =
           w[s] * (dx[s] * vec[0] + dy[s] * vec[1] + dz[s] * vec[2] + dist);
       bad = bad || !(fabsf(dev) <= 0.2f);
@@ -581,12 +785,30 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
   }
 }
 
-template <int kStage>
-int launch(const AssocArgs& a, cudaStream_t stream) {
+template <int kStage, int kPer, bool kDefault>
+int launch_one(const AssocArgs& a, cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * kLanes);
   const dim3 grid((a.m + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  assoc_kernel<kStage><<<grid, block, 0, stream>>>(a);
+  assoc_kernel<kStage, kPer, kDefault><<<grid, block, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance that holds the launch's candidates: the default one for the
+// default map (and for cached blocks of its 256 candidates), else the
+// fewest candidates a lane of 4, 8 and kMaxPer that hold them all
+template <int kStage>
+int launch(const AssocArgs& a, cudaStream_t stream) {
+  const bool dflt =
+      a.dedup_thr == nullptr &&
+      (a.cached ? a.ncand == kCand
+                : a.cpr == kLanes && a.nb[0] == 2 && a.nb[1] == 2 &&
+                      a.nb[2] == 2);
+  if (dflt) return launch_one<kStage, kRows, true>(a, stream);
+  const int per = (a.ncand + kLanes - 1) / kLanes;
+  if (per <= 4) return launch_one<kStage, 4, false>(a, stream);
+  if (per <= 8) return launch_one<kStage, 8, false>(a, stream);
+  if (per <= kMaxPer) return launch_one<kStage, kMaxPer, false>(a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -596,6 +818,9 @@ int launch(const AssocArgs& a, cudaStream_t stream) {
 // cudaGetLastError() (0 on success).  `args` is read on the host only.
 extern "C" int assoc_launch(int stage, const AssocArgs* args, void* stream) {
   if (args->m <= 0) return 0;
+  if (args->ncand < 1 || args->ncand > kMaxPer * kLanes || args->cpr < 1 ||
+      args->k < 1 || args->k > args->ncand)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool fresh = !args->cached;
   switch (stage) {

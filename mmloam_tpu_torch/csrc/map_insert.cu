@@ -9,8 +9,9 @@
 // permutation: slot, sub-cell and epoch key from the torch addressing, the
 // point and its fine voxel.  For every UNIQUE superrow touched by one insert
 // the kernel sums the corner-relative offsets and counts of its points per
-// sub-cell, reads the 512-byte row [sum_x(32) | sum_y(32) | sum_z(32) |
-// meta(32)], keeps each cell only if its stored epoch key matches the row's
+// sub-cell, reads the row [sum_x(cpr) | sum_y(cpr) | sum_z(cpr) |
+// meta(cpr)] (cpr = cells a row: 32 at the default pack, a 512-byte row),
+// keeps each cell only if its stored epoch key matches the row's
 // (the key of the segment's last point) and its count is above 0 (otherwise
 // the cell is reset: the MapMove-equivalent eviction), adds the sums, caps
 // the count at count_cap by rescaling the sums, writes meta = key*128 +
@@ -24,10 +25,13 @@
 // record (every load of the round in flight at once), then the warp takes
 // the points one after another by shuffle, and lane `sub` adds the point to
 // its own sums and count.  Each cell's sum is therefore taken in stable-sort
-// order, one term after another.  The warp then does
-// the row's RMW, lane j on words j, 32+j, 64+j and 96+j (coalesced 128-byte
-// transactions).  Rows are unique per segment, so no atomics are needed and
-// rows never race; there is no (B, N, 128) intermediate.
+// order, one term after another.  The warp then does the row's RMW, lane j
+// on words j, cpr+j, 2cpr+j and 3cpr+j (coalesced 128-byte transactions at
+// cpr = 32; lanes j >= cpr hold no cell).  The default 32-cell row is one
+// template instance with cpr a constant; every other pack up to 32 cells
+// runs the instance that reads cpr at run time.  Rows are unique per
+// segment, so no atomics are needed and rows never race; there is no
+// (B, N, 4 cpr) intermediate.
 //
 // What bounds it on an H100: each point is read once (44 B through the
 // permutation) and each touched row read and written once (1 KB); a
@@ -45,11 +49,13 @@
 
 namespace {
 
-constexpr int kLanes = 32;           // cells per superrow
-constexpr int kRow = 4 * kLanes;     // floats per superrow
+constexpr int kLanes = 32;           // lanes a warp, the most cells a row
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
+// kCells > 0: rows of kCells cells (the default 32); kCells == 0: rows of
+// `cpr` cells, read at run time
+template <int kCells>
 __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
     map_insert_kernel(float* __restrict__ cells,
                       const int* __restrict__ slot_s,
@@ -58,7 +64,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
                       const float* __restrict__ key,
                       const float* __restrict__ pts,
                       const int* __restrict__ vox, int n, long long cs,
-                      float voxel, float cap) {
+                      int cpr_rt, float voxel, float cap) {
+  const int cpr = kCells > 0 ? kCells : cpr_rt;
   const int b = blockIdx.y;
   const int u = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kLanes);
   const int lane = threadIdx.x % kLanes;
@@ -107,8 +114,8 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
   }
 
   if (!(cnt > 0.0f)) return;         // no point in this cell: untouched
-  float* row = cells + (static_cast<long long>(b) * cs + slot) * kRow;
-  const float ometa = row[3 * kLanes + lane];
+  float* row = cells + (static_cast<long long>(b) * cs + slot) * (4 * cpr);
+  const float ometa = row[3 * cpr + lane];
   const float okey = floorf(ometa * (1.0f / 128.0f));
   const float ocnt = ometa - okey * 128.0f;
   const float keep = (okey == row_key && ocnt > 0.0f) ? 1.0f : 0.0f;
@@ -117,15 +124,16 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
   const float add[3] = {sx, sy, sz};
 #pragma unroll
   for (int f = 0; f < 3; ++f) {
-    const int w = f * kLanes + lane;
+    const int w = f * cpr + lane;
     row[w] = (keep * row[w] + add[f]) * scale;
   }
-  row[3 * kLanes + lane] = row_key * 128.0f + fminf(cnt1, cap);
+  row[3 * cpr + lane] = row_key * 128.0f + fminf(cnt1, cap);
 }
 
 }  // namespace
 
-// cells (B, cs, 128) f32 updated in place; slot_s (B, n) i32 slots sorted
+// cells (B, cs, 4 cpr) f32 updated in place, 1 <= cpr <= 32 cells a row;
+// slot_s (B, n) i32 slots sorted
 // per batch element (masked points hold a slot >= cs, sorted last); perm
 // (B, n) i64 the stable sort's permutation (indices within the element);
 // sub (B, n) i32, key (B, n) f32, pts (B, n, 3) f32, vox (B, n, 3) i32 in
@@ -135,12 +143,18 @@ extern "C" int map_insert_launch(float* cells, const int* slot_s,
                                  const long long* perm, const int* sub,
                                  const float* key, const float* pts,
                                  const int* vox, int batch, int n,
-                                 long long cs, float voxel, float cap,
-                                 void* stream) {
+                                 long long cs, int cpr, float voxel,
+                                 float cap, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
+  if (cpr < 1 || cpr > kLanes) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kWarpsPerBlock * kLanes);
   const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
-  map_insert_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      cells, slot_s, perm, sub, key, pts, vox, n, cs, voxel, cap);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cpr == kLanes)
+    map_insert_kernel<kLanes><<<grid, block, 0, s>>>(
+        cells, slot_s, perm, sub, key, pts, vox, n, cs, cpr, voxel, cap);
+  else
+    map_insert_kernel<0><<<grid, block, 0, s>>>(
+        cells, slot_s, perm, sub, key, pts, vox, n, cs, cpr, voxel, cap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -29,6 +30,7 @@ HOST_FLAGS = ("-O2", "-Wall", "-std=c++17", "-shared", "-fPIC")
 HOST_LIBS = ("-ldl",)
 
 _LOADED = {}
+_LOAD_LOCK = threading.Lock()      # workers of a split replay load at once
 
 
 def find_nvcc():
@@ -105,11 +107,12 @@ def load(source: str, bind=None):
     """ctypes handle of the built `csrc/<source>` (built on first use).
     `bind(lib)`, when given, runs once as the library loads: it sets the
     entry points' argtypes, so a launch does not set them again."""
-    if source not in _LOADED:
-        import ctypes
+    with _LOAD_LOCK:
+        if source not in _LOADED:
+            import ctypes
 
-        lib = ctypes.CDLL(build(source))
-        if bind is not None:
-            bind(lib)
-        _LOADED[source] = lib
-    return _LOADED[source]
+            lib = ctypes.CDLL(build(source))
+            if bind is not None:
+                bind(lib)
+            _LOADED[source] = lib
+        return _LOADED[source]

@@ -14,24 +14,36 @@ re-expresses the round-0 candidate blocks at moved queries
 LAUNCHES; raises if the kernel cannot be built or launched) and takes
 `associate_reference`, the plain torch composition, on CPU tensors.
 `associate_with_rescue` adds factors' local-map rescue: on CUDA tensors
-two launches with no torch op between them (NEED against the persistent
-map, RESCUE against the local map, counted in RESCUE_LAUNCHES), on CPU
-tensors `associate_with_rescue_reference`.  The kernel computes each
-query's stencil addressing itself from pw; `voxelmap.stencil_addresses`
-is the plain version's.  CALLS counts calls of the two dispatchers and
-LOCAL_CALLS those given a local map, so a run on CUDA tensors that went
-through the kernel every time shows LAUNCHES == CALLS + RESCUE_LAUNCHES
-and RESCUE_LAUNCHES == LOCAL_CALLS (the non-feature association has no
-local map and launches no rescue).
+two launches (NEED against the persistent map, RESCUE against the local
+map, counted in RESCUE_LAUNCHES) with no torch op between them unless
+the local map dedups, on CPU tensors `associate_with_rescue_reference`.
+The kernel computes each query's stencil addressing itself from pw;
+`voxelmap.stencil_addresses` is the plain version's.  CALLS counts calls
+of the two dispatchers and LOCAL_CALLS those given a local map, so a run
+on CUDA tensors that went through the kernel every time shows LAUNCHES ==
+CALLS + RESCUE_LAUNCHES and RESCUE_LAUNCHES == LOCAL_CALLS (the
+non-feature association has no local map and launches no rescue).
+
+Every map geometry runs: any superrow pack and stencil (S window rows of
+cpr cells, C = S cpr candidates a query, up to 32 x MAX_PER_LANE;
+`kernel_supports`), each launch carrying its own map's geometry (the
+local map's may differ), and `MapConfig.dedup_gather`: a fresh launch
+takes one device scalar, `voxelmap.dedup_threshold` of the rows its query
+set ranks (every query of the call, masked or not; for a rescue whose cap
+binds, the NEED launch's first rescue_cap flags and the pad rows, as the
+reference compacts them), computed by torch on the device between the
+launches.  The cached entry carries the fresh call's validity, as the
+reference does.
 
 The kernel has a compile-time stage and stops after it, writing that
 stage's result (`run_stage`; `stage_reference` is the same cut of the
 plain version).  The stages are the Mosaic lowering probes of
 scripts/bisect_mosaic.py and bisect_mosaic2.py, kept as device tests:
 
-  GATHER   the (M, 8, 128) stencil rows read and the addresses the kernel
-           computed: v (M, 3), sv (M, 8, 3), slot (M, 8), key (M, 8)
-           (fresh entry only)
+  GATHER   the (M, S, 4 cpr) stencil rows read and the addresses the
+           kernel computed: v (M, 3), sv (M, S, 3), slot (M, S), key (M, S),
+           and keep (M, S), the rows the dedup gather kept (fresh entry
+           only)
   SELECT   t_k, n
   MOMENTS  + s1 (M, 3), s2 (M, 3, 3)
   EIG      evals (M, 3) ascending, vec (M, 3)
@@ -46,6 +58,7 @@ versions.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -58,17 +71,48 @@ PLANE, LINE = 0, 1                 # mode numbers of the archived kernel
 GATHER, SELECT, MOMENTS, EIG, OUT, NEED, RESCUE = range(7)
 STAGE_NAMES = ("GATHER", "SELECT", "MOMENTS", "EIG", "OUT", "NEED")
 _REC = 16                          # floats per query in the kernel's output
-_ROWS = 8                          # stencil superrows per query
-_CAND = _ROWS * 32                 # candidates per query
+# the most candidates one lane of the kernel holds (its largest instance):
+# up to 32 x MAX_PER_LANE = 512 candidates a query
+MAX_PER_LANE = 16
 
 # kernel launches made by the wrapper (counted where it launches, nowhere
 # else), the second launches of rescue pairs among them, calls of
 # `associate` and `associate_with_rescue`, and the calls among them given a
-# local map; callers reset all four to 0 to check a run
+# local map; callers reset all four to 0 to check a run.  Workers of a
+# split replay call from several threads, so counts are taken under a lock
+# (`_count`).
 LAUNCHES = 0
 RESCUE_LAUNCHES = 0
 CALLS = 0
 LOCAL_CALLS = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(**deltas):
+    """Add `deltas` to the module's counters, atomically."""
+    with _COUNT_LOCK:
+        g = globals()
+        for name, d in deltas.items():
+            g[name] += d
+
+
+def window_rows(mcfg):
+    """S, the superrows of one query's stencil window."""
+    nbx, nby, nbz = voxelmap._super_window(mcfg)
+    return nbx * nby * nbz
+
+
+def n_candidates(mcfg):
+    """C = S cpr, the candidates of one query (the dense blocks' width)."""
+    return window_rows(mcfg) * voxelmap._cpr(mcfg)
+
+
+def kernel_supports(mcfg):
+    """Whether K2 has an instance for this map's window: at most
+    32 x MAX_PER_LANE candidates a query.  On CUDA tensors the wrapper
+    raises NotImplementedError naming the limit otherwise; the plain
+    version takes any window."""
+    return n_candidates(mcfg) <= 32 * MAX_PER_LANE
 
 
 class StackBlocks(NamedTuple):
@@ -190,8 +234,11 @@ def stage_reference(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
     (quantity, threshold) pairs of the fit's gates (see `near_threshold`)."""
     if stage == GATHER:
         addr = voxelmap.stencil_addresses(pw, mcfg)
-        return dict(rows=vm.cells[addr.slot.to(torch.int64)],
-                    **addr._asdict())
+        rows, keep = voxelmap.gather_rows(vm, addr.slot, mcfg)
+        if keep is None:
+            keep = torch.ones(addr.slot.shape, dtype=torch.bool,
+                              device=pw.device)
+        return dict(rows=rows, keep=keep, **addr._asdict())
     t_k, n, s1, s2, blk, _ = _neighbor_moments(vm, pw, mask, mcfg, k, cached)
     if stage == SELECT:
         return dict(t_k=t_k, n=n)
@@ -272,7 +319,10 @@ def compare(stage, got, ref, mask, mode):
             if not torch.equal(got[name], ref[name]):
                 fail(f"{name} differs from voxelmap.stencil_addresses")
         if not torch.equal(got["rows"], ref["rows"]):
-            fail("rows read differ from cells[slot]")
+            fail("rows read differ from the plain gather's")
+        if not torch.equal(got["keep"], ref["keep"]):
+            fail("rows kept differ from the plain dedup gather's")
+        stats["dropped"] = int((~ref["keep"]).sum())
         return stats
     if stage in (SELECT, MOMENTS, OUT, NEED):
         for name in ("t_k", "n"):
@@ -399,16 +449,55 @@ def _merge(first, second, use2):
     return out
 
 
+def _rescue_queries(pw, need, rescue_cap):
+    """The rescue's query set as the reference compacts it (rescue_cap <
+    M): the first rescue_cap flagged queries, pads at the origin.  Returns
+    (sel, pw_r)."""
+    sel = _compact_indices(need, rescue_cap)
+    return sel, _take_fill(pw, sel)
+
+
 def rescue_stage_reference(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
                            thres_dist, scatter_ratio=0.0,
-                           cached: StackBlocks = None):
+                           cached: StackBlocks = None, rescue_cap=None,
+                           need=None):
     """The plain cuts a rescue pair is held against: NEED on the persistent
     map and OUT on the local map, each over every query (each query's
-    association is independent of the others)."""
-    return (stage_reference(NEED, vm, pw, mask, mcfg, k, mode, thres_dist,
-                            scatter_ratio, cached),
-            stage_reference(OUT, vm_local, pw, mask, lcfg, k, mode,
-                            thres_dist, scatter_ratio))
+    association is independent of the others).  Under the local map's
+    dedup_gather the rows of the rescue's whole query set rank together,
+    so with rescue_cap < M the local cut of the queries it tries comes
+    from the reference's compacted call (`_rescue_queries`) over the
+    flags `need` (the NEED cut's own when None)."""
+    first = stage_reference(NEED, vm, pw, mask, mcfg, k, mode, thres_dist,
+                            scatter_ratio, cached)
+    second = stage_reference(OUT, vm_local, pw, mask, lcfg, k, mode,
+                             thres_dist, scatter_ratio)
+    M = pw.shape[0]
+    if lcfg.dedup_gather and rescue_cap is not None and rescue_cap < M:
+        sel, pw_r = _rescue_queries(
+            pw, first["need"] if need is None else need, rescue_cap)
+        part = stage_reference(OUT, vm_local, pw_r, sel < M, lcfg, k, mode,
+                               thres_dist, scatter_ratio)
+        second = _scatter_cut(second, part, sel)
+    return first, second
+
+
+def _scatter_cut(full, part, sel):
+    """`full` (a stage result over M queries) with the rows of `part` (over
+    the compacted queries `sel`, M = pad) written at sel."""
+    out = {}
+    for name, a in full.items():
+        b = part[name]
+        if name == "gates":
+            out[name] = []
+            for (qa, ta), (qb, tb) in zip(a, b):
+                t = lambda x, like: torch.as_tensor(
+                    x, dtype=like.dtype, device=like.device).expand_as(like)
+                out[name].append((_set_drop(qa, sel, qb),
+                                  _set_drop(t(ta, qa), sel, t(tb, qb))))
+        else:
+            out[name] = _set_drop(a, sel, b)
+    return out
 
 
 def compare_rescue(got, refs, mask, mode, rescue_cap):
@@ -459,26 +548,38 @@ def _args_struct():
                 ("pw0", p), ("blk_out", p * 4), ("thres", p), ("out", p),
                 ("valid", p), ("rows", p), ("g_v", p), ("g_sv", p),
                 ("g_slot", p), ("g_key", p), ("need", p), ("need_count", p),
+                ("dedup_thr", p), ("g_keep", p),
                 ("m", i), ("mode", i), ("bf16", i), ("cached", i), ("k", i),
                 ("rescue_cap", i), ("pack", i * 3),
-                ("stencil", i * 3), ("sdim", i * 3),
+                ("stencil", i * 3), ("sdim", i * 3), ("nb", i * 3),
+                ("cpr", i), ("ncand", i),
                 ("voxel", ctypes.c_float), ("pvs", ctypes.c_float * 3),
                 ("scatter_ratio", ctypes.c_float)]
 
-        assert ctypes.sizeof(AssocArgs) == 256, "see csrc/assoc.cu"
+        assert ctypes.sizeof(AssocArgs) == 296, "see csrc/assoc.cu"
         _ARGS_CLS.append(AssocArgs)
     return _ARGS_CLS[0]
 
 
-def _check_map(vm, mcfg, dev):
-    if voxelmap._cpr(mcfg) != 32 or voxelmap._super_window(mcfg) != (2, 2, 2):
+def _check_geometry(mcfg):
+    if not kernel_supports(mcfg):
         raise NotImplementedError(
-            "the association kernel assumes 32 cells per row and a "
-            "2x2x2-superrow stencil window")
+            f"K2 holds at most {32 * MAX_PER_LANE} candidates a query "
+            f"({MAX_PER_LANE} a lane); pack {voxelmap._pack(mcfg)} with "
+            f"stencil {(mcfg.stencil_x, mcfg.stencil_y, mcfg.stencil_z)} "
+            f"gives {window_rows(mcfg)} superrows x {voxelmap._cpr(mcfg)} "
+            f"cells = {n_candidates(mcfg)}")
+
+
+def _check_map(vm, mcfg, dev):
+    _check_geometry(mcfg)
+    if mcfg.dedup_gather:
+        voxelmap.dedup_capacity(mcfg, 1)  # raises below one row a query
     c = vm.cells
-    if c.dtype != torch.float32 or c.dim() != 2 or c.shape[1] != 128 \
+    row = 4 * voxelmap._cpr(mcfg)
+    if c.dtype != torch.float32 or c.dim() != 2 or c.shape[1] != row \
             or not c.is_contiguous() or c.device != dev:
-        raise ValueError("cells must be a contiguous (Cs, 128) float32 "
+        raise ValueError(f"cells must be a contiguous (Cs, {row}) float32 "
                          f"tensor on {dev}")
     sd = voxelmap._sdims(mcfg)
     if c.shape[0] != sd[0] * sd[1] * sd[2]:
@@ -495,18 +596,20 @@ def _check(vm, pw, mask, mcfg, k, mode, cached):
     if mask.dtype != torch.bool or tuple(mask.shape) != (M,) \
             or mask.device != dev:
         raise ValueError(f"mask must be ({M},) bool on {dev}")
-    if mode not in (PLANE, LINE) or not 1 <= k <= _CAND:
+    C = n_candidates(mcfg)
+    if mode not in (PLANE, LINE) or not 1 <= k <= C:
         raise ValueError(f"mode {mode} / k {k} not supported")
     if cached is None:
         _check_map(vm, mcfg, dev)
         return
+    _check_geometry(mcfg)
     store = torch.bfloat16 if mcfg.dense_bf16 else torch.float32
     for name in ("dxd", "dyd", "dzd", "d2d"):
         a = getattr(cached, name)
-        if a.dtype != store or tuple(a.shape) != (M, _CAND) \
+        if a.dtype != store or tuple(a.shape) != (M, C) \
                 or not a.is_contiguous() or a.device != dev:
             raise ValueError(f"cached.{name}: expected contiguous "
-                             f"({M}, {_CAND}) {store} on {dev}")
+                             f"({M}, {C}) {store} on {dev}")
     p0 = cached.pw0
     if tuple(p0.shape) != (M, 3) or p0.dtype != torch.float32 \
             or not p0.is_contiguous() or p0.device != dev:
@@ -515,16 +618,32 @@ def _check(vm, pw, mask, mcfg, k, mode, cached):
 
 
 def _set_map(a, vm, mcfg):
-    """The per-map fields of `AssocArgs`."""
+    """The per-map fields of `AssocArgs`: the map's rows (None for the
+    cached entry, which reads none) and its geometry."""
     px, py, pz = voxelmap._pack(mcfg)
-    a.cells = vm.cells.data_ptr()
+    a.cells = None if vm is None else vm.cells.data_ptr()
     a.bf16 = int(bool(mcfg.dense_bf16))
     a.pack[:] = [px, py, pz]
     a.stencil[:] = [mcfg.stencil_x, mcfg.stencil_y, mcfg.stencil_z]
     a.sdim[:] = list(voxelmap._sdims(mcfg))
+    a.nb[:] = list(voxelmap._super_window(mcfg))
+    a.cpr = voxelmap._cpr(mcfg)
+    a.ncand = n_candidates(mcfg)
     a.voxel = mcfg.voxel_size
     a.pvs[:] = [px * mcfg.voxel_size, py * mcfg.voxel_size,
                 pz * mcfg.voxel_size]
+
+
+def _dedup_bound(pw, mcfg, M=None):
+    """The dedup bound of a fresh launch over queries pw (the rows of all
+    of them rank, masked or not) with a compact table of
+    `dedup_capacity(mcfg, M)` rows, on the device; None without
+    `mcfg.dedup_gather`."""
+    if not mcfg.dedup_gather:
+        return None
+    slot = voxelmap.stencil_addresses(pw, mcfg).slot
+    return voxelmap.dedup_threshold(
+        slot, voxelmap.dedup_capacity(mcfg, pw.shape[0] if M is None else M))
 
 
 def prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
@@ -542,6 +661,7 @@ def prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
     pw = pw.contiguous()
     mask = mask.contiguous()
     a = _args_struct()()
+    C, S = n_candidates(mcfg), window_rows(mcfg)
     bufs = dict(pw=pw, mask=mask,
                 thres=torch.as_tensor(thres_dist, dtype=f32,
                                       device=dev).reshape(1).contiguous(),
@@ -550,23 +670,28 @@ def prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
     if cached is None:
         _set_map(a, vm, mcfg)
         bufs["cells"] = vm.cells
+        thr = _dedup_bound(pw, mcfg)
+        if thr is not None:
+            bufs["dedup_thr"] = thr
         if want_blocks:
             store = torch.bfloat16 if mcfg.dense_bf16 else f32
-            blk = [torch.empty((M, _CAND), dtype=store, device=dev)
+            blk = [torch.empty((M, C), dtype=store, device=dev)
                    for _ in range(4)]
             bufs["blk_out"] = blk
             a.blk_out[:] = [b.data_ptr() for b in blk]
     else:                       # the cached entry reads no map
-        a.bf16 = int(bool(mcfg.dense_bf16))
+        _set_map(a, None, mcfg)
         bufs["pw0"] = cached.pw0
         a.blk_in[:] = [cached.dxd.data_ptr(), cached.dyd.data_ptr(),
                        cached.dzd.data_ptr(), cached.d2d.data_ptr()]
     if stage == GATHER:
-        bufs.update(rows=torch.empty((M, _ROWS, 128), dtype=f32, device=dev),
+        R = 4 * voxelmap._cpr(mcfg)
+        bufs.update(rows=torch.empty((M, S, R), dtype=f32, device=dev),
                     g_v=torch.empty((M, 3), dtype=i32, device=dev),
-                    g_sv=torch.empty((M, _ROWS, 3), dtype=i32, device=dev),
-                    g_slot=torch.empty((M, _ROWS), dtype=i32, device=dev),
-                    g_key=torch.empty((M, _ROWS), dtype=f32, device=dev))
+                    g_sv=torch.empty((M, S, 3), dtype=i32, device=dev),
+                    g_slot=torch.empty((M, S), dtype=i32, device=dev),
+                    g_key=torch.empty((M, S), dtype=f32, device=dev),
+                    g_keep=torch.empty((M, S), dtype=torch.bool, device=dev))
     if stage == NEED:
         # padded to whole 16-byte words: RESCUE reads 16 flags at a time
         bufs["need"] = torch.empty(((M + 15) // 16 * 16,), dtype=torch.bool,
@@ -574,7 +699,8 @@ def prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
         if need_count:
             bufs["need_count"] = torch.zeros((1,), dtype=i32, device=dev)
     for name in ("pw", "mask", "pw0", "thres", "out", "valid", "rows", "g_v",
-                 "g_sv", "g_slot", "g_key", "need", "need_count"):
+                 "g_sv", "g_slot", "g_key", "g_keep", "need", "need_count",
+                 "dedup_thr"):
         if name in bufs:
             setattr(a, name, bufs[name].data_ptr())
     a.m, a.mode, a.k = M, mode, k
@@ -595,7 +721,6 @@ def launch(stage, args, device):
     """Launch the kernel stopped after `stage` on `device`'s current
     stream (counted in LAUNCHES, and a RESCUE launch in RESCUE_LAUNCHES);
     raises if it cannot be built or launched."""
-    global LAUNCHES, RESCUE_LAUNCHES
     import ctypes
 
     from .. import cuda_build
@@ -609,8 +734,7 @@ def launch(stage, args, device):
             rc = fn(stage, ctypes.byref(args),
                     torch.cuda.current_stream().cuda_stream)
     if args.m > 0:                  # assoc_launch launches nothing for m = 0
-        LAUNCHES += 1
-        RESCUE_LAUNCHES += stage == RESCUE
+        _count(LAUNCHES=1, RESCUE_LAUNCHES=int(stage == RESCUE))
     if rc != 0:
         raise RuntimeError(f"assoc_launch failed: CUDA error {rc}")
 
@@ -636,7 +760,8 @@ def _decode(stage, bufs):
     out = bufs["out"]
     if stage == GATHER:
         return {name.removeprefix("g_"): bufs[name]
-                for name in ("rows", "g_v", "g_sv", "g_slot", "g_key")}
+                for name in ("rows", "g_v", "g_sv", "g_slot", "g_key",
+                             "g_keep")}
     if stage == SELECT:
         return dict(t_k=out[:, 7], n=out[:, 8])
     if stage == MOMENTS:
@@ -686,19 +811,31 @@ def _rescue_pair(vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
     """Launch NEED on the persistent map, then RESCUE on the local map
     (OUT alone without one); returns the buffers they wrote."""
     dev = pw.device
+    M = pw.shape[0]
     stage = OUT if vm_local is None else NEED
     if vm_local is not None:
         _check_map(vm_local, lcfg, dev)
+        if not 1 <= k <= n_candidates(lcfg):
+            raise ValueError(f"k {k} not supported on the local map")
     a, bufs = prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
                       scatter_ratio, cached, want_blocks, need_count=False)
     launch(stage, a, dev)
     if vm_local is not None:
         a2 = _args_struct().from_buffer_copy(a)
         _set_map(a2, vm_local, lcfg)
-        a2.cached, a2.mask = 0, None
+        a2.cached, a2.mask, a2.dedup_thr = 0, None, None
         a2.blk_out[:] = [None] * 4
-        a2.rescue_cap = min(int(rescue_cap), pw.shape[0])
+        a2.rescue_cap = min(int(rescue_cap), M)
         bufs["cells_local"] = vm_local.cells
+        if lcfg.dedup_gather:
+            # the reference ranks the rows of the rescue's own query set:
+            # every query when the cap does not bind, else the first
+            # rescue_cap flags of the NEED launch and the pads (on the
+            # device, between the two launches)
+            pw_r = pw if a2.rescue_cap >= M else _rescue_queries(
+                pw, bufs["need"][:M], a2.rescue_cap)[1]
+            bufs["dedup_thr_local"] = _dedup_bound(pw_r, lcfg)
+            a2.dedup_thr = bufs["dedup_thr_local"].data_ptr()
         launch(RESCUE, a2, dev)
     return bufs
 
@@ -713,9 +850,7 @@ def associate_with_rescue(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
     and take that result where it is valid.  On CUDA tensors two kernel
     launches and no torch op; `associate_with_rescue_reference` on CPU
     tensors.  Returns (Assoc merged, StackBlocks or None) as `associate`."""
-    global CALLS, LOCAL_CALLS
-    CALLS += 1
-    LOCAL_CALLS += vm_local is not None
+    _count(CALLS=1, LOCAL_CALLS=int(vm_local is not None))
     if not pw.is_cuda:
         return associate_with_rescue_reference(
             vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
@@ -741,7 +876,7 @@ def run_rescue(vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
     if not pw.is_cuda:
         first, second = rescue_stage_reference(
             vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
-            scatter_ratio, cached)
+            scatter_ratio, cached, rescue_cap)
         served = _tried(first["need"], rescue_cap) & second["valid"]
         out = _merge(first, second, served)
         return dict({f: out[f] for f in Assoc._fields}, need=first["need"],

@@ -21,6 +21,7 @@ way, `input_output_aliases={5: 0}`).
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -34,8 +35,16 @@ _MASKED = 2 ** 30          # slot of a masked point: sorts after every row
 
 # kernel launches made by `aggregate_rmw` (the wrapper counts each launch,
 # nowhere else); callers reset it to 0 to check a run went through the
-# kernel
+# kernel.  Workers of a split replay launch from several threads, so the
+# count is taken under a lock.
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch():
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
 
 
 class SortedPoints(NamedTuple):
@@ -55,16 +64,13 @@ class RowUpdates(NamedTuple):
 
     row_slot: torch.Tensor   # (B, N) int32 superrow slot (0 past nv)
     row_key: torch.Tensor    # (B, N) f32 epoch key
-    row_upd: torch.Tensor    # (B, N, 128) f32 [Σx | Σy | Σz | cnt]
+    row_upd: torch.Tensor    # (B, N, 4 cpr) f32 [Σx | Σy | Σz | cnt]
     nv: torch.Tensor         # (B,) int32 valid entries
 
 
 def sort_points(pts, mask, cfg) -> SortedPoints:
     """Address points (B, N, 3) to (slot, sub-cell, key) and stably sort
     them by slot, masked points last (`pallas_insert.py:43-70`)."""
-    if voxelmap._cpr(cfg) != 32:
-        raise NotImplementedError(
-            "map insert assumes pack_x*pack_y*pack_z == 32 cells per row")
     v = voxelmap._voxel_coords(pts, cfg)
     slot, sub, key = voxelmap._cell_addr(v, cfg)
     srt = torch.sort(torch.where(mask, slot, _MASKED), dim=1, stable=True)
@@ -73,7 +79,9 @@ def sort_points(pts, mask, cfg) -> SortedPoints:
 
 def _segment_rows(sp: SortedPoints, cfg) -> RowUpdates:
     """Segment-sum sorted points into per-row updates, valid rows
-    compacted to the front (`pallas_insert.py:71-105` and `:228-239`)."""
+    compacted to the front (`pallas_insert.py:71-105` and `:228-239`).
+    Rows are 4 cpr floats wide, at any pack."""
+    cpr = voxelmap._cpr(cfg)
     pts = sp.pts
     B, N = pts.shape[:2]
     dtype = pts.dtype
@@ -87,11 +95,11 @@ def _segment_rows(sp: SortedPoints, cfg) -> RowUpdates:
     mf = m_s.to(dtype)
 
     sub_i = sub_s.to(torch.int64)[..., None]
-    pay = torch.zeros((B, N, 128), dtype=dtype, device=dev)
+    pay = torch.zeros((B, N, 4 * cpr), dtype=dtype, device=dev)
     pay.scatter_(2, sub_i, rel[..., 0:1] * mf[..., None])
-    pay.scatter_(2, sub_i + 32, rel[..., 1:2] * mf[..., None])
-    pay.scatter_(2, sub_i + 64, rel[..., 2:3] * mf[..., None])
-    pay.scatter_(2, sub_i + 96, mf[..., None])
+    pay.scatter_(2, sub_i + cpr, rel[..., 1:2] * mf[..., None])
+    pay.scatter_(2, sub_i + 2 * cpr, rel[..., 2:3] * mf[..., None])
+    pay.scatter_(2, sub_i + 3 * cpr, mf[..., None])
 
     change = slot_s[:, 1:] != slot_s[:, :-1]
     one = torch.ones((B, 1), dtype=torch.bool, device=dev)
@@ -112,7 +120,8 @@ def _segment_rows(sp: SortedPoints, cfg) -> RowUpdates:
     cperm = torch.sort(ckey, dim=1, stable=True).indices
     row_slot = torch.gather(row_slot, 1, cperm).to(torch.int32)
     row_key = torch.gather(row_key, 1, cperm)
-    row_upd = torch.gather(row_upd, 1, cperm[..., None].expand(B, N, 128))
+    row_upd = torch.gather(row_upd, 1,
+                           cperm[..., None].expand(B, N, 4 * cpr))
     nv = torch.sum(end_ok, dim=1, dtype=torch.int32)
     return RowUpdates(row_slot.contiguous(), row_key.contiguous(),
                       row_upd.contiguous(), nv)
@@ -128,30 +137,32 @@ def aggregate_updates(pts, mask, cfg) -> RowUpdates:
 def rmw_reference(cells, upd: RowUpdates, cap: float):
     """Plain PyTorch version of the kernel: gather the touched rows, apply
     `_rmw_kernel`'s math (`pallas_insert.py:165-181`), write them back.
-    Updates `cells` (B, Cs, 128) in place and returns it."""
+    Updates `cells` (B, Cs, 4 cpr) in place and returns it."""
     B, Np = upd.row_slot.shape
+    cpr = cells.shape[2] // 4
+    s3 = 3 * cpr
     dev = cells.device
     valid = torch.arange(Np, device=dev)[None, :] < upd.nv[:, None]
     b_idx = torch.arange(B, device=dev)[:, None].expand(B, Np)[valid]
     slot = upd.row_slot.to(torch.int64)[valid]
-    old = cells[b_idx, slot]                             # (V, 128)
+    old = cells[b_idx, slot]                             # (V, 4 cpr)
     u = upd.row_upd[valid]
     keyf = upd.row_key[valid][:, None]
     capf = torch.tensor(cap, dtype=torch.float32, device=dev)
 
-    ometa = old[:, 96:128]
+    ometa = old[:, s3:]
     okey = torch.floor(ometa * (1.0 / _META_MOD))
     ocnt = ometa - okey * _META_MOD
     keep = ((okey == keyf) & (ocnt > 0.0)).to(torch.float32)
-    addcnt = u[:, 96:128]
+    addcnt = u[:, s3:]
     cnt1 = keep * ocnt + addcnt
     scale = torch.clamp(capf / torch.clamp(cnt1, min=1.0), max=1.0)
     keep3 = keep.repeat(1, 3)
     scale3 = scale.repeat(1, 3)
-    sums = (keep3 * old[:, 0:96] + u[:, 0:96]) * scale3
+    sums = (keep3 * old[:, 0:s3] + u[:, 0:s3]) * scale3
     meta1 = keyf * _META_MOD + torch.minimum(cnt1, capf)
     t = addcnt > 0.0
-    new = torch.cat([torch.where(t.repeat(1, 3), sums, old[:, 0:96]),
+    new = torch.cat([torch.where(t.repeat(1, 3), sums, old[:, 0:s3]),
                      torch.where(t, meta1, ometa)], dim=1)
     cells[b_idx, slot] = new
     return cells
@@ -178,8 +189,8 @@ def cell_load(pts, mask, cfg):
     slot, sub, _ = voxelmap._cell_addr(v, cfg)
     B = pts.shape[0]
     lane = torch.arange(B, device=pts.device)[:, None].expand_as(slot)
-    cell = (lane.to(torch.int64) * 2 ** 40 + slot.to(torch.int64) * 32
-            + sub)[mask]
+    cell = (lane.to(torch.int64) * 2 ** 40
+            + slot.to(torch.int64) * voxelmap._cpr(cfg) + sub)[mask]
     if cell.numel() == 0:
         return 0
     return int(torch.unique(cell, return_counts=True)[1].max())
@@ -192,10 +203,22 @@ def sum_tolerance(plain_sums, loads):
     return SUM_ATOL + rel * torch.abs(plain_sums)
 
 
-def _check(cells, sp: SortedPoints):
+# K1 gives each cell of a row one lane of a warp
+MAX_CELLS = 32
+
+
+def kernel_supports(mcfg):
+    """Whether K1 takes rows of this map's pack (at most MAX_CELLS cells a
+    row); the wrapper raises NotImplementedError on CUDA tensors
+    otherwise."""
+    return voxelmap._cpr(mcfg) <= MAX_CELLS
+
+
+def _check(cells, sp: SortedPoints, cfg):
+    row = 4 * voxelmap._cpr(cfg)
     if cells.dtype != torch.float32 or cells.dim() != 3 \
-            or cells.shape[2] != 128 or not cells.is_contiguous():
-        raise ValueError("cells must be a contiguous (B, Cs, 128) float32 "
+            or cells.shape[2] != row or not cells.is_contiguous():
+        raise ValueError(f"cells must be a contiguous (B, Cs, {row}) float32 "
                          f"tensor, got {tuple(cells.shape)} {cells.dtype}")
     B, N = sp.slot.shape
     want = {"slot": ((B, N), torch.int32), "perm": ((B, N), torch.int64),
@@ -217,8 +240,8 @@ def _bind(lib):
 
     p = ctypes.c_void_p
     lib.map_insert_launch.argtypes = [p] * 7 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-        ctypes.c_float, p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, p]
     lib.map_insert_launch.restype = ctypes.c_int
 
 
@@ -226,32 +249,35 @@ def aggregate_rmw(cells, sp: SortedPoints, cfg):
     """Sum the sorted points per row and apply them to `cells` in place:
     the CUDA kernel for CUDA tensors (counted in LAUNCHES), the plain
     version (`_segment_rows` + `rmw_reference`) for CPU tensors."""
-    global LAUNCHES
-    _check(cells, sp)
+    _check(cells, sp, cfg)
     if not cells.is_cuda:
         return rmw_reference(cells, _segment_rows(sp, cfg), cfg.count_cap)
+    if not kernel_supports(cfg):
+        raise NotImplementedError(
+            f"K1 takes at most {MAX_CELLS} cells a row (one warp lane a "
+            f"cell); pack {voxelmap._pack(cfg)} has {voxelmap._cpr(cfg)}")
     from .. import cuda_build
 
     fn = cuda_build.load(_SOURCE, _bind).map_insert_launch
     B, N = sp.slot.shape
     args = (cells.data_ptr(), sp.slot.data_ptr(), sp.perm.data_ptr(),
             sp.sub.data_ptr(), sp.key.data_ptr(), sp.pts.data_ptr(),
-            sp.v.data_ptr(), B, N, cells.shape[1], cfg.voxel_size,
-            float(cfg.count_cap))
+            sp.v.data_ptr(), B, N, cells.shape[1], voxelmap._cpr(cfg),
+            cfg.voxel_size, float(cfg.count_cap))
     dev = cells.device
     if dev.index is None or dev.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     else:
         with torch.cuda.device(dev):
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    LAUNCHES += 1
+    _count_launch()
     if rc != 0:
         raise RuntimeError(f"map_insert_launch failed: CUDA error {rc}")
     return cells
 
 
 def insert_batched(cells, pts, mask, cfg):
-    """Batched map insertion: cells (B, Cs, 128) in place, pts (B, N, 3),
+    """Batched map insertion: cells (B, Cs, 4 cpr) in place, pts (B, N, 3),
     mask (B, N).  Semantics == per-lane voxelmap.insert.  On CUDA tensors
     the torch addressing and sort, then the kernel; on CPU tensors the
     plain version."""

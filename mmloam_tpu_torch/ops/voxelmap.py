@@ -2,9 +2,12 @@
 (port of mmloam_tpu/ops/voxelmap.py).
 
 Same data layout as the reference, so maps compare element by element:
-cells (Cs, 128) f32 superrows holding a (pack_x, pack_y, pack_z) = (4,4,2)
-block of fine cells, struct-of-arrays [sum_x(32) | sum_y(32) | sum_z(32) |
-meta(32)], sums relative to each fine-voxel corner, meta = key*128 + count.
+cells (Cs, 4 cpr) f32 superrows, each holding a (pack_x, pack_y, pack_z)
+block of cpr = pack_x*pack_y*pack_z fine cells (32 at the default
+(4,4,2), a 128-float row), struct-of-arrays [sum_x(cpr) | sum_y(cpr) |
+sum_z(cpr) | meta(cpr)], sums relative to each fine-voxel corner, meta =
+key*128 + count.  Any pack whose dims divide the map runs, as in the
+reference.
 Torus addressing uses floor division / remainder (`torch.div(...,
 rounding_mode="floor")`, `torch.remainder`) like `//` and `%` in JAX.
 """
@@ -226,21 +229,79 @@ def stencil_addresses(q, cfg) -> StencilAddr:
     return StencilAddr(v, sv, slot, key)
 
 
+def _dedup_gather_rows(cells, slot, capacity):
+    """The reference's two-level superrow gather (`voxelmap.py:239-284`):
+    the (M, S) rows of `slot`, each unique row read once into a compact
+    table of `capacity` rows, ranked by slot id.  Returns (rows (M, S, R),
+    valid (M, S)): a position whose unique rank overflows `capacity` gets
+    valid=False and the compact table's last row (candidates dropped,
+    never wrong data where valid).  Stable sorts, as `lax.sort`'s."""
+    M, S = slot.shape
+    n_super = cells.shape[0]
+    flat = slot.reshape(-1)
+    s_ids, pos = torch.sort(flat, stable=True)
+    newrun = torch.cat([torch.ones((1,), dtype=torch.bool,
+                                   device=flat.device),
+                        s_ids[1:] != s_ids[:-1]])
+    rank = torch.cumsum(newrun.to(torch.int32), 0, dtype=torch.int32) - 1
+    k_uid = torch.where(newrun, rank, torch.full_like(rank, capacity))
+    uid = s_ids[torch.sort(k_uid, stable=True).indices][:capacity]
+    inv = torch.empty_like(rank).scatter_(0, pos, rank).reshape(M, S)
+    compact = cells[torch.clamp(uid, 0, n_super - 1).to(torch.int64)]
+    rows = compact[torch.clamp(inv, max=capacity - 1).to(torch.int64)]
+    return rows, inv < capacity
+
+
+def dedup_threshold(slot, capacity):
+    """The largest slot id whose unique rank is below `capacity`, as a (1,)
+    int32 tensor on the slots' device: a window row survives
+    `_dedup_gather_rows` iff its slot is <= this (all rows when there are
+    fewer distinct ids), and an overflowed one reads this slot's row.
+    Fixed-shape ops only (sort, neighbour compare, cumsum): no host sync.
+    The association kernel takes it as its per-launch dedup bound."""
+    s_ids = torch.sort(slot.reshape(-1)).values
+    newrun = torch.cat([torch.ones((1,), dtype=torch.bool,
+                                   device=s_ids.device),
+                        s_ids[1:] != s_ids[:-1]])
+    rank = torch.cumsum(newrun.to(torch.int32), 0, dtype=torch.int32) - 1
+    low = torch.full_like(s_ids, torch.iinfo(torch.int32).min)
+    return torch.amax(torch.where(rank < capacity, s_ids, low)).reshape(1)
+
+
+def dedup_capacity(cfg, M):
+    """Compact-table rows of a dedup gather over M queries.  Raises
+    ValueError for `cfg.dedup_capacity` < 1 (a table of no rows)."""
+    if int(cfg.dedup_capacity) < 1:
+        raise ValueError(f"dedup_capacity must be at least 1, got "
+                         f"{cfg.dedup_capacity}")
+    return int(cfg.dedup_capacity) * M
+
+
+def gather_rows(vm: VoxelMap, slot, cfg):
+    """The (M, S, 4 cpr) stencil rows of `slot` and their validity (None
+    without `cfg.dedup_gather`): the plain gather, or the reference's
+    dedup gather with `dedup_capacity(cfg, M)` compact rows."""
+    if getattr(cfg, "dedup_gather", False):
+        return _dedup_gather_rows(vm.cells, slot,
+                                  dedup_capacity(cfg, slot.shape[0]))
+    return vm.cells[slot.to(torch.int64)], None
+
+
 def query_candidates(vm: VoxelMap, q, mask, cfg):
     """Stencil candidate block for each query point — no selection.
 
     Returns (dx, dy, dz, d2, ok), each (M, S, cpr): centroid offsets from
-    the query, squared distances (inf where invalid) and validity.
+    the query, squared distances (inf where invalid) and validity.  Under
+    `cfg.dedup_gather` every one of the M queries' window rows, masked or
+    not, takes part in the ranking, as in the reference.
     """
-    if getattr(cfg, "dedup_gather", False):
-        raise NotImplementedError("MapConfig.dedup_gather is not ported")
     px, py, pz = _pack(cfg)
     cpr = _cpr(cfg)
     dtype = q.dtype
     dev = q.device
 
     v, sv, slot, key = stencil_addresses(q, cfg)
-    rows = vm.cells[slot.to(torch.int64)]                   # (M,S,4cpr)
+    rows, dedup_ok = gather_rows(vm, slot, cfg)              # (M,S,4cpr)
     sum_x = rows[..., 0:cpr]
     sum_y = rows[..., cpr:2 * cpr]
     sum_z = rows[..., 2 * cpr:3 * cpr]
@@ -248,6 +309,8 @@ def query_candidates(vm: VoxelMap, q, mask, cfg):
     key_st = torch.floor(meta / _META_MOD)
     cnt = meta - key_st * _META_MOD
     ok = (key_st == key[..., None]) & (cnt > 0) & mask[:, None, None]
+    if dedup_ok is not None:
+        ok = ok & dedup_ok[..., None]
 
     subg = _grid(px, py, pz, dev)
     for ax, (sub_i, p_i, s_i) in enumerate(

@@ -8,9 +8,10 @@ deferred map inserts, and the IMU-init bookkeeping.  The reference's
 `lax.cond`s on per-sequence flags are Python branches here (one host read
 each); everything else keeps the reference's select-based form.
 
-The default path, `config.faithful_config()` and the rig's modes
-(`imu_mode` 0/1, `velo_only_mode`, `use_nonfeature`) are ported; the
-options listed in `_check_supported` raise NotImplementedError.
+The default path, `config.faithful_config()`, the rig's modes
+(`imu_mode` 0/1, `velo_only_mode`, `use_nonfeature`) and every map option
+of the reference (any superrow pack whose dims divide the map, any
+stencil, `dedup_gather`) are ported.
 """
 
 from __future__ import annotations
@@ -104,20 +105,6 @@ MAP_FIELDS = ("vm_corner", "vm_surf", "vm_non", "vm_local_corner",
               "vm_local_surf")
 
 
-def _check_supported(cfg):
-    """Raise NotImplementedError naming any off-default option this port
-    does not carry yet (queued in ROADMAP)."""
-    bad = []
-    for name in ("map", "local_map"):
-        m = getattr(cfg, name)
-        if m.dedup_gather:
-            bad.append(f"{name}.dedup_gather=True")
-        if m.pack_x * m.pack_y * m.pack_z != 32:
-            bad.append(f"{name}.pack_x*pack_y*pack_z != 32")
-    if bad:
-        raise NotImplementedError("not ported: " + ", ".join(bad))
-
-
 def _empty_preint(W, dtype, device):
     z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     return dict(
@@ -144,7 +131,6 @@ def init_state(cfg, Rbl=None, tbl=None, dtype=torch.float32, kf_imu_cap=256,
                device=None):
     """Fresh per-sequence state with maps and window on `device` (the card
     when None, see `resolve_device`)."""
-    _check_supported(cfg)
     device = resolve_device(device)
     W = cfg.solver.window
     sc = cfg.scan
@@ -365,7 +351,6 @@ class PreparedFrame(NamedTuple):
 
 def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
     """Features, prediction, undistortion, stacks, window push."""
-    _check_supported(cfg)
     dtype = state.x.dtype
     dev = state.x.device
     ident_q = torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=dev)

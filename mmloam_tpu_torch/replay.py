@@ -5,10 +5,16 @@ mmloam_tpu/replay.py).
 outputs are bit-identical); `replay` steps one sequence; `replay_batch`
 steps B sequences in lockstep — `step_core` per lane, then ONE batched
 map insert per map through the CUDA kernel K1 — exactly the split the TPU
-path makes (`mmloam_tpu/replay.py:190-208`).
+path makes (`mmloam_tpu/replay.py:190-208`).  With `mesh`, a list of
+devices, `replay_batch` splits the batch as the reference splits it over a
+1-D mesh (`mmloam_tpu/replay.py:176-224`): each device owns whole
+sequences, and no tensor crosses devices during the replay.
 """
 
 from __future__ import annotations
+
+import concurrent.futures
+import contextlib
 
 import numpy as np
 import torch
@@ -172,8 +178,97 @@ def _restack(lanes, batched):
     return stack_states(rest)._replace(**keep)
 
 
-def replay_batch(states, scans, cfg):
-    """Replay a BATCH of sequences in lockstep.
+def stack_sequences(seqs):
+    """Stack per-sequence ScanInputs (T, ...) into (T, B, ...), numpy or
+    tensor leaves (the reference's `stack_sequences`)."""
+    def stack(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs, dim=1)
+        return np.stack(xs, axis=1)
+    return tree_map(stack, seqs[0], *seqs[1:])
+
+
+def _shard(states, scans, i, n, dev):
+    """Shard i of n: its lanes' state and scans, on `dev`.  A list of
+    shard states (a split replay's result) gives its i-th, moved."""
+    to = lambda a: torch.as_tensor(a, device=dev)
+    if isinstance(states, list):
+        st = tree_map(to, states[i])
+        per = st.x.shape[0]
+        lo = sum(s.x.shape[0] for s in states[:i])
+    else:
+        per = states.x.shape[0] // n
+        lo = i * per
+        st = tree_map(lambda a: to(a[lo:lo + per]), states)
+    return st, tree_map(lambda a: to(a[:, lo:lo + per]), scans)
+
+
+def replay_batch(states, scans, cfg, mesh=None):
+    """Replay a BATCH of sequences in lockstep; with `mesh`, split over
+    devices.
+
+    Without `mesh`: see `_replay_lockstep`; returns (final states,
+    StepOutput stacked as (T, B, ...)).
+
+    `mesh` is a sequence of devices (torch.device or names), the
+    counterpart of the reference's 1-D mesh over the batch axis: the B
+    lanes split into len(mesh) contiguous shards (B must divide evenly, as
+    in the reference), shard i's state and scans go to mesh[i], and each
+    shard replays there in lockstep, maps and all; nothing crosses devices
+    until the outputs come back.  One worker thread runs per distinct
+    device (under `torch.cuda.device` for a CUDA one); shards that share a
+    device run in turn in its worker.  `states` is a batched LIOState, or
+    the list of shard states a split replay returned.  Returns (the list
+    of final shard states, each on its device, in mesh order; StepOutput
+    (T, B, ...) in lane order on mesh[0]).  As without a mesh, the maps
+    of `states` may be updated in place: callers must not reuse them.
+    """
+    if mesh is None:
+        return _replay_lockstep(states, scans, cfg)
+    devs = [torch.device(d) for d in mesh]
+    n = len(devs)
+    listed = isinstance(states, list)
+    B = (sum(s.x.shape[0] for s in states) if listed
+         else states.x.shape[0])
+    if n == 0 or B % n or (listed and len(states) != n):
+        raise ValueError(f"a batch of {B} lanes does not split evenly "
+                         f"over {n} devices")
+    groups = {}
+    for i, dev in enumerate(devs):
+        groups.setdefault(dev, []).append(i)
+
+    def work(dev, idx):
+        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+        out = {}
+        with ctx:
+            for i in idx:
+                out[i] = _replay_lockstep(*_shard(states, scans, i, n, dev),
+                                          cfg)
+        return out
+
+    results = {}
+    with concurrent.futures.ThreadPoolExecutor(len(groups)) as ex:
+        futs = [ex.submit(work, dev, idx) for dev, idx in groups.items()]
+        for fut in futs:
+            results.update(fut.result())
+    finals = [results[i][0] for i in range(n)]
+    outs = tree_map(lambda *xs: torch.cat([x.to(devs[0]) for x in xs],
+                                          dim=1),
+                    *(results[i][1] for i in range(n)))
+    return finals, outs
+
+
+def gather_states(shards, device=None):
+    """One batched LIOState from a split replay's shard states, lanes in
+    order, on `device` (the first shard's when None)."""
+    dev = shards[0].x.device if device is None else torch.device(device)
+    return tree_map(lambda *xs: torch.cat([x.to(dev) for x in xs]),
+                    shards[0], *shards[1:])
+
+
+def _replay_lockstep(states, scans, cfg):
+    """Replay a BATCH of sequences in lockstep on one device.
 
     states: LIOState with a leading batch axis B; scans: ScanInput laid out
     (T, B, ...).  For each scan, `step_core` runs per lane (a Python loop;

@@ -18,7 +18,14 @@ versions (`assoc.compare_rescue`) and is `associate_with_rescue`.  Under
 rescue, and the batched insert writes `vm_non` through K1 (five launches).
 The rosbag decoder builds on the card's machine and decodes onto the card.
 A CUDA tensor whose kernel library cannot be built raises; nothing falls
-back to the plain version.
+back to the plain version.  Every map option of the reference runs through
+both kernels: K1 and K2 (every stage, fresh and cached) at superrow packs
+(2,2,2), (1,1,1) and (2,4,1) under stencils (2,2,1) and (1,1,1), and
+`dedup_gather` with a capacity that holds every row and one that
+overflows, the rescue pair included; a window beyond K2's instances
+raises NotImplementedError and launches nothing.  A split replay over the
+card and the CPU runs two workers at once, each shard equal to its unsplit
+replay, and the kernel counters hold the card's shard alone.
 """
 
 import dataclasses
@@ -55,10 +62,12 @@ def _steps(B, N, seed):
 
 
 def _assert_maps(ck, cp, loads):
-    """Meta lanes exact, sum lanes within the stated bound."""
-    assert torch.equal(ck[..., 96:], cp[..., 96:])
-    diff = (ck[..., :96] - cp[..., :96]).abs()
-    assert bool((diff <= map_insert.sum_tolerance(cp[..., :96], loads))
+    """Meta lanes exact, sum lanes within the stated bound (rows of any
+    width)."""
+    s3 = 3 * (ck.shape[-1] // 4)
+    assert torch.equal(ck[..., s3:], cp[..., s3:])
+    diff = (ck[..., :s3] - cp[..., :s3]).abs()
+    assert bool((diff <= map_insert.sum_tolerance(cp[..., :s3], loads))
                 .all()), float(diff.max())
 
 
@@ -381,3 +390,221 @@ def test_native_reader_and_decode_onto_card(tmp_path):
     assert torch.equal(dec.hori_pts[:, :, :n_az].cpu(),
                        torch.from_numpy(scans.hori_pts))
     bag.close()
+
+
+# --------------------------------------------------------------------------
+# any pack and stencil, and dedup_gather
+# --------------------------------------------------------------------------
+
+PACKS = ((2, 2, 2), (1, 1, 1), (2, 4, 1))
+STENCILS = ((2, 2, 1), (1, 1, 1))
+
+
+def _geom(pack, stencil=(2, 2, 1), mcfg=MCFG, **kw):
+    return dataclasses.replace(
+        mcfg, pack_x=pack[0], pack_y=pack[1], pack_z=pack[2],
+        stencil_x=stencil[0], stencil_y=stencil[1], stencil_z=stencil[2],
+        **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", PACKS)
+def test_kernel_at_each_pack_on_card(pack):
+    """K1 on rows of 4 cpr floats against the plain version: two inserts
+    that accumulate and one a torus period away."""
+    dev = _device()
+    mcfg = _geom(pack)
+    shape = (3,) + tuple(voxelmap.empty_map(mcfg).cells.shape)
+    assert shape[-1] == 4 * int(np.prod(pack))
+    ck = torch.zeros(shape, device=dev)
+    cp = torch.zeros(shape, device=dev)
+    before = map_insert.LAUNCHES
+    loads = []
+    for pts, mask in _steps(3, 1000, seed=11):
+        p = torch.from_numpy(pts).to(dev)
+        m = torch.from_numpy(mask).to(dev)
+        map_insert.insert_batched(ck, p, m, mcfg)
+        map_insert.insert_batched_reference(cp, p, m, mcfg)
+        loads.append(map_insert.cell_load(p, m, mcfg))
+    torch.cuda.synchronize()
+    assert map_insert.LAUNCHES == before + 3
+    _assert_maps(ck, cp, loads)
+
+
+def _check_k2(vm, pw, mask, mcfg, mode):
+    """Every stage fresh and cached against the plain cuts; returns the
+    rows the GATHER stage dropped."""
+    thres = torch.tensor(1.0, device=pw.device)
+    args = (vm, pw, mask, mcfg, 5, mode, thres, 0.01)
+    _, blocks = assoc.associate_reference(*args)
+    dropped = 0
+    for cached, q in ((None, pw), (blocks, pw + 0.02)):
+        cargs = (vm, q) + args[2:]
+        for stage in range(len(assoc.STAGE_NAMES)):
+            if stage == assoc.GATHER and cached is not None:
+                continue
+            got = assoc.run_stage(stage, *cargs, cached=cached)
+            ref = assoc.stage_reference(stage, *cargs, cached=cached)
+            torch.cuda.synchronize()
+            st = assoc.compare(stage, got, ref, mask, mode)
+            dropped += st.get("dropped", 0)
+    # the entry's blocks are the plain version's, bit for bit
+    _, blk = assoc.associate(*args, want_blocks=True)
+    for name in ("dxd", "dyd", "dzd", "d2d"):
+        assert torch.equal(getattr(blk, name), getattr(blocks, name)), name
+    return dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stencil", STENCILS)
+@pytest.mark.parametrize("pack", PACKS)
+def test_assoc_at_each_geometry_on_card(pack, stencil):
+    """K2's general instances (candidate c on lane c mod 32) at the map's
+    own window, both modes."""
+    dev = _device()
+    mcfg = _geom(pack, stencil)
+    vm, pw, mask = _scene(dev, mcfg=mcfg)
+    for mode in (assoc.PLANE, assoc.LINE):
+        _check_k2(vm, pw, mask, mcfg, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [1, 4])
+@pytest.mark.parametrize("pack", [(4, 4, 2), (2, 2, 2)])
+def test_assoc_dedup_on_card(pack, capacity):
+    """dedup_gather: capacity 4 holds every unique row, capacity 1 on
+    spread queries overflows; the rows kept and dropped, and every stage,
+    agree with the plain dedup gather."""
+    dev = _device()
+    # a map of 2,048 (pack 4,4,2) or 8,192 superrows: more than the 512
+    # compact rows of capacity 1
+    mcfg = _geom(pack, mcfg=dataclasses.replace(MCFG, dim_x=64, dim_y=64,
+                                                dim_z=16),
+                 dedup_gather=True, dedup_capacity=capacity)
+    vm, pw, mask = _scene(dev, mcfg=mcfg)
+    if capacity == 1:   # half the queries spread over the torus
+        rng = np.random.default_rng(9)
+        far = rng.uniform(-1, 1, (256, 3)) * np.array([12.0, 12.0, 3.0])
+        pw = torch.cat([pw[:256], torch.from_numpy(far.astype(np.float32))
+                        .to(dev)])
+    dropped = _check_k2(vm, pw, mask, mcfg, assoc.PLANE)
+    assert (dropped > 0) == (capacity == 1), dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+def test_fused_rescue_with_dedup_on_card(full):
+    """The rescue pair with dedup_gather on both maps, the local map at
+    pack (1,1,1): its bound comes from the rescue's own query set (the
+    NEED launch's first Mr flags and the pads when the cap binds), on the
+    device between the two launches.  Capacity 8 on the local map: with
+    the cap binding (Mr = 56 of 113 flags on this scene), two thirds of
+    its 4,200 window rows overflow and some queries are still served."""
+    dev = _device()
+    mcfg = _geom((2, 2, 2), dedup_gather=True, dedup_capacity=1)
+    vm, pw, mask = _scene(dev, mcfg=mcfg)
+    cells = vm.cells.clone()
+    cells[::3] = 0.0
+    vm = voxelmap.VoxelMap(cells)
+    lcfg = _geom((1, 1, 1), voxel_size=0.2, dedup_gather=True,
+                 dedup_capacity=8)
+    vml, _, _ = _scene(dev, mcfg=lcfg)
+    thres = torch.tensor(1.0, device=dev)
+    args = (vm, vml, pw, mask, mcfg, lcfg, 5, assoc.PLANE, thres, 0.01)
+    n_fail = int(assoc.run_rescue(*args, pw.shape[0])["need"].sum())
+    cap = pw.shape[0] if full else n_fail // 2
+    got = assoc.run_rescue(*args, cap)
+    refs = assoc.rescue_stage_reference(*args, None, cap, got["need"])
+    torch.cuda.synchronize()
+    st = assoc.compare_rescue(got, refs, mask, assoc.PLANE, cap)
+    assert st["served"] > 0
+
+
+@pytest.mark.cuda
+def test_assoc_geometry_beyond_instances_raises_on_card():
+    dev = _device()
+    mcfg = _geom((4, 4, 2), (3, 3, 2), dim_z=8)
+    assert not assoc.kernel_supports(mcfg)
+    cells = torch.zeros(tuple(voxelmap.empty_map(mcfg).cells.shape),
+                        device=dev)
+    pw = torch.zeros((8, 3), device=dev)
+    mask = torch.ones((8,), dtype=torch.bool, device=dev)
+    launches = assoc.LAUNCHES
+    with pytest.raises(NotImplementedError, match="512 candidates"):
+        assoc.associate(voxelmap.VoxelMap(cells), pw, mask, mcfg, 5,
+                        assoc.PLANE, 1.0)
+    assert assoc.LAUNCHES == launches
+
+
+@pytest.mark.cuda
+def test_split_over_card_and_cpu_replays_at_once_on_card(monkeypatch):
+    """`replay_batch` over the mesh [card, CPU]: two workers replay at
+    once (each shard waits at a barrier the other must reach), the card's
+    shard through K1 and K2, the CPU's through the plain versions (its
+    tensors lie on the CPU).  Each shard equals the unsplit replay of its
+    lanes on its own device bit for bit, outputs and final state, and the
+    kernel counters hold the card's shard alone: K1 and K2 launched as in
+    the unsplit card replay of those lanes."""
+    import threading
+
+    from mmloam_tpu_torch import checkpoint, pipeline, replay
+    from mmloam_tpu_torch.config import tiny_config
+    from mmloam_tpu_torch.data import synthetic
+    from mmloam_tpu_torch.tree import tree_map
+
+    dev, cpu = _device(), torch.device("cpu")
+    cfg, B, T = tiny_config(), 4, 3
+    seqs = [replay.make_sequence(
+        synthetic.default_world(),
+        synthetic.Trajectory(speed=0.6 + 0.05 * b, yaw_rate=0.15 + 0.03 * b,
+                             z_amp=0.1),
+        0.0, T, cfg, n_az=360, seed=b, dtype=np.float32)[0]
+        for b in range(B)]
+    stacked = replay.stack_sequences(seqs)
+
+    def states(n, d):
+        return replay.stack_states([pipeline.init_state(cfg, device=d)
+                                    for _ in range(n)])
+
+    def lanes(lo, hi, d):
+        return pipeline.scan_from_numpy(
+            tree_map(lambda a: a[:, lo:hi], stacked), d)
+
+    k1, k2 = map_insert.LAUNCHES, assoc.LAUNCHES
+    st_card, ref_card = replay.replay_batch(states(2, dev), lanes(0, 2, dev),
+                                            cfg)
+    torch.cuda.synchronize()
+    k1_ref, k2_ref = map_insert.LAUNCHES - k1, assoc.LAUNCHES - k2
+    st_cpu, ref_cpu = replay.replay_batch(states(2, cpu), lanes(2, 4, cpu),
+                                          cfg)
+    assert k1_ref == 4 * T and k2_ref > 0
+
+    barrier = threading.Barrier(2, timeout=300)
+    lockstep = replay._replay_lockstep
+
+    def meet_then_replay(*args):
+        barrier.wait()
+        return lockstep(*args)
+
+    monkeypatch.setattr(replay, "_replay_lockstep", meet_then_replay)
+    k1, k2 = map_insert.LAUNCHES, assoc.LAUNCHES
+    shards, outs = replay.replay_batch(states(B, cpu), lanes(0, B, cpu), cfg,
+                                       mesh=[dev, cpu])
+    torch.cuda.synchronize()
+    assert (map_insert.LAUNCHES - k1, assoc.LAUNCHES - k2) == (k1_ref,
+                                                                k2_ref)
+    assert not barrier.broken
+    assert shards[0].x.device.type == "cuda" and shards[1].x.device == cpu
+    for name in outs._fields:
+        got = getattr(outs, name)
+        assert got.device.type == "cuda", name
+        for part, want in ((got[:, :2], getattr(ref_card, name)),
+                           (got[:, 2:], getattr(ref_cpu, name))):
+            torch.testing.assert_close(part, want.to(dev), rtol=0, atol=0,
+                                       equal_nan=True, msg=name)
+    for got, want in ((shards[0], st_card), (shards[1], st_cpu)):
+        la, lb = (checkpoint._leaves_with_keys(t) for t in (got, want))
+        for (ka, a), (kb, b) in zip(la, lb):
+            assert ka == kb
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=ka)
