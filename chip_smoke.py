@@ -81,15 +81,20 @@ Phases (any failure ends the run with a non-zero exit code):
    cached, as phase 5) and K1's insert of every lane's non stack into
    vm_non (as phase 2);
 9. every map option through both kernels at `LIOConfig()` map widths: K1
-   against its plain version at packs (2,2,2) and (1,1,1) (phase 2's
-   persistent cases); K2 at those packs on lane 0's maps from phase 4
-   (`repack`ed: the same fine cells), every stage, fresh and cached, surf
-   (M=2048, plane) and corner (M=512, line), and each rescue pair (as
-   phase 5, bf16 blocks, the cap binding and not); the same at phase
-   10's maps (persistent (2,2,2), local (1,1,1), dedup_gather on both:
-   the pair's launches of two geometries, the local bound from the NEED
-   flags); `dedup_gather` at capacity 2 on the newest surf
-   stack and its rescue pair, and at capacity 1 on M=2048 queries spread
+   against its plain version at packs (2,2,2), (1,1,1) and (4,4,4)
+   (phase 2's persistent cases); K2 at those packs and at pack (4,4,2)
+   with stencil (3,3,2) (864 candidates a query, the staged instance) on
+   lane 0's maps from phase 4 (`repack`ed: the same fine cells), every
+   stage, fresh and cached, surf (M=2048, plane) and corner (M=512,
+   line), and each rescue pair (as phase 5, bf16 blocks, the cap binding
+   and not); the same at phase 10's maps (persistent (2,2,2), local
+   (1,1,1), dedup_gather on both: the pair's launches of two geometries,
+   the local bound from the NEED flags), and at phase 12's maps
+   (persistent (4,4,4), local (4,4,2) with stencil (3,3,2): each rescue
+   pair's NEED launch 16 a lane, its RESCUE launch staged);
+   `dedup_gather` at capacity 2 on
+   the newest surf stack (which must launch K2's default instance and no
+   other) and its rescue pair, and at capacity 1 on M=2048 queries spread
    over the torus, which must overflow: the rows the kernel dropped are
    held equal to the plain dedup gather's.  Times and bounds per case as
    phase 5;
@@ -97,7 +102,8 @@ Phases (any failure ends the run with a non-zero exit code):
    at (1,1,1) and `dedup_gather` on both, B=2 x T=12 built as phase 4
    builds its inputs, split over [cuda:0, cuda:0]: every lane
    initialized, finite poses, ATE < 0.15 m per lane (logged beside phase
-   4's), K1 4*T launches per shard and K2 counts as phase 4;
+   4's), K1 4*T launches per shard (half through the warp-a-position
+   instance, half through the group one) and K2 counts as phase 4;
 11. the reference's multi-device dry run (`__graft_entry__.
    dryrun_multichip`) through the port's split: B=8 x 14 scans at
    `tiny_config` over [cuda:0] x 4 against the unsplit run (made at the
@@ -106,11 +112,26 @@ Phases (any failure ends the run with a non-zero exit code):
    the origin, pose_p within 3e-2 of tests/golden/multichip_phase1.npz;
    then the flagship map dims at B=8 x 2 scans over [cuda:0] x 8 (one
    sequence a shard): 164 MiB of maps a sequence, and the peak device
-   memory (`torch.cuda.max_memory_allocated`).
+   memory (`torch.cuda.max_memory_allocated`);
+12. `replay_batch` at `LIOConfig()` with `map` at pack (4,4,4) and
+   `local_map` at pack (4,4,2) with stencil (3,3,2), B=2 x T=12 built as
+   phase 4 builds its inputs: every lane initialized, finite poses, ATE <
+   0.15 m per lane (logged beside phase 4's), K1 4*T launches (2*T
+   through its warp-a-position instance, 2*T through the default one) and K2
+   counts as phase 4, the persistent map's calls through the 16-a-lane
+   instance and every rescue through the staged one.
 
-Before the last line come a JSON object with each kernel's launches,
-error and times ("ms" is the launch incl. host, "device_ms" the kernel's
-own), and the card's name and power limit; the last line is
+Phases 4, 10 and 12 count the launches of each kernel instance
+(`map_insert.INSTANCE_LAUNCHES`, `assoc.INSTANCE_LAUNCHES`, set to 0
+just before the replay and read just after); each checks that its maps
+ran the instances their geometry picks.
+
+Before the last line come a JSON object with a row for each kernel
+instance (K1's default, warp-a-position and group instances, K2's
+default, 4-, 8- and 16-a-lane and staged ones): its launches in the replay phases that run
+it, its error and times on its phase 2, 5 or 9 case ("ms" is the launch
+incl. host, "device_ms" the kernel's own), and the card's name and power
+limit; the last line is
 {"ok": true, "device": {...}}.  Every number also goes to
 chip_smoke_out/chip_smoke.json.
 """
@@ -516,11 +537,20 @@ def _ate(pose_p, t, gt_R, gt_p):
     return float(np.sqrt(((pose_p - gt_rel[idx]) ** 2).sum(1).mean()))
 
 
-def _reset_k2_counts():
-    from mmloam_tpu_torch.ops import assoc
+def _reset_counts():
+    """Every launch and call counter of K1 and K2 to 0."""
+    from mmloam_tpu_torch.ops import assoc, map_insert
 
-    assoc.LAUNCHES = assoc.CALLS = assoc.RESCUE_LAUNCHES = 0
-    assoc.LOCAL_CALLS = 0
+    map_insert.reset_counts()
+    assoc.reset_counts()
+
+
+def _instance_counts():
+    """Launches by kernel instance since the last `_reset_counts`."""
+    from mmloam_tpu_torch.ops import assoc, map_insert
+
+    return dict(k1=dict(map_insert.INSTANCE_LAUNCHES),
+                k2=dict(assoc.INSTANCE_LAUNCHES))
 
 
 def _check_k2_counts(label, with_unrescued=False):
@@ -557,7 +587,7 @@ def check_hall_golden(dev):
         synthetic.default_world(), synthetic.Trajectory(speed=0.8, z_amp=0.15),
         0.0, 25, cfg, n_az=360, dtype=np.float32, device=dev)
     g = np.load(os.path.join(ROOT, "tests", "golden", "hall_25.npz"))
-    _reset_k2_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     _, outs = replay.replay(pipeline.init_state(cfg, device=dev), scans, cfg)
     torch.cuda.synchronize()
@@ -622,14 +652,18 @@ def check_flagship(dev):
     states = fresh_states(cfg, B, dev)
     torch.cuda.synchronize()
 
-    map_insert.LAUNCHES = 0
-    _reset_k2_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     st, outs = replay.replay_batch(states, scans, cfg)
     torch.cuda.synchronize()
     first_secs = time.perf_counter() - t0
     launches = map_insert.LAUNCHES
     k2_launches = _check_k2_counts("replay_batch")
+    instances = _instance_counts()
+    if (instances["k1"]["default"] != launches
+            or instances["k2"]["default"] != k2_launches):
+        raise AssertionError(f"the default maps ran other instances than "
+                             f"the default ones: {instances}")
 
     inited = outs.inited.cpu().numpy()
     pose = outs.pose_p.cpu().numpy()
@@ -668,8 +702,8 @@ def check_flagship(dev):
     rate = B * T / secs
     log(f"  timed run: {secs:.2f} s, {rate:.3f} scans/sec")
     return dict(B=B, T=T, launches=launches, k2_launches=k2_launches,
-                first_secs=first_secs, timed_secs=secs, scans_per_sec=rate,
-                lanes=lanes), lane0
+                instances=instances, first_secs=first_secs, timed_secs=secs,
+                scans_per_sec=rate, lanes=lanes), lane0
 
 
 def _lane0(st):
@@ -934,7 +968,7 @@ def check_faithful(dev):
     scans, gt_R, gt_p = replay.make_sequence(
         synthetic.default_world(), synthetic.Trajectory(speed=0.8), 0.0, 25,
         cfg, n_az=360, dtype=np.float32, device=dev)
-    _reset_k2_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     _, outs = replay.replay(pipeline.init_state(cfg, device=dev), scans, cfg)
     torch.cuda.synchronize()
@@ -1230,8 +1264,7 @@ def check_recorded_log(dev):
     states = fresh_states(cfg, 1, dev)
     batch = tree_map(lambda a: a[:, None], dec)
     torch.cuda.synchronize()
-    map_insert.LAUNCHES = 0
-    _reset_k2_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     st, outs = replay.replay_batch(states, batch, cfg)
     torch.cuda.synchronize()
@@ -1380,8 +1413,7 @@ def check_modes(dev):
             sc = sc._replace(imu_gyr=torch.zeros_like(sc.imu_gyr))
         states = fresh_states(cfg, MODE_B, dev)
         torch.cuda.synchronize()
-        map_insert.LAUNCHES = 0
-        _reset_k2_counts()
+        _reset_counts()
         t0 = time.perf_counter()
         st, outs = replay.replay_batch(states, sc, cfg)
         torch.cuda.synchronize()
@@ -1446,7 +1478,10 @@ def check_modes(dev):
 # phase 9: K1 and K2 at other superrow packs, and under dedup_gather
 # --------------------------------------------------------------------------
 
-NEW_PACKS = ((2, 2, 2), (1, 1, 1))
+NEW_PACKS = ((2, 2, 2), (1, 1, 1), (4, 4, 4))
+# the widest window phase 9 holds: 27 superrows of 32 cells at pack (4,4,2),
+# 864 candidates a query (K2's staged instance)
+ST332 = dict(stencil_x=3, stencil_y=3, stencil_z=2)
 
 
 def with_pack(mcfg, pack, **kw):
@@ -1490,21 +1525,25 @@ def spread_queries(mcfg, M, dev, seed=5):
 
 def check_packs_and_dedup(dev, lane0):
     """Phase 9 at `LIOConfig()` map widths.  K1 against its plain version
-    at packs (2,2,2) and (1,1,1) on the persistent map (phase 2's cases);
-    K2 at those packs on lane 0's maps from phase 4 (repacked), every
-    stage, fresh and cached, surf (M=2048, plane) and corner (M=512,
-    line), and each rescue pair, as phase 5 runs them (bf16 blocks, the
-    default's); the same at `pack_dedup_config()` (phase 10's maps, tag
-    "mixed"), with each rescue pair's local rows over the dedup bound
-    logged; then `dedup_gather` at the default pack, capacity 2 on
-    the newest surf stack (clustered queries), its rescue pair with the
-    local map under the same dedup, and capacity 1 on M=2048 queries
-    spread over the torus, which must overflow.  Rows dropped are the
-    GATHER stage's, held equal to the plain dedup gather's."""
+    at packs (2,2,2), (1,1,1) and (4,4,4) on the persistent map (phase 2's
+    cases); K2 at those packs and at pack (4,4,2) with stencil (3,3,2) on
+    lane 0's maps from phase 4 (repacked), every stage, fresh and cached,
+    surf (M=2048, plane) and corner (M=512, line), and each rescue pair,
+    as phase 5 runs them (bf16 blocks, the default's); the same at
+    `pack_dedup_config()` (phase 10's maps, tag "mixed"), with each
+    rescue pair's local rows over the dedup bound logged, and at
+    `wide_config()` (phase 12's maps, tag "wide"); then
+    `dedup_gather` at the default pack, capacity 2 on the newest surf
+    stack (clustered queries; it must launch K2's default instance and no
+    other), its rescue pair with the local map under the same dedup, and
+    capacity 1 on M=2048 queries spread over the torus, which must
+    overflow.  Rows dropped are the GATHER stage's, held equal to the
+    plain dedup gather's.  Returns the launches of each instance too."""
     from mmloam_tpu_torch.config import LIOConfig
     from mmloam_tpu_torch.ops import assoc, voxelmap
 
     cfg0 = LIOConfig()
+    _reset_counts()
     shapes = [("pack{}{}{} persistent".format(*p), with_pack(cfg0.map, p),
                16, 2048) for p in NEW_PACKS]
     k1_err, k1_timing = check_map_insert(dev, shapes)
@@ -1528,7 +1567,13 @@ def check_packs_and_dedup(dev, lane0):
     # phase 10's configuration: each launch of a rescue pair carries its
     # own map's geometry, and the local bound ranks the NEED flags'
     # compacted set (with the cap binding) or every query (not binding)
+    geoms.append(("pack442-st332 ", cfg0.replace(
+        map=with_pack(cfg0.map, (4, 4, 2), **ST332),
+        local_map=with_pack(cfg0.local_map, (4, 4, 2), **ST332))))
     geoms.append(("mixed ", pack_dedup_config()))
+    # phase 12's: a rescue pair's NEED launch on the (4,4,4) map (16 a
+    # lane), its RESCUE launch on the (4,4,2) / (3,3,2) local map (staged)
+    geoms.append(("wide ", wide_config()))
     for tag, cfg in geoms:
         lane = dict(lane0)
         for f in ("vm_corner", "vm_surf"):
@@ -1549,8 +1594,16 @@ def check_packs_and_dedup(dev, lane0):
         map=dataclasses.replace(cfg0.map, dedup_gather=True),
         local_map=dataclasses.replace(cfg0.local_map, dedup_gather=True))
     assert dd.map.dedup_capacity == 2
+    before = dict(assoc.INSTANCE_LAUNCHES)
     k2(dd, ("dedup2 surf persistent", surf[1], surf[2], surf[3], dd.map)
        + surf[5:])
+    dedup_default = {n: c - before[n]
+                     for n, c in assoc.INSTANCE_LAUNCHES.items()}
+    log(f"  dedup2 surf persistent: K2 launches by instance {dedup_default}")
+    if not (dedup_default["default"] > 0
+            and sum(dedup_default.values()) == dedup_default["default"]):
+        raise AssertionError("the default window under dedup_gather did not "
+                             f"launch the default instance: {dedup_default}")
     k2(dd, ("dedup2 surf rescue",) + rescue[1:], pair=True)
     spread = dataclasses.replace(cfg0.map, dedup_gather=True,
                                  dedup_capacity=1)
@@ -1574,8 +1627,11 @@ def check_packs_and_dedup(dev, lane0):
                                           for n, d in mixed.items()))
     if not dropped > 0:
         raise AssertionError("capacity 1 on spread queries did not overflow")
+    instances = _instance_counts()
+    log(f"  phase 9 launches by instance: {instances}")
     return dict(k1=k1_timing, k2=timing, k1_max_abs_err=k1_err,
-                k2_max_abs_err=max_err, k2_near=near,
+                k2_max_abs_err=max_err, k2_near=near, instances=instances,
+                dedup_default_launches=dedup_default["default"],
                 dedup_dropped=dict(capacity2_stack=kept2,
                                    capacity1_spread=dropped, mixed=mixed))
 
@@ -1612,14 +1668,22 @@ def check_pack_replay(dev, flag):
     scans, gts = flagship_inputs(cfg, PACK_B, PACK_T, 7, dev)
     states = fresh_states(cfg, PACK_B, dev)
     torch.cuda.synchronize()
-    map_insert.LAUNCHES = 0
-    _reset_k2_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     shards, outs = replay.replay_batch(states, scans, cfg, mesh=mesh)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     k1 = map_insert.LAUNCHES
     k2 = _check_k2_counts("pack/dedup replay")
+    instances = _instance_counts()
+    log(f"  launches by instance: {instances}")
+    i1, i2 = instances["k1"], instances["k2"]
+    if not (i1["rows"] == i1["groups"] == k1 // 2 and i2["regs8"] > 0
+            and i2["regs4"] > 0 and i2["regs8"] + i2["regs4"] == k2):
+        raise AssertionError("maps at packs (2,2,2) / (1,1,1) ran other "
+                             "instances than K1's warp-a-position and "
+                             "group ones and K2's 8- and 4-a-lane ones: "
+                             f"{instances}")
     pose = outs.pose_p.cpu().numpy()
     inited = outs.inited.cpu().numpy()
     ts = outs.t.cpu().numpy()
@@ -1640,8 +1704,77 @@ def check_pack_replay(dev, flag):
     if any(s.vm_surf.cells.shape[-1] != 32 for s in shards):
         raise AssertionError("the persistent map is not at pack (2,2,2)")
     return dict(B=PACK_B, T=PACK_T, shards=len(mesh), secs=secs,
-                k1_launches=k1, k2_launches=k2, ate=ate,
+                k1_launches=k1, k2_launches=k2, instances=instances, ate=ate,
                 phase4_ate=ref)
+
+
+# --------------------------------------------------------------------------
+# phase 12: the widest geometries through a replay at full width
+# --------------------------------------------------------------------------
+
+def wide_config():
+    """`LIOConfig()` with `map` at pack (4,4,4) (64 cells a row, 512
+    candidates a query) and `local_map` at pack (4,4,2) with stencil
+    (3,3,2) (864 candidates a query)."""
+    from mmloam_tpu_torch.config import LIOConfig
+
+    cfg = LIOConfig()
+    return cfg.replace(map=with_pack(cfg.map, (4, 4, 4)),
+                       local_map=with_pack(cfg.local_map, (4, 4, 2),
+                                           **ST332))
+
+
+def check_wide_replay(dev, flag):
+    """Phase 12: `replay_batch` at `wide_config()`, B=2 x T=12 built as
+    phase 4 builds its inputs (the same seeds): every lane initialized,
+    finite poses, ATE < ATE_MAX per lane (logged beside phase 4's: a pack
+    is a storage layout only), K1 4 T launches (the persistent maps'
+    through its warp-a-position instance, the local maps' through the
+    default one)
+    and every association call through K2 with its rescue (as phase 4):
+    the persistent map's through the 16-a-lane instance, the rescues
+    through the staged one."""
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.ops import map_insert
+
+    cfg = wide_config()
+    scans, gts = flagship_inputs(cfg, PACK_B, PACK_T, 7, dev)
+    states = fresh_states(cfg, PACK_B, dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    st, outs = replay.replay_batch(states, scans, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1 = map_insert.LAUNCHES
+    k2 = _check_k2_counts("wide replay")
+    instances = _instance_counts()
+    pose = outs.pose_p.cpu().numpy()
+    inited = outs.inited.cpu().numpy()
+    ts = outs.t.cpu().numpy()
+    ate = [_ate(pose[:, b], ts[:, b], *gts[b]) for b in range(PACK_B)]
+    ref = [flag["lanes"][b]["ate"] for b in range(PACK_B)]
+    log(f"  wide replay B={PACK_B} T={PACK_T}: {secs:.1f} s, K1 launches "
+        f"{k1}, ATE " + ", ".join(f"{a:.4f}" for a in ate) + " m (phase "
+        f"4's lanes, default maps, T={FLAGSHIP_T}: "
+        + ", ".join(f"{a:.4f}" for a in ref) + f" m), inited "
+        f"{inited[-1].tolist()}; launches by instance {instances}")
+    if k1 != 4 * PACK_T:
+        raise AssertionError(f"K1 launched {k1} times, want {4 * PACK_T}")
+    from mmloam_tpu_torch.ops import assoc
+
+    i1, i2 = instances["k1"], instances["k2"]
+    if not (i1["rows"] == i1["default"] == 2 * PACK_T
+            and i2["regs16"] == k2 - assoc.RESCUE_LAUNCHES
+            and i2["staged"] == assoc.RESCUE_LAUNCHES > 0):
+        raise AssertionError(f"wide replay ran other instances: {instances}")
+    if not (inited[-1].all() and np.isfinite(pose).all()
+            and max(ate) < ATE_MAX):
+        raise AssertionError("wide replay outside its bounds")
+    if st.vm_surf.cells.shape[-1] != 4 * 64:
+        raise AssertionError("the persistent map is not at pack (4,4,4)")
+    return dict(B=PACK_B, T=PACK_T, secs=secs, k1_launches=k1,
+                k2_launches=k2, instances=instances, ate=ate, phase4_ate=ref)
 
 
 # --------------------------------------------------------------------------
@@ -1795,6 +1928,59 @@ def check_split(dev):
                             peak_bytes=int(peak)))
 
 
+# Each kernel instance of the kernels line: (name, kernel, instance, the
+# replay phases whose runs launch it on the path they drive, where its times
+# come from: a K1 case of phase 2 or 9, or a K2 case of phase 5 or 9)
+INSTANCE_ROWS = (
+    ("map_insert_rmw", "k1", "default", ("phase 4",), ("k1", "persistent")),
+    ("map_insert_rows", "k1", "rows", ("phase 10", "phase 12"),
+     ("packs_k1", "pack222 persistent")),
+    ("map_insert_groups", "k1", "groups", ("phase 10",),
+     ("packs_k1", "pack111 persistent")),
+    ("assoc", "k2", "default", ("phase 4",), ("k2", K2_TIMED_CASE)),
+    ("assoc_regs4", "k2", "regs4", ("phase 10",),
+     ("packs_k2", "pack111 " + K2_TIMED_CASE)),
+    ("assoc_regs8", "k2", "regs8", ("phase 10",),
+     ("packs_k2", "pack222 " + K2_TIMED_CASE)),
+    ("assoc_regs16", "k2", "regs16", ("phase 12",),
+     ("packs_k2", "pack444 " + K2_TIMED_CASE)),
+    ("assoc_staged", "k2", "staged", ("phase 12",),
+     ("packs_k2", "pack442-st332 " + K2_TIMED_CASE)))
+
+
+def kernel_rows(k1_err, k2_err, k1_timing, k2_timing, packs, paths):
+    """The kernels line: one row per kernel instance, its launches the sum
+    over the replay runs that drive it (`paths`: {phase: launches by
+    instance}, counted from 0 in each run), its times from its case.
+    Fails if an instance launched no time on its paths."""
+    src = dict(k1=k1_timing, k2=k2_timing, packs_k1=packs["k1"],
+               packs_k2=packs["k2"])
+    rows = []
+    for name, kern, inst, phases, (where, case) in INSTANCE_ROWS:
+        launches = sum(paths[p][kern][inst] for p in phases)
+        if launches == 0:
+            raise AssertionError(f"{name} launched no time in "
+                                 f"{', '.join(phases)}")
+        t = src[where][case]
+        k1 = kern == "k1"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "mmloam_tpu_torch/csrc/" + ("map_insert.cu" if k1
+                                                  else "assoc.cu"),
+            "replaces": ("mmloam_tpu/ops/pallas_insert.py:108" if k1
+                         else "scripts/pallas_assoc.py:388"),
+            "instance": inst, "launches": launches, "paths": list(phases),
+            "phase9_launches": packs["instances"][kern][inst],
+            "max_abs_err": k1_err if k1 else t.get("max_abs_err", k2_err),
+            "case": case, "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+        if (kern, inst) == ("k2", "default"):
+            rows[-1]["dedup_default_window_launches"] = \
+                packs["dedup_default_launches"]
+    return rows
+
+
 def main():
     if sys.argv[1:2] == ["--unsplit"] and len(sys.argv) == 3:
         return unsplit_child(sys.argv[2])
@@ -1857,45 +2043,36 @@ def main():
     max_err = max(max_err, mode_errs["k1"])
     k2_err = max(k2_err, mode_errs["k2"])
 
-    phase("phase 9: K1 and K2 at packs (2,2,2) and (1,1,1), and under "
-        "dedup_gather")
+    phase("phase 9: K1 and K2 at packs (2,2,2), (1,1,1), (4,4,4) and "
+          "(4,4,2) with stencil (3,3,2), and under dedup_gather")
     packs = check_packs_and_dedup(dev, lane0)
     lane0 = None
     max_err = max(max_err, packs["k1_max_abs_err"])
     k2_err = max(k2_err, packs["k2_max_abs_err"])
 
     phase("phase 10: pack (2,2,2) / local (1,1,1) with dedup_gather, a split "
-        "replay_batch at full width")
+          "replay_batch at full width")
     pack_replay = check_pack_replay(dev, flag)
 
     phase("phase 11: the reference's multi-device dry run through the split")
     split = check_split(dev)
 
+    phase("phase 12: pack (4,4,4) / local (4,4,2) with stencil (3,3,2), "
+          "replay_batch at full width")
+    wide = check_wide_replay(dev, flag)
+
     phase("all phases passed")
-    t = k1_timing["persistent"]
-    t2 = k2_timing[K2_TIMED_CASE]
-    kernels = {"kernels": [
-        {"name": "map_insert_rmw", "route": "cuda",
-         "source": "mmloam_tpu_torch/csrc/map_insert.cu",
-         "replaces": "mmloam_tpu/ops/pallas_insert.py:108",
-         "launches": flag["launches"], "max_abs_err": max_err,
-         "ms": t["ms"], "device_ms": t["device_ms"],
-         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-         "bound_by": t["bound_by"], "library_ms": None},
-        {"name": "assoc", "route": "cuda",
-         "source": "mmloam_tpu_torch/csrc/assoc.cu",
-         "replaces": "scripts/pallas_assoc.py:388",
-         "launches": flag["k2_launches"], "max_abs_err": k2_err,
-         "ms": t2["ms"], "device_ms": t2["device_ms"],
-         "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
-         "bound_by": t2["bound_by"], "library_ms": None}]}
+    kernels = {"kernels": kernel_rows(
+        max_err, k2_err, k1_timing, k2_timing, packs,
+        {"phase 4": flag["instances"], "phase 10": pack_replay["instances"],
+         "phase 12": wide["instances"]})}
     os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chip_smoke_out", "chip_smoke.json"),
               "w") as f:
         json.dump(dict(card=card, traces=traces, k1=k1_timing, k2=k2_timing,
                        flagship=flag, faithful=faithful, recorded=recorded,
                        modes=modes, packs=packs, pack_replay=pack_replay,
-                       split=split), f, indent=1)
+                       split=split, wide=wide), f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,18 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   and B=4, N=2048, and on the main path's own insert (each lane's newest
   surf stack into its persistent surf map after the warm-up run): device
   time, launch incl. host, `insert_batched` per call, the plain
-  `insert_batched_reference`, and the bound (chip_smoke.k1_bytes).
+  `insert_batched_reference`, and the bound (chip_smoke.k1_bytes);
+- the kernels' general instances, as chip_smoke.py phase 9 times them:
+  K1 on the B=16 accumulate case at packs (2,2,2), (1,1,1) and (4,4,4);
+  K2 surf fresh (M=2048, with blocks) on lane 0's maps repacked to
+  (2,2,2), (1,1,1), (4,4,4) and (4,4,2) with stencil (3,3,2); the
+  default window under `dedup_gather` (capacity 2), fresh and its rescue
+  pair (the local map under the same dedup, at the flagship cap).  K1's
+  cases also run through each general instance the tree has, whichever
+  its `map_insert.instance` picks.  A geometry a tree's kernels refuse is
+  recorded with the error.
+
+`--only-k1` times K1's cases alone (no census, replay or K2).
 
 The kernels' launch functions differ between trees; where a tree has the
 older API (no `map_insert.sort_points`, no `assoc.associate_with_rescue`)
@@ -272,9 +283,10 @@ def _k1(cs, cfg, dev, main_insert):
         map_insert.insert_batched(cells, p, m, mcfg)
         p, m = (torch.from_numpy(a).to(dev) for a in steps[1])
         cases.append((f"B={B} N={N}", mcfg, cells, p, m))
-    cells, p, m = main_insert
-    cases.append((f"main path surf B={p.shape[0]} N={p.shape[1]}", cfg.map,
-                  cells, p, m))
+    if main_insert is not None:
+        cells, p, m = main_insert
+        cases.append((f"main path surf B={p.shape[0]} N={p.shape[1]}",
+                      cfg.map, cells, p, m))
     out = {}
     for label, mcfg, cells, p, m in cases:
         entry_fn = lambda: map_insert.insert_batched(cells, p, m, mcfg)
@@ -298,7 +310,102 @@ def _k1(cs, cfg, dev, main_insert):
     return out
 
 
-def child(tree):
+def _general(cs, lane0, cfg, dev):
+    """The general instances' cases of chip_smoke.py phase 9 (see the
+    module docstring), each {device_ms, ..., bound_ms} or {error}; K2's
+    only where `lane0` is given."""
+    import numpy as np
+    import torch
+
+    from mmloam_tpu_torch.estimator import factors
+    from mmloam_tpu_torch.ops import assoc, map_insert, voxelmap
+
+    out = {}
+
+    def run(name, fn):
+        try:
+            out[name] = fn()
+        except (NotImplementedError, RuntimeError) as e:
+            out[name] = dict(error=f"{type(e).__name__}: {e}")
+
+    def k1_case(pack, inst=None):
+        B, N = 16, 2048
+        mcfg = cs.with_pack(dataclasses.replace(cfg.map, count_cap=10.0),
+                            pack)
+        Cs, R = voxelmap.empty_map(mcfg).cells.shape
+        steps = cs._insert_cases(mcfg, B, N, np.random.default_rng(0))[0][1]
+        cells = torch.zeros((B, Cs, R), device=dev)
+        p, m = (torch.from_numpy(a).to(dev) for a in steps[0])
+        map_insert.insert_batched(cells, p, m, mcfg)
+        p, m = (torch.from_numpy(a).to(dev) for a in steps[1])
+        sp = map_insert.sort_points(p, m, mcfg)
+        kw = {} if inst is None else dict(inst=inst)
+        launch = lambda: map_insert.aggregate_rmw(cells, sp, mcfg, **kw)
+        entry = (launch if inst is not None else
+                 lambda: map_insert.insert_batched(cells, p, m, mcfg))
+        d_ms, how = cs.device_ms(entry, "map_insert", launch)
+        nbytes = cs.k1_bytes(map_insert, p, m, mcfg)
+        bound, by = cs.bound_ms(nbytes, 0)
+        return dict(rows=int(map_insert.aggregate_updates(p, m, mcfg)
+                             .nv.sum()), device_ms=d_ms, device_how=how,
+                    entry_ms=cs.cuda_ms(entry), bytes=nbytes,
+                    bound_ms=bound, bound_by=by)
+
+    # each general instance the tree has, beside the one it chooses
+    alts = [i for i in ("groups", "rows")
+            if i in getattr(map_insert, "INSTANCES", ())]
+    for pack in ((2, 2, 2), (1, 1, 1), (4, 4, 4)):
+        run("k1 pack{}{}{} B=16 N=2048".format(*pack),
+            lambda: k1_case(pack))
+        for inst in alts:
+            run("k1 pack{}{}{} B=16 N=2048 {}".format(*pack, inst),
+                lambda: k1_case(pack, inst))
+    if lane0 is None:
+        return out
+
+    thres = torch.tensor(cfg.solver.thres_dist, device=dev)
+
+    def k2_case(gcfg, pair=False):
+        lane = dict(lane0)
+        for f in ("vm_corner", "vm_surf"):
+            lane[f] = cs.repack(lane0[f], cfg.map, gcfg.map)
+        for f in ("vm_local_corner", "vm_local_surf"):
+            lane[f] = cs.repack(lane0[f], cfg.local_map, gcfg.local_map)
+        cases, pairs = cs._assoc_cases(lane, gcfg)
+        if pair:
+            _, vm, vml, pw, mask, mode, sr, _ = next(
+                p for p in pairs if p[0] == "surf rescue")
+            args = (vm, vml, pw, mask, gcfg.map, gcfg.local_map,
+                    gcfg.map.knn, mode, thres, sr,
+                    factors._rescue_cap(pw.shape[0],
+                                        gcfg.solver.local_rescue_frac))
+            call = lambda: assoc.associate_with_rescue(*args,
+                                                       want_blocks=True)
+            d_ms, how = cs.device_ms(call, "assoc_kernel", call, per_call=2)
+            return dict(device_ms=d_ms, device_how=how,
+                        entry_ms=cs.cuda_ms(call))
+        _, vm, pw, mask, mcfg, mode, sr, _ = next(
+            c for c in cases if c[0] == "surf persistent")
+        cargs = (vm, pw, mask, mcfg, gcfg.map.knn, mode, thres, sr)
+        return cs.time_k2(dev, cargs, None, True)
+
+    st332 = dict(stencil_x=3, stencil_y=3, stencil_z=2)
+    geoms = [("pack{}{}{}".format(*p), p, {}) for p in
+             ((2, 2, 2), (1, 1, 1), (4, 4, 4))]
+    geoms.append(("pack442-st332", (4, 4, 2), st332))
+    for tag, pack, kw in geoms:
+        gcfg = cfg.replace(map=cs.with_pack(cfg.map, pack, **kw),
+                           local_map=cs.with_pack(cfg.local_map, pack, **kw))
+        run(f"k2 {tag} surf fresh", lambda: k2_case(gcfg))
+    dd = cfg.replace(
+        map=dataclasses.replace(cfg.map, dedup_gather=True),
+        local_map=dataclasses.replace(cfg.local_map, dedup_gather=True))
+    run("k2 dedup2 surf fresh", lambda: k2_case(dd))
+    run("k2 dedup2 surf rescue pair", lambda: k2_case(dd, pair=True))
+    return out
+
+
+def child(tree, only_k1=False):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -312,11 +419,17 @@ def child(tree):
     cfg = LIOConfig()
     res = dict(tree=tree, package=os.path.dirname(mmloam_tpu_torch.__file__),
                card=cs.card_line(), torch=torch.__version__)
+    if only_k1:
+        res["k1"] = _k1(cs, cfg, dev, None)
+        res["general"] = _general(cs, None, cfg, dev)
+        print(json.dumps(res), flush=True)
+        return
     res["census"], inp = _census(cs, cfg, dev)
     inp = None
     lane0, main_insert, res["replay"] = _replay(cs, cfg, dev)
     res["k2"], res["assoc_calls"] = _k2(cs, lane0, cfg, dev)
     res["k1"] = _k1(cs, cfg, dev, main_insert)
+    res["general"] = _general(cs, lane0, cfg, dev)
     print(json.dumps(res), flush=True)
 
 
@@ -324,15 +437,19 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", required=True)
     ap.add_argument("--out")
+    ap.add_argument("--only-k1", action="store_true",
+                    help="time K1 alone: its B=16 and B=4 cases and its "
+                    "general instances, each beside the others")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
-        child(a.tree[0])
+        child(a.tree[0], a.only_k1)
         return 0
     results, rc = [], 0
     for tree in a.tree:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--child", "--tree", tree], capture_output=True,
+                            "--child", "--tree", tree]
+                           + ["--only-k1"] * a.only_k1, capture_output=True,
                            text=True, timeout=900)
         sys.stderr.write(p.stderr[-4000:])
         if p.returncode != 0:

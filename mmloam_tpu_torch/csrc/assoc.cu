@@ -49,20 +49,32 @@
 // checks each lane's own candidates and votes.  A rescue warp finds its rank
 // from the flag bytes below it: 16 flags per 16-byte load, popc, warp sum.
 //
-// Other maps.  The above is the default map's instance (32 cells a row, a
-// 2x2x2-superrow window).  Any other pack and stencil (S superrows of cpr
-// cells, voxelmap._super_window, C = S cpr candidates a query) runs a general
-// instance: candidate c lives on lane c mod 32, kPer = 4, 8 or 16 of them
-// a lane, the fewest that hold ceil(C / 32) (up to 512 candidates; a larger
-// window is refused and the wrapper raises NotImplementedError), and each lane
-// decomposes its candidates in the reference's order (window meshgrid "ij",
-// then sub-cell meshgrid "ij") from the window extents and the pack, which
-// are run-time arguments.  Padding candidates hold d2 = NaN, so they are
-// never selected, counted or weighted.  With MapConfig.dedup_gather the
-// wrapper computes one bound a launch on the device
-// (voxelmap.dedup_threshold: the largest slot whose unique rank is below the
-// compact table's capacity); a row above it is invalid and reads the bound's
-// row, which is what the reference's compact table serves it
+// Other maps.  The above is the default window's instance (32 cells a row,
+// a 2x2x2-superrow window; with MapConfig.dedup_gather too).  Any other
+// pack and stencil (S superrows of cpr cells, voxelmap._super_window, C = S
+// cpr candidates a query) runs a general instance; ops/assoc.instance picks
+// it on the host and passes it in the arguments.  Candidate c lives on lane
+// c mod 32, in the reference's order (window meshgrid "ij", then sub-cell
+// meshgrid "ij").  The warp first addresses each window row once: lane r
+// computes rows r, r+32, ... (slot, expected key, the row's offset from the
+// query, its stencil base) into a per-warp table in shared memory, 32 B a
+// row.  A lane then walks its candidates c, c+32, ... with no division: the
+// step of 32 candidates is q32 rows and r32 sub-cells (32 = q32 cpr + r32),
+// added digit by digit in the pack's mixed radix.  A row of one cell
+// (pack (1,1,1)) is read by one 16-byte load.  Instances of 4, 8 and 16
+// candidates a lane keep them in registers (up to 512 a query); a larger
+// window stages them in the per-warp buffer (d2 and three offsets, 16 B a
+// candidate, 8 B with bf16 dense blocks: 864 candidates take 13.8 or 6.9
+// KB), and selection (from each lane's 8 smallest d2), moments and the
+// planarity vote run over the staged values.  The buffer is dynamic shared
+// memory (above 48 KB by cudaFuncSetAttribute, with fewer warps a block
+// where 8 do not fit), or a slice of a device buffer the wrapper allocates
+// when one warp's does not fit in a block's 227 KB.  Padding candidates
+// hold d2 = NaN, so they are never selected, counted or weighted.  With
+// MapConfig.dedup_gather the wrapper computes one bound a launch on the
+// device (voxelmap.dedup_threshold: the largest slot whose unique rank is
+// below the compact table's capacity); a row above it is invalid and reads
+// the bound's row, which is what the reference's compact table serves it
 // (voxelmap._dedup_gather_rows), so the candidates agree bit for bit.
 //
 // What bounds it on an H100: a fresh query reads 4 KB of rows (less where
@@ -88,6 +100,8 @@
 #include <limits.h>
 #include <math.h>
 
+#include <type_traits>
+
 // Launch arguments, mirrored field for field by ops/assoc._args_struct
 // (ctypes).  Outside the anonymous namespace: assoc_launch takes it, and a
 // C entry point must not have a parameter of internal linkage.
@@ -112,14 +126,19 @@ struct AssocArgs {
   const int* dedup_thr;        // fresh: (1,) dedup bound (MapConfig.
                                // dedup_gather), or null
   unsigned char* g_keep;       // GATHER: (m, S) rows the dedup kept
+  float* scratch;              // (m, warp_words) per-warp buffers in device
+                               // memory, or null: in shared memory
   int m, mode, bf16, cached, k, rescue_cap;
   int pack[3], stencil[3], sdim[3];
   int nb[3];                   // superrows of the window per axis (S = their
                                // product)
   int cpr, ncand;              // cells a row; candidates a query, S cpr
+  int inst;                    // ops/assoc.INSTANCES: 0 default window, 1-3
+                               // 4, 8, 16 candidates a lane, 4 staged
+  int wpb, warp_words;         // warps a block; floats of a warp's buffer
   float voxel, pvs[3], scatter_ratio;
 };
-static_assert(sizeof(AssocArgs) == 296, "AssocArgs layout changed: update "
+static_assert(sizeof(AssocArgs) == 312, "AssocArgs layout changed: update "
               "ops/assoc._args_struct");
 
 namespace {
@@ -128,10 +147,13 @@ constexpr int kLanes = 32;             // sub-cells per superrow
 constexpr int kRows = 8;               // stencil superrows per query
 constexpr int kRowF = 4 * kLanes;      // floats per superrow
 constexpr int kCand = kRows * kLanes;  // candidates per query
-constexpr int kMaxPer = 16;            // the most candidates a lane holds:
-                                       // 512 a query (ops/assoc.MAX_PER_LANE)
 constexpr int kRec = 16;               // output floats per query
-constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxWarps = 8;          // warps a block (fewer where a
+                                       // warp's buffer is large)
+constexpr int kStaged = 0;             // kPer of the staged instance
+constexpr int kRowWords = 8;           // table words a window row
+constexpr int kBatch = 8;              // staged candidates loaded together
+constexpr int kTop = 8;                // staged d2 a lane keeps to select
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-12f;         // linalg3._EPS
 constexpr float kTwoPiThird = 2.0943951023931953f;
@@ -307,363 +329,567 @@ __device__ __forceinline__ void write_record(float* out, int q,
                          rec[4 * i + 3]);
 }
 
-// The window geometry of one map, read once a warp: the general instances'
-// candidate addressing (the default instance has its own, compile-time)
-struct Geom {
-  int cpr, nb1, nb2, nyz, p1, p2, pyz;
-  int pack[3], sd[3], s0[3];
+// A lane's candidates, in registers (kPer of them) ...
+template <int kPer>
+struct RegCands {
+  static constexpr bool kRegs = true;
+  static constexpr int kN = kPer;
+  float dx[kPer], dy[kPer], dz[kPer], d2[kPer];
+  __device__ __forceinline__ int n() const { return kPer; }
+  __device__ __forceinline__ float& x(int i) { return dx[i]; }
+  __device__ __forceinline__ float& y(int i) { return dy[i]; }
+  __device__ __forceinline__ float& z(int i) { return dz[i]; }
+  __device__ __forceinline__ float& d(int i) { return d2[i]; }
 };
 
-// Candidate c of a query in voxelmap.query_candidates' order: window row
-// s = c / cpr (meshgrid "ij" over the window), sub-cell j = c % cpr
-// (meshgrid "ij" over the pack); the row's superrow coords, torus slot
-// and key fields, and the sub-cell's offsets within the superrow
-struct Cand {
-  int s, j, slot;
-  int sv[3], sub[3], kq[3];
-};
-
-__device__ __forceinline__ Cand candidate(int c, const Geom& g) {
-  Cand e;
-  e.s = c / g.cpr;
-  e.j = c - e.s * g.cpr;
-  const int o[3] = {e.s / g.nyz, (e.s / g.nb2) % g.nb1, e.s % g.nb2};
-  e.sub[0] = e.j / g.pyz;
-  e.sub[1] = (e.j / g.p2) % g.p1;
-  e.sub[2] = e.j % g.p2;
-  int mt[3];
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    e.sv[ax] = g.s0[ax] + o[ax];
-    mt[ax] = floor_mod(e.sv[ax], g.sd[ax]);
-    e.kq[ax] = min(max(floor_div(e.sv[ax] - mt[ax], g.sd[ax]) + 16, 0), 31);
+// ... or staged in the warp's buffer: four arrays (dx, dy, dz, d2) of `per`
+// x 32 values, the lane's i-th candidate at [i * 32 + lane], so a warp's
+// accesses touch consecutive words.  With bf16 dense blocks the values are
+// bf16 already (rounded as the blocks are), so they are staged as bf16,
+// exactly, in half the shared memory.
+struct StagedCands {
+  static constexpr bool kRegs = false;
+  static constexpr int kN = 0;
+  float* p;
+  int per, lane;
+  bool half;
+  __device__ __forceinline__ int n() const { return per; }
+  __device__ __forceinline__ float at(int a, int i) const {
+    const int k = (a * per + i) * kLanes + lane;
+    return half ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[k])
+                : p[k];
   }
-  e.slot = (mt[0] * g.sd[1] + mt[1]) * g.sd[2] + mt[2];
-  return e;
+  __device__ __forceinline__ void set(int a, int i, float v) {
+    const int k = (a * per + i) * kLanes + lane;
+    if (half)
+      reinterpret_cast<__nv_bfloat16*>(p)[k] = __float2bfloat16_rn(v);
+    else
+      p[k] = v;
+  }
+  __device__ __forceinline__ float x(int i) const { return at(0, i); }
+  __device__ __forceinline__ float y(int i) const { return at(1, i); }
+  __device__ __forceinline__ float z(int i) const { return at(2, i); }
+  __device__ __forceinline__ float d(int i) const { return at(3, i); }
+};
+
+template <int kPer>
+__device__ __forceinline__ void put(RegCands<kPer>& st, int i, float x,
+                                    float y, float z, float d) {
+  st.dx[i] = x;
+  st.dy[i] = y;
+  st.dz[i] = z;
+  st.d2[i] = d;
 }
 
-// kPer candidates a lane (candidate c on lane c % 32), so up to 32 kPer a
-// query; the rest are padding (d2 NaN: never below a threshold, never
-// counted, zero weight).  kDefault: the default map (32 cells a row, a
-// 2x2x2-superrow window, no dedup), kPer = 8 with compile-time addressing.
-template <int kStage, int kPer, bool kDefault>
-__global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
-    assoc_kernel(const AssocArgs a) {
-  static_assert(!kDefault || kPer == kRows, "the default window is 8 rows");
-  const int wid = threadIdx.x / kLanes;
-  const int q = blockIdx.x * kWarpsPerBlock + wid;
-  const int lane = threadIdx.x % kLanes;
-  if (q >= a.m) return;  // the whole warp leaves together
-  const float thres = a.thres[0];  // in flight with the query's loads
-  bool mask;
-  if constexpr (kStage == kRescue) {
-    if (!a.need[q]) return;
-    if (a.rescue_cap < a.m && rescue_rank(a.need, q, lane) >= a.rescue_cap)
-      return;
-    mask = true;  // factors' mask_r: every compacted query is live
-  } else {
-    mask = a.mask[q] != 0;
-  }
+__device__ __forceinline__ void put(StagedCands& st, int i, float x, float y,
+                                    float z, float d) {
+  st.set(0, i, x);
+  st.set(1, i, y);
+  st.set(2, i, z);
+  st.set(3, i, d);
+}
+
+// padding: d2 NaN is never below a threshold, never counted, zero weight
+template <class St>
+__device__ __forceinline__ void pad(St& st, int i) {
+  put(st, i, 0.0f, 0.0f, 0.0f, __int_as_float(0x7fc00000));
+}
+
+// Candidate c of a query: window row s = c / cpr and sub-cell j = c % cpr,
+// (jx, jy, jz) in the pack's meshgrid "ij"
+struct Walk {
+  int s, j, jx, jy, jz;
+};
+
+__device__ __forceinline__ Walk walk_at(int c, int cpr, const int p[3]) {
+  Walk w;
+  w.s = c / cpr;
+  w.j = c - w.s * cpr;
+  w.jx = w.j / (p[1] * p[2]);
+  w.jy = (w.j / p[2]) % p[1];
+  w.jz = w.j % p[2];
+  return w;
+}
+
+// From candidate c to c + 32 (32 = q32 cpr + r32): r32 sub-cells added digit
+// by digit in the pack's mixed radix, the carry out of the x digit and q32
+// to the row
+__device__ __forceinline__ void walk_next(Walk& w, const Walk& r32, int q32,
+                                          int cpr, const int p[3]) {
+  w.j += r32.j;
+  if (w.j >= cpr) w.j -= cpr;
+  w.jz += r32.jz;
+  int c = w.jz >= p[2];
+  if (c) w.jz -= p[2];
+  w.jy += r32.jy + c;
+  c = w.jy >= p[1];
+  if (c) w.jy -= p[1];
+  w.jx += r32.jx + c;
+  c = w.jx >= p[0];
+  if (c) w.jx -= p[0];
+  w.s += q32 + c;
+}
+
+// The per-warp table of the general window's S rows, kRowWords words a row
+// as arrays of S: the row read (the dedup bound's row where the dedup drops
+// it), its expected key (NaN where dropped: never matched), the offset of
+// its superrow corner from the query (sv * pack * voxel - q) and its stencil
+// base (sv * pack - v) per axis
+struct Table {
+  int* slot;
+  float* key;
+  float* b;
+  int* base;
+  __device__ __forceinline__ Table(float* p, int S)
+      : slot(reinterpret_cast<int*>(p)), key(p + S), b(p + 2 * S),
+        base(reinterpret_cast<int*>(p + 5 * S)) {}
+};
+
+// The default window's candidates, fresh (or RESCUE), into st; GATHER
+// writes the rows read and the addresses instead and returns true.
+// kDedup: the launch carries a dedup bound (a launch without one compiles
+// to no dedup code at all)
+template <int kStage, bool kDedup, class St>
+__device__ __forceinline__ bool default_fresh(const AssocArgs& a, int q,
+                                              int lane, bool mask, St& st) {
   const bool bf16 = a.bf16 != 0;
-  const int ncand = kDefault ? kCand : a.ncand;
-  const float kPadD2 = __int_as_float(0x7fc00000);  // quiet NaN: padding
-  const long long cand0 = static_cast<long long>(q) * ncand + lane;
+  const long long cand0 = static_cast<long long>(q) * kCand + lane;
+  const int px = a.pack[0], py = a.pack[1], pz = a.pack[2];
+  const int sub_x = lane / (py * pz);
+  const int sub_y = (lane / pz) % py;
+  const int sub_z = lane % pz;
+  const float off_x = static_cast<float>(sub_x) * a.voxel;
+  const float off_y = static_cast<float>(sub_y) * a.voxel;
+  const float off_z = static_cast<float>(sub_z) * a.voxel;
+  const float qx = a.pw[3 * q], qy = a.pw[3 * q + 1], qz = a.pw[3 * q + 2];
 
-  // ---- candidates: offsets (dx, dy, dz) and squared distance d2 ----
-  float dx[kPer], dy[kPer], dz[kPer], d2[kPer];
-  if (kStage == kRescue || !a.cached) {
-    if constexpr (kDefault) {
-      const int px = a.pack[0], py = a.pack[1], pz = a.pack[2];
-      const int sub_x = lane / (py * pz);
-      const int sub_y = (lane / pz) % py;
-      const int sub_z = lane % pz;
-      const float off_x = static_cast<float>(sub_x) * a.voxel;
-      const float off_y = static_cast<float>(sub_y) * a.voxel;
-      const float off_z = static_cast<float>(sub_z) * a.voxel;
-      const float qx = a.pw[3 * q], qy = a.pw[3 * q + 1], qz = a.pw[3 * q + 2];
-
-      // stencil addressing (voxelmap.stencil_addresses), per axis
-      const int vx = voxel_index(qx, a.voxel), vy = voxel_index(qy, a.voxel);
-      const int vz = voxel_index(qz, a.voxel);
-      int svx[2], svy[2], svz[2], mx[2], my[2], mz[2], kx[2], ky[2], kz[2];
-      stencil_axis(vx, a.stencil[0], px, a.sdim[0], svx, mx, kx);
-      stencil_axis(vy, a.stencil[1], py, a.sdim[1], svy, my, ky);
-      stencil_axis(vz, a.stencil[2], pz, a.sdim[2], svz, mz, kz);
-      int slot[kRows];
+  // stencil addressing (voxelmap.stencil_addresses), per axis
+  const int vx = voxel_index(qx, a.voxel), vy = voxel_index(qy, a.voxel);
+  const int vz = voxel_index(qz, a.voxel);
+  int svx[2], svy[2], svz[2], mx[2], my[2], mz[2], kx[2], ky[2], kz[2];
+  stencil_axis(vx, a.stencil[0], px, a.sdim[0], svx, mx, kx);
+  stencil_axis(vy, a.stencil[1], py, a.sdim[1], svy, my, ky);
+  stencil_axis(vz, a.stencil[2], pz, a.sdim[2], svz, mz, kz);
+  // a row whose slot is above the dedup bound is dropped and reads the
+  // bound's row, as the reference's compact table serves it
+  const int thr = kDedup ? *a.dedup_thr : INT_MAX;
+  const int thr_row = max(thr, 0);  // a bound below every slot reads row 0
+  int slot[kRows];
 #pragma unroll
-      for (int s = 0; s < kRows; ++s)  // meshgrid "ij" order of the window
-        slot[s] = (mx[s >> 2] * a.sdim[1] + my[(s >> 1) & 1]) * a.sdim[2] +
-                  mz[s & 1];
+  for (int s = 0; s < kRows; ++s)  // meshgrid "ij" order of the window
+    slot[s] = (mx[s >> 2] * a.sdim[1] + my[(s >> 1) & 1]) * a.sdim[2] +
+              mz[s & 1];
 
+  // every row load of the query in flight before the first use
+  float fx[kRows], fy[kRows], fz[kRows], fm[kRows];
+  const float* __restrict__ cells = a.cells;
+#pragma unroll
+  for (int s = 0; s < kRows; ++s) {
+    const int rs = slot[s] <= thr ? slot[s] : thr_row;
+    const float* row = cells + static_cast<long long>(rs) * kRowF;
+    fx[s] = __ldg(row + lane);
+    fy[s] = __ldg(row + kLanes + lane);
+    fz[s] = __ldg(row + 2 * kLanes + lane);
+    fm[s] = __ldg(row + 3 * kLanes + lane);
+  }
+
+  if constexpr (kStage == kGather) {
+#pragma unroll
+    for (int s = 0; s < kRows; ++s) {
+      const long long e = static_cast<long long>(q) * kRows + s;
+      float* dst = a.rows + e * kRowF;
+      dst[lane] = fx[s];
+      dst[kLanes + lane] = fy[s];
+      dst[2 * kLanes + lane] = fz[s];
+      dst[3 * kLanes + lane] = fm[s];
+      if (lane == s) {
+        a.g_sv[3 * e] = svx[s >> 2];
+        a.g_sv[3 * e + 1] = svy[(s >> 1) & 1];
+        a.g_sv[3 * e + 2] = svz[s & 1];
+        a.g_slot[e] = slot[s];
+        a.g_key[e] = static_cast<float>(
+            (kx[s >> 2] << 10) | (ky[(s >> 1) & 1] << 5) | kz[s & 1]);
+        a.g_keep[e] = slot[s] <= thr ? 1 : 0;
+      }
+    }
+    if (lane == 0) {
+      a.g_v[3 * q] = vx;
+      a.g_v[3 * q + 1] = vy;
+      a.g_v[3 * q + 2] = vz;
+    }
+    return true;
+  }
+
+#pragma unroll
+  for (int s = 0; s < kRows; ++s) {
+    const int ix = s >> 2, iy = (s >> 1) & 1, iz = s & 1;
+    const float key = static_cast<float>((kx[ix] << 10) | (ky[iy] << 5) |
+                                         kz[iz]);
+    const float key_st = floorf(fm[s] / 128.0f);
+    const float cnt = fm[s] - key_st * 128.0f;
+    const bool ok = slot[s] <= thr && key_st == key && cnt > 0.0f && mask &&
+                    abs(svx[ix] * px + sub_x - vx) <= a.stencil[0] &&
+                    abs(svy[iy] * py + sub_y - vy) <= a.stencil[1] &&
+                    abs(svz[iz] * pz + sub_z - vz) <= a.stencil[2];
+    const float inv_cnt = 1.0f / clamp_min(cnt, 1.0f);
+    const float bx = static_cast<float>(svx[ix]) * a.pvs[0] - qx;
+    const float by = static_cast<float>(svy[iy]) * a.pvs[1] - qy;
+    const float bz = static_cast<float>(svz[iz]) * a.pvs[2] - qz;
+    float ox = bx + off_x + fx[s] * inv_cnt;
+    float oy = by + off_y + fy[s] * inv_cnt;
+    float oz = bz + off_z + fz[s] * inv_cnt;
+    float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
+    if (bf16) {
+      ox = round_bf16(ox);
+      oy = round_bf16(oy);
+      oz = round_bf16(oz);
+      dd = round_bf16(dd);
+    }
+    put(st, s, ox, oy, oz, dd);
+  }
+  if (kStage != kRescue && a.blk_out[0] != nullptr) {
+#pragma unroll
+    for (int s = 0; s < kRows; ++s) {
+      const long long c = cand0 + s * kLanes;
+      store_blk(a.blk_out[0], c, st.x(s), bf16);
+      store_blk(a.blk_out[1], c, st.y(s), bf16);
+      store_blk(a.blk_out[2], c, st.z(s), bf16);
+      store_blk(a.blk_out[3], c, st.d(s), bf16);
+    }
+  }
+  return false;
+}
+
+// The general window's candidates, fresh (or RESCUE): the row table first,
+// then each lane's candidates into st; GATHER writes the rows read and the
+// addresses instead and returns true
+template <int kStage, class St>
+__device__ __forceinline__ bool general_fresh(const AssocArgs& a, int q,
+                                              int lane, bool mask,
+                                              float* wbuf, St& st) {
+  const bool bf16 = a.bf16 != 0;
+  const int cpr = a.cpr, S = a.ncand / cpr;
+  const float qv[3] = {a.pw[3 * q], a.pw[3 * q + 1], a.pw[3 * q + 2]};
+  int v[3], s0[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    v[ax] = voxel_index(qv[ax], a.voxel);
+    s0[ax] = floor_div(v[ax] - a.stencil[ax], a.pack[ax]);
+  }
+  const int thr = a.dedup_thr != nullptr ? *a.dedup_thr : INT_MAX;
+  const int thr_row = max(thr, 0);  // a bound below every slot reads row 0
+
+  // each window row addressed once a warp: lane r takes rows r, r+32, ...
+  const Table t(wbuf, S);
+  const int nb12 = a.nb[1] * a.nb[2];
+  for (int s = lane; s < S; s += kLanes) {
+    const int o[3] = {s / nb12, (s / a.nb[2]) % a.nb[1], s % a.nb[2]};
+    int sv[3], mt[3], kq[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      sv[ax] = s0[ax] + o[ax];
+      mt[ax] = floor_mod(sv[ax], a.sdim[ax]);
+      kq[ax] = min(max(floor_div(sv[ax] - mt[ax], a.sdim[ax]) + 16, 0), 31);
+      t.base[ax * S + s] = sv[ax] * a.pack[ax] - v[ax];
+      t.b[ax * S + s] = static_cast<float>(sv[ax]) * a.pvs[ax] - qv[ax];
+    }
+    const int slot = (mt[0] * a.sdim[1] + mt[1]) * a.sdim[2] + mt[2];
+    const float key = static_cast<float>((kq[0] << 10) | (kq[1] << 5) | kq[2]);
+    const bool keep = slot <= thr;
+    t.slot[s] = keep ? slot : thr_row;
+    t.key[s] = keep ? key : __int_as_float(0x7fc00000);
+    if constexpr (kStage == kGather) {
+      const long long es = static_cast<long long>(q) * S + s;
+      a.g_sv[3 * es] = sv[0];
+      a.g_sv[3 * es + 1] = sv[1];
+      a.g_sv[3 * es + 2] = sv[2];
+      a.g_slot[es] = slot;
+      a.g_key[es] = key;
+      a.g_keep[es] = keep ? 1 : 0;
+    }
+  }
+  __syncwarp();
+
+  const long long rowf = 4LL * cpr;
+  const float* __restrict__ cells = a.cells;
+  // a row of one cell is one 16-byte load
+  const bool vec4 =
+      cpr == 1 && (reinterpret_cast<unsigned long long>(cells) & 15) == 0;
+  const int q32 = kLanes / cpr;
+  const Walk r32 = walk_at(kLanes - q32 * cpr, cpr, a.pack);
+  // the words of candidate w's cell (a padding candidate, w.s >= S, reads
+  // the window's first: every load is issued, none waits on a branch)
+  auto words = [&](const Walk& w, auto vec_tag) {
+    const bool in = w.s < S;
+    const float* row = cells + t.slot[in ? w.s : 0] * rowf + (in ? w.j : 0);
+    if constexpr (decltype(vec_tag)::value)
+      return __ldg(reinterpret_cast<const float4*>(row));
+    else
+      return make_float4(__ldg(row), __ldg(row + cpr), __ldg(row + 2 * cpr),
+                         __ldg(row + 3 * cpr));
+  };
+
+  if constexpr (kStage == kGather) {
+    for (Walk w = walk_at(lane, cpr, a.pack); w.s < S;
+         walk_next(w, r32, q32, cpr, a.pack)) {
+      const float4 wd = vec4 ? words(w, std::true_type{})
+                             : words(w, std::false_type{});
+      float* dst = a.rows + (static_cast<long long>(q) * S + w.s) * rowf + w.j;
+      dst[0] = wd.x;
+      dst[cpr] = wd.y;
+      dst[2 * cpr] = wd.z;
+      dst[3 * cpr] = wd.w;
+    }
+    if (lane == 0) {
+      a.g_v[3 * q] = v[0];
+      a.g_v[3 * q + 1] = v[1];
+      a.g_v[3 * q + 2] = v[2];
+    }
+    return true;
+  }
+
+  // offsets (bx + sub * voxel) + sum * inv_cnt and d2, as the plain version
+  // rounds them
+  auto value = [&](const Walk& w, const float4& wd, int i) {
+    const float key_st = floorf(wd.w / 128.0f);
+    const float cnt = wd.w - key_st * 128.0f;
+    const bool ok =
+        key_st == t.key[w.s] && cnt > 0.0f && mask &&
+        abs(t.base[w.s] + w.jx) <= a.stencil[0] &&
+        abs(t.base[S + w.s] + w.jy) <= a.stencil[1] &&
+        abs(t.base[2 * S + w.s] + w.jz) <= a.stencil[2];
+    const float inv_cnt = 1.0f / clamp_min(cnt, 1.0f);
+    float ox = t.b[w.s] + static_cast<float>(w.jx) * a.voxel + wd.x * inv_cnt;
+    float oy = t.b[S + w.s] + static_cast<float>(w.jy) * a.voxel +
+               wd.y * inv_cnt;
+    float oz = t.b[2 * S + w.s] + static_cast<float>(w.jz) * a.voxel +
+               wd.z * inv_cnt;
+    float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
+    if (bf16) {
+      ox = round_bf16(ox);
+      oy = round_bf16(oy);
+      oz = round_bf16(oz);
+      dd = round_bf16(dd);
+    }
+    put(st, i, ox, oy, oz, dd);
+  };
+
+  // the candidates, the row layout's loads chosen once (vec_tag)
+  auto fill = [&](auto vec_tag) {
+    if constexpr (St::kRegs) {
       // every row load of the query in flight before the first use
-      float fx[kRows], fy[kRows], fz[kRows], fm[kRows];
-      const float* __restrict__ cells = a.cells;
+      float4 wd[St::kN];
+      Walk w = walk_at(lane, cpr, a.pack);
 #pragma unroll
-      for (int s = 0; s < kRows; ++s) {
-        const float* row = cells + static_cast<long long>(slot[s]) * kRowF;
-        fx[s] = __ldg(row + lane);
-        fy[s] = __ldg(row + kLanes + lane);
-        fz[s] = __ldg(row + 2 * kLanes + lane);
-        fm[s] = __ldg(row + 3 * kLanes + lane);
+      for (int i = 0; i < St::kN; ++i) {
+        wd[i] = words(w, vec_tag);
+        walk_next(w, r32, q32, cpr, a.pack);
       }
-
-      if constexpr (kStage == kGather) {
+      w = walk_at(lane, cpr, a.pack);
 #pragma unroll
-        for (int s = 0; s < kRows; ++s) {
-          const long long e = static_cast<long long>(q) * kRows + s;
-          float* dst = a.rows + e * kRowF;
-          dst[lane] = fx[s];
-          dst[kLanes + lane] = fy[s];
-          dst[2 * kLanes + lane] = fz[s];
-          dst[3 * kLanes + lane] = fm[s];
-          if (lane == s) {
-            a.g_sv[3 * e] = svx[s >> 2];
-            a.g_sv[3 * e + 1] = svy[(s >> 1) & 1];
-            a.g_sv[3 * e + 2] = svz[s & 1];
-            a.g_slot[e] = slot[s];
-            a.g_key[e] = static_cast<float>(
-                (kx[s >> 2] << 10) | (ky[(s >> 1) & 1] << 5) | kz[s & 1]);
-            a.g_keep[e] = 1;
-          }
-        }
-        if (lane == 0) {
-          a.g_v[3 * q] = vx;
-          a.g_v[3 * q + 1] = vy;
-          a.g_v[3 * q + 2] = vz;
-        }
-        return;
-      }
-
-#pragma unroll
-      for (int s = 0; s < kRows; ++s) {
-        const int ix = s >> 2, iy = (s >> 1) & 1, iz = s & 1;
-        const float key = static_cast<float>((kx[ix] << 10) | (ky[iy] << 5) |
-                                             kz[iz]);
-        const float key_st = floorf(fm[s] / 128.0f);
-        const float cnt = fm[s] - key_st * 128.0f;
-        const bool ok = key_st == key && cnt > 0.0f && mask &&
-                        abs(svx[ix] * px + sub_x - vx) <= a.stencil[0] &&
-                        abs(svy[iy] * py + sub_y - vy) <= a.stencil[1] &&
-                        abs(svz[iz] * pz + sub_z - vz) <= a.stencil[2];
-        const float inv_cnt = 1.0f / clamp_min(cnt, 1.0f);
-        const float bx = static_cast<float>(svx[ix]) * a.pvs[0] - qx;
-        const float by = static_cast<float>(svy[iy]) * a.pvs[1] - qy;
-        const float bz = static_cast<float>(svz[iz]) * a.pvs[2] - qz;
-        float ox = bx + off_x + fx[s] * inv_cnt;
-        float oy = by + off_y + fy[s] * inv_cnt;
-        float oz = bz + off_z + fz[s] * inv_cnt;
-        float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
-        if (bf16) {
-          ox = round_bf16(ox);
-          oy = round_bf16(oy);
-          oz = round_bf16(oz);
-          dd = round_bf16(dd);
-        }
-        dx[s] = ox;
-        dy[s] = oy;
-        dz[s] = oz;
-        d2[s] = dd;
-      }
-      if (kStage != kRescue && a.blk_out[0] != nullptr) {
-#pragma unroll
-        for (int s = 0; s < kRows; ++s) {
-          const long long c = cand0 + s * kLanes;
-          store_blk(a.blk_out[0], c, dx[s], bf16);
-          store_blk(a.blk_out[1], c, dy[s], bf16);
-          store_blk(a.blk_out[2], c, dz[s], bf16);
-          store_blk(a.blk_out[3], c, d2[s], bf16);
-        }
+      for (int i = 0; i < St::kN; ++i) {
+        if (w.s < S)
+          value(w, wd[i], i);
+        else
+          pad(st, i);
+        walk_next(w, r32, q32, cpr, a.pack);
       }
     } else {
-      // the general window: any pack and stencil, and the dedup bound
-      const float qx = a.pw[3 * q], qy = a.pw[3 * q + 1];
-      const float qz = a.pw[3 * q + 2];
-      const int vx = voxel_index(qx, a.voxel);
-      const int vy = voxel_index(qy, a.voxel);
-      const int vz = voxel_index(qz, a.voxel);
-      Geom g;
-      g.cpr = a.cpr;
-      g.nb1 = a.nb[1];
-      g.nb2 = a.nb[2];
-      g.nyz = a.nb[1] * a.nb[2];
-      g.p1 = a.pack[1];
-      g.p2 = a.pack[2];
-      g.pyz = a.pack[1] * a.pack[2];
-      const int v[3] = {vx, vy, vz};
+      // kBatch candidates at a time, their row loads in flight together
+      Walk w = walk_at(lane, cpr, a.pack);
+      for (int i0 = 0; i0 < st.n(); i0 += kBatch) {
+        Walk ws[kBatch];
+        float4 wd[kBatch];
 #pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-        g.pack[ax] = a.pack[ax];
-        g.sd[ax] = a.sdim[ax];
-        g.s0[ax] = floor_div(v[ax] - a.stencil[ax], a.pack[ax]);
-      }
-      // a row whose slot is above the dedup bound is dropped and reads the
-      // bound's row, as the reference's compact table serves it
-      const int thr = a.dedup_thr != nullptr ? *a.dedup_thr : INT_MAX;
-      const int thr_row = max(thr, 0);  // a bound below every slot reads row 0
-      const long long rowf = 4LL * g.cpr;
-      const float* __restrict__ cells = a.cells;
-
-      // every row load of the query in flight before the first use
-      float fx[kPer], fy[kPer], fz[kPer], fm[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int c = lane + kLanes * i;
-        fx[i] = fy[i] = fz[i] = fm[i] = 0.0f;
-        if (c < ncand) {
-          const Cand e = candidate(c, g);
-          const int rs = e.slot <= thr ? e.slot : thr_row;
-          const float* row = cells + rs * rowf + e.j;
-          fx[i] = __ldg(row);
-          fy[i] = __ldg(row + g.cpr);
-          fz[i] = __ldg(row + 2 * g.cpr);
-          fm[i] = __ldg(row + 3 * g.cpr);
+        for (int j = 0; j < kBatch; ++j) {
+          ws[j] = w;
+          wd[j] = words(w, vec_tag);
+          walk_next(w, r32, q32, cpr, a.pack);
         }
-      }
-
-      if constexpr (kStage == kGather) {
-        const int S = ncand / g.cpr;
 #pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int c = lane + kLanes * i;
-          if (c >= ncand) continue;
-          const Cand e = candidate(c, g);
-          const long long es = static_cast<long long>(q) * S + e.s;
-          float* dst = a.rows + es * rowf + e.j;
-          dst[0] = fx[i];
-          dst[g.cpr] = fy[i];
-          dst[2 * g.cpr] = fz[i];
-          dst[3 * g.cpr] = fm[i];
-          if (e.j == 0) {  // one lane a row writes the row's addresses
-            a.g_sv[3 * es] = e.sv[0];
-            a.g_sv[3 * es + 1] = e.sv[1];
-            a.g_sv[3 * es + 2] = e.sv[2];
-            a.g_slot[es] = e.slot;
-            a.g_key[es] = static_cast<float>((e.kq[0] << 10) |
-                                             (e.kq[1] << 5) | e.kq[2]);
-            a.g_keep[es] = e.slot <= thr ? 1 : 0;
-          }
-        }
-        if (lane == 0) {
-          a.g_v[3 * q] = vx;
-          a.g_v[3 * q + 1] = vy;
-          a.g_v[3 * q + 2] = vz;
-        }
-        return;
-      }
-
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int c = lane + kLanes * i;
-        if (c >= ncand) {  // padding
-          dx[i] = dy[i] = dz[i] = 0.0f;
-          d2[i] = kPadD2;
-          continue;
-        }
-        const Cand e = candidate(c, g);
-        const float key = static_cast<float>((e.kq[0] << 10) |
-                                             (e.kq[1] << 5) | e.kq[2]);
-        const float key_st = floorf(fm[i] / 128.0f);
-        const float cnt = fm[i] - key_st * 128.0f;
-        bool ok = e.slot <= thr && key_st == key && cnt > 0.0f && mask;
-#pragma unroll
-        for (int ax = 0; ax < 3; ++ax)
-          ok = ok && abs(e.sv[ax] * g.pack[ax] + e.sub[ax] - v[ax]) <=
-                         a.stencil[ax];
-        const float inv_cnt = 1.0f / clamp_min(cnt, 1.0f);
-        const float bx = static_cast<float>(e.sv[0]) * a.pvs[0] - qx;
-        const float by = static_cast<float>(e.sv[1]) * a.pvs[1] - qy;
-        const float bz = static_cast<float>(e.sv[2]) * a.pvs[2] - qz;
-        // (bx + sub * voxel) + sum * inv_cnt, as the plain version rounds it
-        float ox = bx + static_cast<float>(e.sub[0]) * a.voxel +
-                   fx[i] * inv_cnt;
-        float oy = by + static_cast<float>(e.sub[1]) * a.voxel +
-                   fy[i] * inv_cnt;
-        float oz = bz + static_cast<float>(e.sub[2]) * a.voxel +
-                   fz[i] * inv_cnt;
-        float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
-        if (bf16) {
-          ox = round_bf16(ox);
-          oy = round_bf16(oy);
-          oz = round_bf16(oz);
-          dd = round_bf16(dd);
-        }
-        dx[i] = ox;
-        dy[i] = oy;
-        dz[i] = oz;
-        d2[i] = dd;
-      }
-      if (kStage != kRescue && a.blk_out[0] != nullptr) {
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          if (lane + kLanes * i >= ncand) continue;
-          const long long c = cand0 + i * kLanes;
-          store_blk(a.blk_out[0], c, dx[i], bf16);
-          store_blk(a.blk_out[1], c, dy[i], bf16);
-          store_blk(a.blk_out[2], c, dz[i], bf16);
-          store_blk(a.blk_out[3], c, d2[i], bf16);
+        for (int j = 0; j < kBatch; ++j) {
+          if (i0 + j >= st.n()) break;
+          if (ws[j].s < S)
+            value(ws[j], wd[j], i0 + j);
+          else
+            pad(st, i0 + j);
         }
       }
     }
-  } else {
-    const float ex = a.pw[3 * q] - a.pw0[3 * q];
-    const float ey = a.pw[3 * q + 1] - a.pw0[3 * q + 1];
-    const float ez = a.pw[3 * q + 2] - a.pw0[3 * q + 2];
+  };
+  if (vec4)
+    fill(std::true_type{});
+  else
+    fill(std::false_type{});
+  if (kStage != kRescue && a.blk_out[0] != nullptr) {
+    const long long cand0 = static_cast<long long>(q) * a.ncand + lane;
 #pragma unroll
-    for (int s = 0; s < kPer; ++s) {
-      if (!kDefault && lane + kLanes * s >= ncand) {  // padding
-        dx[s] = dy[s] = dz[s] = 0.0f;
-        d2[s] = kPadD2;
-        continue;
-      }
-      const long long c = cand0 + s * kLanes;
-      // torch.isfinite: false for inf and NaN
-      const bool ok = fabsf(load_blk(a.blk_in[3], c, bf16)) < INFINITY;
-      float ox = load_blk(a.blk_in[0], c, bf16) - ex;
-      float oy = load_blk(a.blk_in[1], c, bf16) - ey;
-      float oz = load_blk(a.blk_in[2], c, bf16) - ez;
-      float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
-      if (bf16) {
-        ox = round_bf16(ox);
-        oy = round_bf16(oy);
-        oz = round_bf16(oz);
-        dd = round_bf16(dd);
-      }
-      dx[s] = ox;
-      dy[s] = oy;
-      dz[s] = oz;
-      d2[s] = dd;
+    for (int i = 0; i < st.n(); ++i) {
+      if (lane + kLanes * i >= a.ncand) break;
+      const long long c = cand0 + i * kLanes;
+      store_blk(a.blk_out[0], c, st.x(i), bf16);
+      store_blk(a.blk_out[1], c, st.y(i), bf16);
+      store_blk(a.blk_out[2], c, st.z(i), bf16);
+      store_blk(a.blk_out[3], c, st.d(i), bf16);
     }
   }
+  return false;
+}
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// The cached entry of a general window: its blocks (of type T) read a
+// batch at a time (all of a lane's candidates when they are in registers,
+// kBatch when staged), every load of a batch in flight together, a padding
+// candidate reading the query's first
+template <class T, class Shift, class St>
+__device__ __forceinline__ void cached_general(const AssocArgs& a, int q,
+                                               int lane, int ncand,
+                                               long long cand0, Shift& shift,
+                                               St& st) {
+  constexpr int kB = St::kRegs ? St::kN : kBatch;
+  const T* __restrict__ blk[4];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) blk[f] = static_cast<const T*>(a.blk_in[f]);
+  const long long first = static_cast<long long>(q) * ncand;
+  for (int s0 = 0; s0 < st.n(); s0 += kB) {
+    T v[4][kB];
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const bool in = lane + kLanes * (s0 + j) < ncand;
+      const long long c = in ? cand0 + (s0 + j) * kLanes : first;
+#pragma unroll
+      for (int f = 0; f < 4; ++f) v[f][j] = __ldg(blk[f] + c);
+    }
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      if (s0 + j >= st.n()) break;
+      if (lane + kLanes * (s0 + j) >= ncand)
+        pad(st, s0 + j);
+      else
+        shift(s0 + j, to_float(v[0][j]), to_float(v[1][j]),
+              to_float(v[2][j]), to_float(v[3][j]));
+    }
+  }
+}
+
+// The cached entry: the round-0 blocks shifted by pw - pw0
+template <bool kDefault, class St>
+__device__ __forceinline__ void cached_cands(const AssocArgs& a, int q,
+                                             int lane, St& st) {
+  const bool bf16 = a.bf16 != 0;
+  const int ncand = kDefault ? kCand : a.ncand;
+  const long long cand0 = static_cast<long long>(q) * ncand + lane;
+  const float ex = a.pw[3 * q] - a.pw0[3 * q];
+  const float ey = a.pw[3 * q + 1] - a.pw0[3 * q + 1];
+  const float ez = a.pw[3 * q + 2] - a.pw0[3 * q + 2];
+  auto shift = [&](int s, float bx, float by, float bz, float bd) {
+    // torch.isfinite: false for inf and NaN
+    const bool ok = fabsf(bd) < INFINITY;
+    float ox = bx - ex, oy = by - ey, oz = bz - ez;
+    float dd = ok ? ox * ox + oy * oy + oz * oz : INFINITY;
+    if (bf16) {
+      ox = round_bf16(ox);
+      oy = round_bf16(oy);
+      oz = round_bf16(oz);
+      dd = round_bf16(dd);
+    }
+    put(st, s, ox, oy, oz, dd);
+  };
+  if constexpr (kDefault) {
+#pragma unroll
+    for (int s = 0; s < St::kN; ++s) {
+      const long long c = cand0 + s * kLanes;
+      shift(s, load_blk(a.blk_in[0], c, bf16), load_blk(a.blk_in[1], c, bf16),
+            load_blk(a.blk_in[2], c, bf16), load_blk(a.blk_in[3], c, bf16));
+    }
+  } else if (bf16) {
+    cached_general<__nv_bfloat16>(a, q, lane, ncand, cand0, shift, st);
+  } else {
+    cached_general<float>(a, q, lane, ncand, cand0, shift, st);
+  }
+}
+
+// A lane's kTop smallest d2 of a staged window, ascending (+inf where it
+// has fewer finite ones)
+struct TopCands {
+  float v[kTop];
+  __device__ __forceinline__ int n() const { return kTop; }
+  __device__ __forceinline__ float& d(int i) { return v[i]; }
+  __device__ __forceinline__ void insert(float x) {
+    if (!(x < v[kTop - 1])) return;  // NaN, inf and the larger stay out
+#pragma unroll
+    for (int j = 0; j < kTop; ++j) {
+      const float lo = fminf(v[j], x);
+      x = fmaxf(v[j], x);
+      v[j] = lo;
+    }
+  }
+};
+
+// The tie-inclusive k-th smallest d2 of a query (NaN never selected): k
+// rounds of a warp min over the values above the previous one, each followed
+// by a warp count of the values <= it; the first value whose count reaches
+// k (inf when none does)
+template <class St>
+__device__ __forceinline__ float kth_smallest(St& st, int k) {
+  float last = -INFINITY;
+  for (int i = 0; i < k; ++i) {
+    float mn = INFINITY;
+#pragma unroll
+    for (int s = 0; s < st.n(); ++s)
+      mn = fminf(mn, st.d(s) > last ? st.d(s) : INFINITY);
+    mn = warp_min(mn);
+    int c = 0;
+#pragma unroll
+    for (int s = 0; s < st.n(); ++s) c += st.d(s) <= mn;
+    if (__reduce_add_sync(kFull, c) >= k) return mn;
+    last = mn;
+  }
+  return INFINITY;
+}
+
+// Selection, moments, the fit and the gates over a query's candidates st,
+// and its record (each stage's cut where kStage stops earlier)
+template <int kStage, class St>
+__device__ __forceinline__ void finish(const AssocArgs& a, int q, int lane,
+                                       bool mask, float thres, St& st) {
   float rec[kRec];
 #pragma unroll
   for (int i = 0; i < kRec; ++i) rec[i] = 0.0f;
 
   // ---- selection: tie-inclusive k-th smallest d2 (NaN never selected) ----
-  float t_k = INFINITY;
-  float last = -INFINITY;
-  for (int i = 0; i < a.k; ++i) {
-    float mn = INFINITY;
+  float t_k;
+  if constexpr (St::kRegs) {
+    t_k = kth_smallest(st, a.k);
+  } else if (a.k <= kTop) {
+    // each lane's kTop smallest, in registers, decide as all would: a lane
+    // with more values <= a candidate t_k than it keeps has k of them
+    TopCands top;
 #pragma unroll
-    for (int s = 0; s < kPer; ++s)
-      mn = fminf(mn, d2[s] > last ? d2[s] : INFINITY);
-    mn = warp_min(mn);
-    int c = 0;
-#pragma unroll
-    for (int s = 0; s < kPer; ++s) c += d2[s] <= mn;
-    if (__reduce_add_sync(kFull, c) >= a.k) {
-      t_k = mn;
-      break;
-    }
-    last = mn;
+    for (int j = 0; j < kTop; ++j) top.v[j] = INFINITY;
+    for (int s = 0; s < st.n(); ++s) top.insert(st.d(s));
+    t_k = kth_smallest(top, a.k);
+  } else {
+    t_k = kth_smallest(st, a.k);
   }
-  float w[kPer];
+  // the selection weights, kept where the candidates are in registers
+  float wr[St::kRegs ? St::kN : 1];
   int nl = 0;
 #pragma unroll
-  for (int s = 0; s < kPer; ++s) {
-    w[s] = d2[s] <= t_k ? 1.0f : 0.0f;
-    nl += d2[s] <= t_k;
+  for (int s = 0; s < st.n(); ++s) {
+    if constexpr (St::kRegs) wr[s] = st.d(s) <= t_k ? 1.0f : 0.0f;
+    nl += st.d(s) <= t_k;
   }
+  auto weight = [&](int s) {
+    if constexpr (St::kRegs)
+      return wr[s];
+    else
+      return st.d(s) <= t_k ? 1.0f : 0.0f;
+  };
   const float n = static_cast<float>(__reduce_add_sync(kFull, nl));
   if constexpr (kStage == kSelect) {
     if (lane == 0) {
@@ -678,17 +904,19 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
   float s1x = 0.f, s1y = 0.f, s1z = 0.f, sxx = 0.f, sxy = 0.f, sxz = 0.f;
   float syy = 0.f, syz = 0.f, szz = 0.f;
 #pragma unroll
-  for (int s = 0; s < kPer; ++s) {
-    const float wx = dx[s] * w[s], wy = dy[s] * w[s], wz = dz[s] * w[s];
+  for (int s = 0; s < st.n(); ++s) {
+    const float w = weight(s);
+    const float dx = st.x(s), dy = st.y(s), dz = st.z(s);
+    const float wx = dx * w, wy = dy * w, wz = dz * w;
     s1x += wx;
     s1y += wy;
     s1z += wz;
-    sxx += wx * dx[s];
-    sxy += wx * dy[s];
-    sxz += wx * dz[s];
-    syy += wy * dy[s];
-    syz += wy * dz[s];
-    szz += wz * dz[s];
+    sxx += wx * dx;
+    sxy += wx * dy;
+    sxz += wx * dz;
+    syy += wy * dy;
+    syz += wy * dz;
+    szz += wz * dz;
   }
   s1x = warp_sum(s1x);
   s1y = warp_sum(s1y);
@@ -754,9 +982,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
     const float dist = -(vec[0] * mu[0] + vec[1] * mu[1] + vec[2] * mu[2]);
     bool bad = false;
 #pragma unroll
-    for (int s = 0; s < kPer; ++s) {
-      const float dev =
-          w[s] * (dx[s] * vec[0] + dy[s] * vec[1] + dz[s] * vec[2] + dist);
+    for (int s = 0; s < st.n(); ++s) {
+      const float dev = weight(s) * (st.x(s) * vec[0] + st.y(s) * vec[1] +
+                                     st.z(s) * vec[2] + dist);
       bad = bad || !(fabsf(dev) <= 0.2f);
     }
     shape_ok = !__any_sync(kFull, bad);
@@ -785,30 +1013,110 @@ __global__ void __launch_bounds__(kWarpsPerBlock * kLanes)
   }
 }
 
+// One query a warp.  kDefault: the default window (kPer = 8, compile-time
+// addressing); else the general window with kPer candidates a lane in
+// registers, or staged in the warp's buffer (kPer = kStaged).
+template <int kStage, int kPer, bool kDefault>
+__global__ void __launch_bounds__(kMaxWarps * kLanes)
+    assoc_kernel(const AssocArgs a) {
+  static_assert(!kDefault || kPer == kRows, "the default window is 8 rows");
+  extern __shared__ float4 smem[];  // a.wpb warp buffers of a.warp_words
+  const int wid = threadIdx.x / kLanes;
+  const int q = blockIdx.x * a.wpb + wid;
+  const int lane = threadIdx.x % kLanes;
+  if (q >= a.m) return;  // the whole warp leaves together
+  const float thres = a.thres[0];  // in flight with the query's loads
+  bool mask;
+  if constexpr (kStage == kRescue) {
+    if (!a.need[q]) return;
+    if (a.rescue_cap < a.m && rescue_rank(a.need, q, lane) >= a.rescue_cap)
+      return;
+    mask = true;  // factors' mask_r: every compacted query is live
+  } else {
+    mask = a.mask[q] != 0;
+  }
+  float* wbuf = a.scratch != nullptr
+                    ? a.scratch + static_cast<long long>(q) * a.warp_words
+                    : reinterpret_cast<float*>(smem) + wid * a.warp_words;
+  const bool fresh = kStage == kRescue || !a.cached;
+  auto query = [&](auto& st) {
+    if (fresh) {
+      if constexpr (kDefault) {
+        if (a.dedup_thr != nullptr
+                ? default_fresh<kStage, true>(a, q, lane, mask, st)
+                : default_fresh<kStage, false>(a, q, lane, mask, st))
+          return;
+      } else {
+        if (general_fresh<kStage>(a, q, lane, mask, wbuf, st)) return;
+      }
+    } else {
+      cached_cands<kDefault>(a, q, lane, st);
+    }
+    finish<kStage>(a, q, lane, mask, thres, st);
+  };
+  if constexpr (kPer == kStaged) {
+    const int table = fresh ? kRowWords * (a.ncand / a.cpr) : 0;
+    StagedCands st{wbuf + table, (a.ncand + kLanes - 1) / kLanes, lane,
+                   a.bf16 != 0};
+    query(st);
+  } else {
+    RegCands<kPer> st;
+    query(st);
+  }
+}
+
 template <int kStage, int kPer, bool kDefault>
 int launch_one(const AssocArgs& a, cudaStream_t stream) {
-  const dim3 block(kWarpsPerBlock * kLanes);
-  const dim3 grid((a.m + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  assoc_kernel<kStage, kPer, kDefault><<<grid, block, 0, stream>>>(a);
+  const auto kern = assoc_kernel<kStage, kPer, kDefault>;
+  const size_t smem = a.scratch != nullptr
+                          ? 0
+                          : sizeof(float) * static_cast<size_t>(a.wpb) *
+                                static_cast<size_t>(a.warp_words);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 block(a.wpb * kLanes);
+  const dim3 grid((a.m + a.wpb - 1) / a.wpb);
+  kern<<<grid, block, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance that holds the launch's candidates: the default one for the
-// default map (and for cached blocks of its 256 candidates), else the
-// fewest candidates a lane of 4, 8 and kMaxPer that hold them all
+// The instance ops/assoc.instance chose (AssocArgs.inst)
 template <int kStage>
 int launch(const AssocArgs& a, cudaStream_t stream) {
-  const bool dflt =
-      a.dedup_thr == nullptr &&
-      (a.cached ? a.ncand == kCand
-                : a.cpr == kLanes && a.nb[0] == 2 && a.nb[1] == 2 &&
-                      a.nb[2] == 2);
-  if (dflt) return launch_one<kStage, kRows, true>(a, stream);
+  switch (a.inst) {
+    case 0: return launch_one<kStage, kRows, true>(a, stream);
+    case 1: return launch_one<kStage, 4, false>(a, stream);
+    case 2: return launch_one<kStage, 8, false>(a, stream);
+    case 3: return launch_one<kStage, 16, false>(a, stream);
+    case 4: return launch_one<kStage, kStaged, false>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Whether the chosen instance holds the launch's window and its buffer
+// fits it (ops/assoc.plan computes both)
+bool plan_ok(const AssocArgs& a) {
+  const bool fresh = !a.cached;
+  if (a.wpb < 1 || a.wpb > kMaxWarps || a.warp_words < 0) return false;
+  if (fresh && a.ncand % a.cpr != 0) return false;
   const int per = (a.ncand + kLanes - 1) / kLanes;
-  if (per <= 4) return launch_one<kStage, 4, false>(a, stream);
-  if (per <= 8) return launch_one<kStage, 8, false>(a, stream);
-  if (per <= kMaxPer) return launch_one<kStage, kMaxPer, false>(a, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int table = fresh ? kRowWords * (a.ncand / a.cpr) : 0;
+  switch (a.inst) {
+    case 0:
+      return fresh ? a.cpr == kLanes && a.nb[0] == 2 && a.nb[1] == 2 &&
+                         a.nb[2] == 2
+                   : a.ncand == kCand;
+    case 1: return per <= 4 && a.warp_words >= table;
+    case 2: return per <= 8 && a.warp_words >= table;
+    case 3: return per <= 16 && a.warp_words >= table;
+    case 4:  // 4 values a candidate, bf16 with bf16 blocks
+      return a.warp_words >= table + (a.bf16 ? 2 : 4) * kLanes * per;
+    default: return false;
+  }
 }
 
 }  // namespace
@@ -818,8 +1126,8 @@ int launch(const AssocArgs& a, cudaStream_t stream) {
 // cudaGetLastError() (0 on success).  `args` is read on the host only.
 extern "C" int assoc_launch(int stage, const AssocArgs* args, void* stream) {
   if (args->m <= 0) return 0;
-  if (args->ncand < 1 || args->ncand > kMaxPer * kLanes || args->cpr < 1 ||
-      args->k < 1 || args->k > args->ncand)
+  if (args->ncand < 1 || args->cpr < 1 || args->k < 1 ||
+      args->k > args->ncand || !plan_ok(*args))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool fresh = !args->cached;

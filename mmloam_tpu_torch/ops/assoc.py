@@ -25,9 +25,11 @@ CALLS + RESCUE_LAUNCHES and RESCUE_LAUNCHES == LOCAL_CALLS (the
 non-feature association has no local map and launches no rescue).
 
 Every map geometry runs: any superrow pack and stencil (S window rows of
-cpr cells, C = S cpr candidates a query, up to 32 x MAX_PER_LANE;
-`kernel_supports`), each launch carrying its own map's geometry (the
-local map's may differ), and `MapConfig.dedup_gather`: a fresh launch
+cpr cells, C = S cpr candidates a query), each launch carrying its own
+map's geometry (the local map's may differ) and the kernel instance
+`instance` picks for it (`plan`: the default window's, 4, 8 or 16
+candidates a lane in registers, or staged in a per-warp buffer; counted
+by name in INSTANCE_LAUNCHES), and `MapConfig.dedup_gather`: a fresh launch
 takes one device scalar, `voxelmap.dedup_threshold` of the rows its query
 set ranks (every query of the call, masked or not; for a rescue whose cap
 binds, the NEED launch's first rescue_cap flags and the pad rows, as the
@@ -71,29 +73,49 @@ PLANE, LINE = 0, 1                 # mode numbers of the archived kernel
 GATHER, SELECT, MOMENTS, EIG, OUT, NEED, RESCUE = range(7)
 STAGE_NAMES = ("GATHER", "SELECT", "MOMENTS", "EIG", "OUT", "NEED")
 _REC = 16                          # floats per query in the kernel's output
-# the most candidates one lane of the kernel holds (its largest instance):
-# up to 32 x MAX_PER_LANE = 512 candidates a query
-MAX_PER_LANE = 16
+# the kernel's instances (AssocArgs.inst): the default window (32 cells a
+# row, 2x2x2 superrows, or cached blocks of its 256 candidates), 4, 8 or 16
+# candidates a lane in registers, and any larger window staged in a
+# per-warp buffer
+INSTANCES = ("default", "regs4", "regs8", "regs16", "staged")
+_PER_LANE = {"regs4": 4, "regs8": 8, "regs16": 16}
+_ROW_WORDS = 8                     # the general window's table, a row
+SMEM_BYTES = 232448                # shared memory of a block on the H100
+_SM_SMEM = 233472                  # ... of an SM, 1 KB of it a block's own
+_MAX_WARPS = 8                     # warps a block
 
 # kernel launches made by the wrapper (counted where it launches, nowhere
-# else), the second launches of rescue pairs among them, calls of
-# `associate` and `associate_with_rescue`, and the calls among them given a
-# local map; callers reset all four to 0 to check a run.  Workers of a
-# split replay call from several threads, so counts are taken under a lock
-# (`_count`).
+# else), by instance, the second launches of rescue pairs among them, calls
+# of `associate` and `associate_with_rescue`, and the calls among them given
+# a local map; callers reset them (`reset_counts`) to check a run.  Workers
+# of a split replay call from several threads, so counts are taken under a
+# lock (`_count`).
 LAUNCHES = 0
+INSTANCE_LAUNCHES = dict.fromkeys(INSTANCES, 0)
 RESCUE_LAUNCHES = 0
 CALLS = 0
 LOCAL_CALLS = 0
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(**deltas):
-    """Add `deltas` to the module's counters, atomically."""
+def _count(inst=None, **deltas):
+    """Add `deltas` to the module's counters (and one launch to instance
+    `inst`'s), atomically."""
     with _COUNT_LOCK:
         g = globals()
         for name, d in deltas.items():
             g[name] += d
+        if inst is not None:
+            INSTANCE_LAUNCHES[inst] += 1
+
+
+def reset_counts():
+    """Set every counter of the module to 0."""
+    global LAUNCHES, RESCUE_LAUNCHES, CALLS, LOCAL_CALLS
+    with _COUNT_LOCK:
+        LAUNCHES = RESCUE_LAUNCHES = CALLS = LOCAL_CALLS = 0
+        for name in INSTANCES:
+            INSTANCE_LAUNCHES[name] = 0
 
 
 def window_rows(mcfg):
@@ -107,12 +129,46 @@ def n_candidates(mcfg):
     return window_rows(mcfg) * voxelmap._cpr(mcfg)
 
 
-def kernel_supports(mcfg):
-    """Whether K2 has an instance for this map's window: at most
-    32 x MAX_PER_LANE candidates a query.  On CUDA tensors the wrapper
-    raises NotImplementedError naming the limit otherwise; the plain
-    version takes any window."""
-    return n_candidates(mcfg) <= 32 * MAX_PER_LANE
+def instance(mcfg, cached=False):
+    """The kernel instance of a launch on this map (the fresh entry, or
+    with `cached` the cached blocks): "default" for the default window
+    (dedup_gather included), else the fewest candidates a lane of 4, 8 and
+    16 that hold the window, else "staged".  Every window has one."""
+    C = n_candidates(mcfg)
+    if (C == 32 * 8 if cached else voxelmap._cpr(mcfg) == 32
+            and voxelmap._super_window(mcfg) == (2, 2, 2)):
+        return "default"
+    per = -(-C // 32)
+    for name, n in _PER_LANE.items():
+        if per <= n:
+            return name
+    return "staged"
+
+
+def plan(mcfg, cached=False):
+    """How a launch on this map runs: (instance, warps a block, floats of
+    a warp's buffer, whether the buffers go to device memory).  A general
+    window's fresh launch keeps a table of its S rows (8 words each); the
+    staged instance adds d2 and three offsets of each candidate (16 B, or
+    8 B in bf16 with `dense_bf16`, whose values are bf16 already).  A
+    block holds up to 8 warps' buffers in shared memory, fewer where 8 do
+    not fit; of 8, 4, 2 and 1 warps it takes the block that keeps the most
+    warps on an SM (the larger on a tie).  Where one warp's buffer does
+    not fit a block, the buffers go to an (M, words) device buffer."""
+    name = instance(mcfg, cached)
+    words = 0
+    if name != "default" and not cached:
+        words += _ROW_WORDS * window_rows(mcfg)
+    if name == "staged":        # 4 values a candidate, bf16 with bf16 blocks
+        words += (2 if mcfg.dense_bf16 else 4) * 32 * -(-n_candidates(mcfg)
+                                                         // 32)
+    if 4 * words > SMEM_BYTES:
+        return name, 1, words, True
+    resident = lambda w: w * min(_SM_SMEM // (4 * words * w + 1024),
+                                 64 // w)
+    wpb = max((w for w in (8, 4, 2, 1) if 4 * words * w <= SMEM_BYTES),
+              key=lambda w: (resident(w), w))
+    return name, wpb, words, False
 
 
 class StackBlocks(NamedTuple):
@@ -272,7 +328,7 @@ def near_threshold(gates, eps):
 # moment sums are warp trees, not torch.sum's order, so the float outputs
 # agree to these bounds, set from f32 sums of <= 256 terms of offsets
 # <= 2 m (s2 terms <= 4 m^2):
-MOMENT_ATOL = 1e-4     # s1, s2 entries
+MOMENT_ATOL = 1e-4     # s1, s2 entries of a sum of <= 256 terms
 MU_ATOL = 1e-5         # mean offset (m)
 EVAL_ATOL = 1e-3       # eigenvalues, relative to the largest |eigenvalue|:
 #                        acos amplifies a last-bit change of r near +-1 by
@@ -280,6 +336,29 @@ EVAL_ATOL = 1e-3       # eigenvalues, relative to the largest |eigenvalue|:
 VEC_ATOL = 1e-3        # unit fit direction, up to sign, where the gap
 GAP_MIN = 1e-2         # of the fitted eigenvalue is > GAP_MIN x largest
 GATE_EPS = 1e-3        # relative margin within which a gate may flip
+
+
+def moment_tols(n, s2):
+    """Per-query, per-entry bounds on |kernel - plain| of s1 (M, 3) and s2
+    (M, 3, 3), from the plain version's term count n (M,) and its s2.  Up
+    to 256 terms, MOMENT_ATOL.  Beyond, an f32 sum of n terms in any order
+    lies within (n - 1) u sum|t| of the exact sum (u = 2^-24), so two
+    orders lie within twice that of each other, and by Cauchy-Schwarz
+    sum|x y| <= sqrt(S_xx S_yy) and sum|x| <= sqrt(n S_xx), S_xx the
+    diagonal of s2; never below MOMENT_ATOL.  An f32 sum in another order
+    keeps well inside it; a sum in bf16 does not
+    (tests/test_torch_assoc.py)."""
+    n = n.to(s2.dtype)
+    d = torch.clamp(torch.diagonal(s2, dim1=-2, dim2=-1), min=0.0)
+    g = 2.0 * 2.0 ** -24 * torch.clamp(n - 1.0, min=0.0)
+    t1 = g[:, None] * torch.sqrt(n[:, None] * d)
+    t2 = g[:, None, None] * torch.sqrt(d[:, :, None] * d[:, None, :])
+    wide = n > 256
+    t1 = torch.where(wide[:, None], torch.clamp(t1, min=MOMENT_ATOL),
+                     MOMENT_ATOL)
+    t2 = torch.where(wide[:, None, None], torch.clamp(t2, min=MOMENT_ATOL),
+                     MOMENT_ATOL)
+    return t1, t2
 
 
 def _sign_err(got, want):
@@ -329,8 +408,21 @@ def compare(stage, got, ref, mask, mode):
             if not torch.equal(got[name][m], ref[name][m]):
                 fail(f"{name} not bit-equal")
     if stage == MOMENTS:
-        close("s1", got["s1"][m], ref["s1"][m], MOMENT_ATOL)
-        close("s2", got["s2"][m], ref["s2"][m], MOMENT_ATOL)
+        tols = moment_tols(ref["n"][m], ref["s2"][m])
+        for name, tol in zip(("s1", "s2"), tols):
+            a, b = got[name][m], ref[name][m]
+            err = torch.nan_to_num(torch.abs(a - b), nan=float("inf"))
+            bad = (err > tol).flatten(1)
+            if bool(bad.any()):
+                i = int(bad.any(dim=1).nonzero()[0, 0])
+                j = int(bad[i].nonzero()[0, 0])
+                fail(f"{name} differs by {float(err[i].flatten()[j])} > "
+                     f"{float(tol[i].flatten()[j])} "
+                     f"({int(ref['n'][m][i])} terms)")
+            err = err.flatten(1)
+            if err.numel():
+                stats["max_abs_err"] = max(stats["max_abs_err"],
+                                           float(err.max()))
     if stage == EIG:
         top = torch.clamp(torch.amax(torch.abs(ref["evals"][m]), dim=-1,
                                      keepdim=True), min=1.0)
@@ -548,31 +640,21 @@ def _args_struct():
                 ("pw0", p), ("blk_out", p * 4), ("thres", p), ("out", p),
                 ("valid", p), ("rows", p), ("g_v", p), ("g_sv", p),
                 ("g_slot", p), ("g_key", p), ("need", p), ("need_count", p),
-                ("dedup_thr", p), ("g_keep", p),
+                ("dedup_thr", p), ("g_keep", p), ("scratch", p),
                 ("m", i), ("mode", i), ("bf16", i), ("cached", i), ("k", i),
                 ("rescue_cap", i), ("pack", i * 3),
                 ("stencil", i * 3), ("sdim", i * 3), ("nb", i * 3),
-                ("cpr", i), ("ncand", i),
+                ("cpr", i), ("ncand", i), ("inst", i), ("wpb", i),
+                ("warp_words", i),
                 ("voxel", ctypes.c_float), ("pvs", ctypes.c_float * 3),
                 ("scatter_ratio", ctypes.c_float)]
 
-        assert ctypes.sizeof(AssocArgs) == 296, "see csrc/assoc.cu"
+        assert ctypes.sizeof(AssocArgs) == 312, "see csrc/assoc.cu"
         _ARGS_CLS.append(AssocArgs)
     return _ARGS_CLS[0]
 
 
-def _check_geometry(mcfg):
-    if not kernel_supports(mcfg):
-        raise NotImplementedError(
-            f"K2 holds at most {32 * MAX_PER_LANE} candidates a query "
-            f"({MAX_PER_LANE} a lane); pack {voxelmap._pack(mcfg)} with "
-            f"stencil {(mcfg.stencil_x, mcfg.stencil_y, mcfg.stencil_z)} "
-            f"gives {window_rows(mcfg)} superrows x {voxelmap._cpr(mcfg)} "
-            f"cells = {n_candidates(mcfg)}")
-
-
 def _check_map(vm, mcfg, dev):
-    _check_geometry(mcfg)
     if mcfg.dedup_gather:
         voxelmap.dedup_capacity(mcfg, 1)  # raises below one row a query
     c = vm.cells
@@ -602,7 +684,6 @@ def _check(vm, pw, mask, mcfg, k, mode, cached):
     if cached is None:
         _check_map(vm, mcfg, dev)
         return
-    _check_geometry(mcfg)
     store = torch.bfloat16 if mcfg.dense_bf16 else torch.float32
     for name in ("dxd", "dyd", "dzd", "d2d"):
         a = getattr(cached, name)
@@ -617,10 +698,19 @@ def _check(vm, pw, mask, mcfg, k, mode, cached):
                          "tensor on the queries' device")
 
 
-def _set_map(a, vm, mcfg):
+def _set_map(a, vm, mcfg, bufs, M, name="scratch"):
     """The per-map fields of `AssocArgs`: the map's rows (None for the
-    cached entry, which reads none) and its geometry."""
+    cached entry, which reads none), its geometry and the launch's `plan`;
+    a device buffer for the warps' tables, where `plan` asks for one, goes
+    into bufs[name]."""
     px, py, pz = voxelmap._pack(mcfg)
+    inst, a.wpb, a.warp_words, scratch = plan(mcfg, cached=vm is None)
+    a.inst = INSTANCES.index(inst)
+    a.scratch = None
+    if scratch:
+        bufs[name] = torch.empty((M, a.warp_words), dtype=torch.float32,
+                                 device=bufs["pw"].device)
+        a.scratch = bufs[name].data_ptr()
     a.cells = None if vm is None else vm.cells.data_ptr()
     a.bf16 = int(bool(mcfg.dense_bf16))
     a.pack[:] = [px, py, pz]
@@ -668,7 +758,7 @@ def prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
                 out=torch.empty((M, _REC), dtype=f32, device=dev),
                 valid=torch.empty((M,), dtype=torch.bool, device=dev))
     if cached is None:
-        _set_map(a, vm, mcfg)
+        _set_map(a, vm, mcfg, bufs, M)
         bufs["cells"] = vm.cells
         thr = _dedup_bound(pw, mcfg)
         if thr is not None:
@@ -680,7 +770,7 @@ def prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
             bufs["blk_out"] = blk
             a.blk_out[:] = [b.data_ptr() for b in blk]
     else:                       # the cached entry reads no map
-        _set_map(a, None, mcfg)
+        _set_map(a, None, mcfg, bufs, M)
         bufs["pw0"] = cached.pw0
         a.blk_in[:] = [cached.dxd.data_ptr(), cached.dyd.data_ptr(),
                        cached.dzd.data_ptr(), cached.d2d.data_ptr()]
@@ -734,7 +824,8 @@ def launch(stage, args, device):
             rc = fn(stage, ctypes.byref(args),
                     torch.cuda.current_stream().cuda_stream)
     if args.m > 0:                  # assoc_launch launches nothing for m = 0
-        _count(LAUNCHES=1, RESCUE_LAUNCHES=int(stage == RESCUE))
+        _count(INSTANCES[args.inst], LAUNCHES=1,
+               RESCUE_LAUNCHES=int(stage == RESCUE))
     if rc != 0:
         raise RuntimeError(f"assoc_launch failed: CUDA error {rc}")
 
@@ -822,7 +913,7 @@ def _rescue_pair(vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
     launch(stage, a, dev)
     if vm_local is not None:
         a2 = _args_struct().from_buffer_copy(a)
-        _set_map(a2, vm_local, lcfg)
+        _set_map(a2, vm_local, lcfg, bufs, M, "scratch_local")
         a2.cached, a2.mask, a2.dedup_thr = 0, None, None
         a2.blk_out[:] = [None] * 4
         a2.rescue_cap = min(int(rescue_cap), M)

@@ -33,18 +33,46 @@ _META_MOD = voxelmap._META_MOD
 _SOURCE = "map_insert.cu"
 _MASKED = 2 ** 30          # slot of a masked point: sorts after every row
 
+# the kernel's instances, in csrc/map_insert.cu's numbering: rows of 32
+# cells (the default pack), a warp a sorted position; rows of any width, a
+# group of lanes a segment; rows of any width, a warp a sorted position
+INSTANCES = ("default", "groups", "rows")
+
 # kernel launches made by `aggregate_rmw` (the wrapper counts each launch,
-# nowhere else); callers reset it to 0 to check a run went through the
-# kernel.  Workers of a split replay launch from several threads, so the
-# count is taken under a lock.
+# nowhere else), in all and by instance; callers reset them
+# (`reset_counts`) to check a run went through the kernel.  Workers of a
+# split replay launch from several threads, so counts are taken under a
+# lock.
 LAUNCHES = 0
+INSTANCE_LAUNCHES = dict.fromkeys(INSTANCES, 0)
 _COUNT_LOCK = threading.Lock()
 
 
-def _count_launch():
+def _count_launch(inst=None):
+    """Count one launch (of instance `inst`, where given), atomically."""
     global LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES += 1
+        if inst is not None:
+            INSTANCE_LAUNCHES[inst] += 1
+
+
+def reset_counts():
+    """Set the launch counters to 0."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES = 0
+        for name in INSTANCES:
+            INSTANCE_LAUNCHES[name] = 0
+
+
+def instance(mcfg):
+    """The kernel instance of an insert into this map: "default" for rows
+    of 32 cells, "groups" for rows of one cell, "rows" for any other pack
+    (the faster of the two general instances at 1, 8 and 64 cells a row
+    on an H100, PERF.md)."""
+    cpr = voxelmap._cpr(mcfg)
+    return {32: "default", 1: "groups"}.get(cpr, "rows")
 
 
 class SortedPoints(NamedTuple):
@@ -203,17 +231,6 @@ def sum_tolerance(plain_sums, loads):
     return SUM_ATOL + rel * torch.abs(plain_sums)
 
 
-# K1 gives each cell of a row one lane of a warp
-MAX_CELLS = 32
-
-
-def kernel_supports(mcfg):
-    """Whether K1 takes rows of this map's pack (at most MAX_CELLS cells a
-    row); the wrapper raises NotImplementedError on CUDA tensors
-    otherwise."""
-    return voxelmap._cpr(mcfg) <= MAX_CELLS
-
-
 def _check(cells, sp: SortedPoints, cfg):
     row = 4 * voxelmap._cpr(cfg)
     if cells.dtype != torch.float32 or cells.dim() != 3 \
@@ -241,21 +258,24 @@ def _bind(lib):
     p = ctypes.c_void_p
     lib.map_insert_launch.argtypes = [p] * 7 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, p]
     lib.map_insert_launch.restype = ctypes.c_int
 
 
-def aggregate_rmw(cells, sp: SortedPoints, cfg):
+def aggregate_rmw(cells, sp: SortedPoints, cfg, inst=None):
     """Sum the sorted points per row and apply them to `cells` in place:
     the CUDA kernel for CUDA tensors (counted in LAUNCHES), the plain
-    version (`_segment_rows` + `rmw_reference`) for CPU tensors."""
+    version (`_segment_rows` + `rmw_reference`) for CPU tensors.  `inst`
+    names another instance than `instance(cfg)`'s, to compare instances
+    on the card ("groups" and "rows" take any pack)."""
     _check(cells, sp, cfg)
+    inst = instance(cfg) if inst is None else inst
+    if inst not in INSTANCES or (inst == "default"
+                                 and voxelmap._cpr(cfg) != 32):
+        raise ValueError(f"no K1 instance {inst!r} for rows of "
+                         f"{voxelmap._cpr(cfg)} cells")
     if not cells.is_cuda:
         return rmw_reference(cells, _segment_rows(sp, cfg), cfg.count_cap)
-    if not kernel_supports(cfg):
-        raise NotImplementedError(
-            f"K1 takes at most {MAX_CELLS} cells a row (one warp lane a "
-            f"cell); pack {voxelmap._pack(cfg)} has {voxelmap._cpr(cfg)}")
     from .. import cuda_build
 
     fn = cuda_build.load(_SOURCE, _bind).map_insert_launch
@@ -263,14 +283,15 @@ def aggregate_rmw(cells, sp: SortedPoints, cfg):
     args = (cells.data_ptr(), sp.slot.data_ptr(), sp.perm.data_ptr(),
             sp.sub.data_ptr(), sp.key.data_ptr(), sp.pts.data_ptr(),
             sp.v.data_ptr(), B, N, cells.shape[1], voxelmap._cpr(cfg),
-            cfg.voxel_size, float(cfg.count_cap))
+            cfg.voxel_size, float(cfg.count_cap),
+            INSTANCES.index(inst))
     dev = cells.device
     if dev.index is None or dev.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     else:
         with torch.cuda.device(dev):
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    _count_launch()
+    _count_launch(inst)
     if rc != 0:
         raise RuntimeError(f"map_insert_launch failed: CUDA error {rc}")
     return cells

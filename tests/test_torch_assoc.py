@@ -33,6 +33,9 @@ seeded raycast queries, three of them masked and one NaN.
   negative coordinates and across the torus wrap.
 * The dispatcher takes the plain version for CPU tensors and counts the
   call; each stage's plain cut agrees with the full plain version.
+* The MOMENTS bound of `assoc.compare` (`assoc.moment_tols`) at windows of
+  864 and 9,261 terms: f32 sums of the same terms in another order pass
+  it, sums taken in bf16 fail it.
 """
 
 import dataclasses
@@ -477,3 +480,40 @@ def test_kernel_integer_addressing_matches_stencil_addresses():
     keys = _np(addr.key).astype(np.int64)
     assert ((keys >> 10) == 0).any() and ((keys >> 10) == 31).any()
     assert (q < 0).any() and (_np(addr.v) < 0).any()
+
+
+@pytest.mark.parametrize("n", [864, 9261])
+def test_moment_bound_passes_f32_orders_and_fails_bf16_sums(n):
+    """Offsets of up to 2 m, as a window's candidates give them: the plain
+    sums (torch.sum) against the same terms summed one after another in
+    f32 (another order: within the bound) and in bf16 (outside it)."""
+    M = 16
+    rng = np.random.default_rng(n)
+    o = torch.from_numpy(rng.uniform(-2.0, 2.0, (M, n, 3))
+                         .astype(np.float32))
+    t1 = o
+    t2 = o[:, :, :, None] * o[:, :, None, :]
+    ref = dict(t_k=torch.ones(M), n=torch.full((M,), float(n)),
+               s1=t1.sum(dim=1), s2=t2.sum(dim=1))
+    mask = torch.ones(M, dtype=torch.bool)
+
+    def serial(dtype):
+        a1 = torch.zeros((M, 3), dtype=dtype)
+        a2 = torch.zeros((M, 3, 3), dtype=dtype)
+        for i in range(n):
+            a1 = a1 + t1[:, i].to(dtype)
+            a2 = a2 + t2[:, i].to(dtype)
+        return dict(ref, s1=a1.float(), s2=a2.float())
+
+    stats = assoc.compare(assoc.MOMENTS, serial(torch.float32), ref, mask,
+                          assoc.PLANE)
+    assert 0.0 < stats["max_abs_err"]
+    with pytest.raises(AssertionError, match="MOMENTS: s1 differs"):
+        assoc.compare(assoc.MOMENTS, serial(torch.bfloat16), ref, mask,
+                      assoc.PLANE)
+    # the bf16 rounding of the f32 sums alone already leaves the bound
+    # (at 9,261 terms s2's does; s1's stays within it)
+    with pytest.raises(AssertionError, match="MOMENTS: s[12] differs"):
+        assoc.compare(assoc.MOMENTS, dict(
+            ref, s1=ref["s1"].bfloat16().float(),
+            s2=ref["s2"].bfloat16().float()), ref, mask, assoc.PLANE)

@@ -20,10 +20,13 @@ The rosbag decoder builds on the card's machine and decodes onto the card.
 A CUDA tensor whose kernel library cannot be built raises; nothing falls
 back to the plain version.  Every map option of the reference runs through
 both kernels: K1 and K2 (every stage, fresh and cached) at superrow packs
-(2,2,2), (1,1,1) and (2,4,1) under stencils (2,2,1) and (1,1,1), and
-`dedup_gather` with a capacity that holds every row and one that
-overflows, the rescue pair included; a window beyond K2's instances
-raises NotImplementedError and launches nothing.  A split replay over the
+(2,2,2), (1,1,1), (2,4,1) and (4,4,4) under stencils (2,2,1) and (1,1,1)
+(K1 also at (1,2,2) and (4,2,2)),
+windows whose candidates K2 stages in a per-warp buffer (864 candidates at
+pack (4,4,2) with stencil (3,3,2); 2,048 in fewer warps a block; 9,261 in
+device memory), and `dedup_gather` with a capacity that holds every row
+and one that overflows, the rescue pair included; the default window under
+dedup launches K2's default instance.  A split replay over the
 card and the CPU runs two workers at once, each shard equal to its unsplit
 replay, and the kernel counters hold the card's shard alone.
 """
@@ -396,7 +399,9 @@ def test_native_reader_and_decode_onto_card(tmp_path):
 # any pack and stencil, and dedup_gather
 # --------------------------------------------------------------------------
 
-PACKS = ((2, 2, 2), (1, 1, 1), (2, 4, 1))
+PACKS = ((2, 2, 2), (1, 1, 1), (2, 4, 1), (4, 4, 4))
+# K1 also at 4 and 16 cells a row
+K1_PACKS = PACKS + ((1, 2, 2), (4, 2, 2))
 STENCILS = ((2, 2, 1), (1, 1, 1))
 
 
@@ -408,10 +413,12 @@ def _geom(pack, stencil=(2, 2, 1), mcfg=MCFG, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pack", PACKS)
-def test_kernel_at_each_pack_on_card(pack):
+@pytest.mark.parametrize("pack", K1_PACKS)
+@pytest.mark.parametrize("which", ("chosen", "groups", "rows"))
+def test_kernel_at_each_pack_on_card(pack, which):
     """K1 on rows of 4 cpr floats against the plain version: two inserts
-    that accumulate and one a torus period away."""
+    that accumulate and one a torus period away, through the instance
+    `map_insert.instance` chooses and through each general instance."""
     dev = _device()
     mcfg = _geom(pack)
     shape = (3,) + tuple(voxelmap.empty_map(mcfg).cells.shape)
@@ -419,15 +426,22 @@ def test_kernel_at_each_pack_on_card(pack):
     ck = torch.zeros(shape, device=dev)
     cp = torch.zeros(shape, device=dev)
     before = map_insert.LAUNCHES
+    inst = map_insert.instance(mcfg) if which == "chosen" else which
+    launched = map_insert.INSTANCE_LAUNCHES[inst]
     loads = []
     for pts, mask in _steps(3, 1000, seed=11):
         p = torch.from_numpy(pts).to(dev)
         m = torch.from_numpy(mask).to(dev)
-        map_insert.insert_batched(ck, p, m, mcfg)
+        if which == "chosen":
+            map_insert.insert_batched(ck, p, m, mcfg)
+        else:
+            map_insert.aggregate_rmw(
+                ck, map_insert.sort_points(p, m, mcfg), mcfg, inst=inst)
         map_insert.insert_batched_reference(cp, p, m, mcfg)
         loads.append(map_insert.cell_load(p, m, mcfg))
     torch.cuda.synchronize()
     assert map_insert.LAUNCHES == before + 3
+    assert map_insert.INSTANCE_LAUNCHES[inst] == launched + 3
     _assert_maps(ck, cp, loads)
 
 
@@ -489,6 +503,20 @@ def test_assoc_dedup_on_card(pack, capacity):
                         .to(dev)])
     dropped = _check_k2(vm, pw, mask, mcfg, assoc.PLANE)
     assert (dropped > 0) == (capacity == 1), dropped
+    # the default window keeps its own instance under dedup
+    inst = assoc.instance(mcfg)
+    assert (inst == "default") == (pack == (4, 4, 2)), inst
+    from torch.profiler import ProfilerActivity, profile
+
+    before = dict(assoc.INSTANCE_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assoc.associate(vm, pw, mask, mcfg, 5, assoc.PLANE, 1.0, 0.01)
+        torch.cuda.synchronize()
+    assert assoc.INSTANCE_LAUNCHES[inst] == before[inst] + 1
+    names = [e.key for e in prof.key_averages() if "assoc_kernel" in e.key]
+    if names:       # the profiler on the card may drop our records
+        want = ", 8, true>" if inst == "default" else ", 8, false>"
+        assert all(want in n for n in names), names
 
 
 @pytest.mark.cuda
@@ -521,19 +549,25 @@ def test_fused_rescue_with_dedup_on_card(full):
 
 
 @pytest.mark.cuda
-def test_assoc_geometry_beyond_instances_raises_on_card():
+@pytest.mark.parametrize("pack,stencil,M,bf16,where", [
+    ((4, 4, 2), (3, 3, 2), 512, True, "shared"),
+    ((4, 4, 2), (3, 3, 2), 512, False, "shared"),
+    ((4, 4, 2), (5, 5, 3), 256, True, "shared"),
+    ((1, 1, 1), (10, 10, 10), 64, True, "device")])
+def test_assoc_staged_windows_on_card(pack, stencil, M, bf16, where):
+    """Windows of more candidates than registers hold run the staged
+    instance against the plain version, every stage fresh and cached: 864
+    candidates (staged as bf16 with bf16 blocks, else as f32), 2,048 (18
+    KB a warp), and 9,261 whose buffers go to device memory."""
     dev = _device()
-    mcfg = _geom((4, 4, 2), (3, 3, 2), dim_z=8)
-    assert not assoc.kernel_supports(mcfg)
-    cells = torch.zeros(tuple(voxelmap.empty_map(mcfg).cells.shape),
-                        device=dev)
-    pw = torch.zeros((8, 3), device=dev)
-    mask = torch.ones((8,), dtype=torch.bool, device=dev)
-    launches = assoc.LAUNCHES
-    with pytest.raises(NotImplementedError, match="512 candidates"):
-        assoc.associate(voxelmap.VoxelMap(cells), pw, mask, mcfg, 5,
-                        assoc.PLANE, 1.0)
-    assert assoc.LAUNCHES == launches
+    mcfg = _geom(pack, stencil, dense_bf16=bf16)
+    inst, wpb, words, scratch = assoc.plan(mcfg)
+    assert inst == "staged" and scratch == (where == "device")
+    vm, pw, mask = _scene(dev, M=M, mcfg=mcfg)
+    before = assoc.INSTANCE_LAUNCHES["staged"]
+    for mode in (assoc.PLANE, assoc.LINE):
+        _check_k2(vm, pw, mask, mcfg, mode)
+    assert assoc.INSTANCE_LAUNCHES["staged"] > before
 
 
 @pytest.mark.cuda

@@ -4,7 +4,9 @@ JAX package: any superrow pack and stencil, and `dedup_gather`.
 Geometries: packs (4,4,2), (2,2,2), (1,1,1) and (2,4,1), under the
 default stencil (2,2,1) (windows of 8, 18, 75 and 18 superrows: 256, 144,
 75 and 144 candidates a query) and under stencil (1,1,1) (8, 8, 27 and 12
-superrows).  The maps are filled by the reference's scatter insert from
+superrows); pack (4,4,4) under stencil (2,2,1) (8 superrows of 64 cells:
+512 candidates) and pack (4,4,2) under stencil (3,3,2) (27 superrows: 864
+candidates, more than K2 holds in registers).  The maps are filled by the reference's scatter insert from
 seeded raycast scans of the synthetic hall; the queries are seeded raycast
 points, three of them masked and one NaN.
 
@@ -15,7 +17,10 @@ points, three of them masked and one NaN.
   `query_knn` and `cell_centroids`: bit-equal.
 * K2's candidate order, written out in Python as csrc/assoc.cu computes
   it (candidate c on lane c mod 32: window row c // cpr, sub-cell c % cpr,
-  each by its "ij" meshgrid), is `query_candidates`' order.
+  each by its "ij" meshgrid; a lane steps from c to c + 32 digit by digit
+  in the pack's mixed radix), is `query_candidates`' order; and the
+  host-side instance choice (`assoc.instance`, `assoc.plan`,
+  `map_insert.instance`) gives every geometry a kernel instance.
 * `factors.associate_lines` / `associate_planes` with the local rescue,
   fresh and from cached blocks, with f32 blocks: masks exactly; target
   points within ATOL and directions within DIR_ATOL up to sign
@@ -74,15 +79,22 @@ JCFG = jax_tiny_config()
 K = CFG.map.knn
 PACKS = ((4, 4, 2), (2, 2, 2), (1, 1, 1), (2, 4, 1))
 STENCILS = ((2, 2, 1), (1, 1, 1))
-GEOMS = [(p, s) for s in STENCILS for p in PACKS]
+GEOMS = [(p, s) for s in STENCILS for p in PACKS] + [
+    ((4, 4, 4), (2, 2, 1)), ((4, 4, 2), (3, 3, 2))]
 GEOM_IDS = ["pack{}{}{}-st{}{}{}".format(*p, *s) for p, s in GEOMS]
 # windows (superrows) of GEOMS, from the reference's `_super_window`
-WINDOW_ROWS = (8, 18, 75, 18, 8, 8, 27, 12)
+WINDOW_ROWS = (8, 18, 75, 18, 8, 8, 27, 12, 8, 27)
 
 
 def _np(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
         else np.asarray(a)
+
+
+def _k1_instance(pack):
+    """K1's instance at this pack: the default at 32 cells a row, the
+    group one at 1, the warp-a-position one at any other width."""
+    return {32: "default", 1: "groups"}.get(int(np.prod(pack)), "rows")
 
 
 def _geom(mcfg, pack, stencil, **kw):
@@ -176,7 +188,7 @@ def test_inserts_match_jax(pack, stencil):
         assert out is cells
         jcells = ins(jcells, jnp.asarray(P[:, i]), jnp.asarray(Mk[:, i]))
     _assert_cells(_np(cells), np.asarray(jcells))
-    assert map_insert.kernel_supports(cfg.map)
+    assert map_insert.instance(cfg.map) == _k1_instance(pack)
 
 
 @pytest.mark.parametrize("pack,stencil", GEOMS, ids=GEOM_IDS)
@@ -214,23 +226,46 @@ def test_candidates_and_selection_match_jax(pack, stencil):
                                   np.asarray(jcent)[np.asarray(jcval)])
 
 
+def _walk(C, pack):
+    """(row, sub-cell) of candidates 0..C-1 as a lane of csrc/assoc.cu's
+    general instances reaches them: candidate c on lane c % 32, its first
+    by division, each next (c + 32 = c + q32 cpr + r32) by adding r32's
+    digits in the pack's mixed radix, the carry out of x to the row."""
+    px, py, pz = pack
+    cpr = px * py * pz
+    q32, r32 = divmod(32, cpr)
+    rd = (r32 // (py * pz), (r32 // pz) % py, r32 % pz)
+    s = np.zeros(C, np.int64)
+    sub = np.zeros((C, 3), np.int64)
+    for lane in range(min(32, C)):
+        r, j = divmod(lane, cpr)
+        d = [j // (py * pz), (j // pz) % py, j % pz]
+        for c in range(lane, C, 32):
+            s[c], sub[c] = r, d
+            carry = 0
+            for ax, p in ((2, pz), (1, py), (0, px)):
+                d[ax] += rd[ax] + carry
+                carry = int(d[ax] >= p)
+                d[ax] -= p * carry
+            r += q32 + carry
+    return s, sub
+
+
 def _kernel_candidates(pw, mcfg):
     """Per candidate c of each query, the superrow coords, slot and
-    sub-cell offsets as csrc/assoc.cu's general instances compute them
-    (`candidate`): window row s = c // cpr in meshgrid "ij" order over the
-    window, sub-cell j = c % cpr in meshgrid "ij" order over the pack."""
+    sub-cell offsets as csrc/assoc.cu's general instances compute them:
+    window row s (`_walk`) in meshgrid "ij" order over the window, its
+    coords from the per-warp row table, sub-cell in meshgrid "ij" order
+    over the pack."""
     px, py, pz = voxelmap._pack(mcfg)
     nbx, nby, nbz = voxelmap._super_window(mcfg)
     sd = voxelmap._sdims(mcfg)
-    cpr = px * py * pz
-    C = nbx * nby * nbz * cpr
+    C = nbx * nby * nbz * px * py * pz
     v = np.floor(pw / np.float32(mcfg.voxel_size)).astype(np.int64)
     st = (mcfg.stencil_x, mcfg.stencil_y, mcfg.stencil_z)
     s0 = (v - np.asarray(st)) // np.asarray([px, py, pz])
-    c = np.arange(C)
-    s, j = c // cpr, c % cpr
+    s, sub = _walk(C, (px, py, pz))
     o = np.stack([s // (nby * nbz), (s // nbz) % nby, s % nbz], -1)
-    sub = np.stack([j // (py * pz), (j // pz) % py, j % pz], -1)
     sv = s0[:, None, :] + o[None]
     mt = sv % np.asarray(sd)
     slot = (mt[..., 0] * sd[1] + mt[..., 1]) * sd[2] + mt[..., 2]
@@ -256,21 +291,54 @@ def test_kernel_candidate_order_is_the_reference_order(pack, stencil):
                                                         1)))
     # the number of candidates picks the kernel instance
     per = -(-assoc.n_candidates(mcfg) // 32)
-    assert assoc.kernel_supports(mcfg) and per <= assoc.MAX_PER_LANE
+    inst = assoc.instance(mcfg)
+    assert inst == ("default" if (pack, stencil) in (
+        ((4, 4, 2), (2, 2, 1)), ((4, 4, 2), (1, 1, 1))) else
+        "regs4" if per <= 4 else "regs8" if per <= 8 else
+        "regs16" if per <= 16 else "staged")
 
 
-def test_kernel_geometry_limit():
-    """A window beyond K2's largest instance (32 x MAX_PER_LANE candidates)
-    is refused by name, CPU-callably; the plain version still takes it."""
-    cfg, _ = _cfgs((4, 4, 2), (3, 3, 2))
-    assert assoc.n_candidates(cfg.map) == 27 * 32
-    assert not assoc.kernel_supports(cfg.map)
-    with pytest.raises(NotImplementedError, match="512 candidates"):
-        assoc._check_geometry(cfg.map)
-    assert assoc.kernel_supports(_cfgs((2, 2, 2), (3, 3, 2))[0].map)
-    big = dataclasses.replace(cfg.map, pack_z=4, dim_z=32)
-    assert not map_insert.kernel_supports(big)
-    assert map_insert.kernel_supports(cfg.map)
+@pytest.mark.parametrize("cached", [False, True])
+def test_instance_choice(cached):
+    """Every geometry of GEOMS has a K2 instance; the default map under
+    dedup_gather keeps the default window's; the buffer each warp needs
+    (a table of 8 words a window row, 16 B a candidate when staged) and
+    the warps a block follow from the window alone; K1 runs any pack."""
+    want = {((4, 4, 2), (2, 2, 1)): "default",
+            ((2, 2, 2), (2, 2, 1)): "regs8", ((1, 1, 1), (2, 2, 1)): "regs4",
+            ((2, 4, 1), (2, 2, 1)): "regs8", ((4, 4, 2), (1, 1, 1)): "default",
+            ((2, 2, 2), (1, 1, 1)): "regs4", ((1, 1, 1), (1, 1, 1)): "regs4",
+            ((2, 4, 1), (1, 1, 1)): "regs4", ((4, 4, 4), (2, 2, 1)): "regs16",
+            ((4, 4, 2), (3, 3, 2)): "staged"}
+    assert set(want) == set(GEOMS)
+    for (pack, stencil), inst in want.items():
+        mcfg = _cfgs(pack, stencil)[0].map
+        name, wpb, words, scratch = assoc.plan(mcfg, cached)
+        C, S = assoc.n_candidates(mcfg), assoc.window_rows(mcfg)
+        if cached and C == 256:     # cached blocks of the default's width
+            inst = "default"
+        assert assoc.instance(mcfg, cached) == name == inst, (pack, stencil)
+        table = 0 if cached or inst == "default" else 8 * S
+        # bf16 dense blocks (tiny_config's) stage 8 B a candidate
+        stage = 2 * 32 * -(-C // 32) if inst == "staged" else 0
+        # 864 staged candidates and a table, 7.8 KB a warp: 7 blocks of 4
+        # warps an SM keep more warps than 3 blocks of 8
+        want_wpb = 4 if inst == "staged" and not cached else 8
+        assert (words, wpb, scratch) == (table + stage, want_wpb, False)
+        assert map_insert.instance(mcfg) == _k1_instance(pack)
+        for cap in (1, 2):
+            dd = dataclasses.replace(mcfg, dedup_gather=True,
+                                     dedup_capacity=cap)
+            assert assoc.plan(dd, cached) == (name, wpb, words, scratch)
+    # f32 blocks stage 16 B a candidate: 864 take 14.7 KB a warp, 2 warps
+    # a block; a window of 35 KB a warp also runs 2; one over a block's
+    # shared memory puts the warps' buffers in device memory
+    f32 = _cfgs((4, 4, 2), (3, 3, 2), dense_bf16=False)[0].map
+    assert assoc.plan(f32) == ("staged", 2, 8 * 27 + 4 * 864, False)
+    big = _cfgs((4, 4, 2), (5, 5, 3), dense_bf16=False)[0].map
+    assert assoc.plan(big) == ("staged", 2, 8 * 64 + 4 * 2048, False)
+    huge = _cfgs((1, 1, 1), (10, 10, 10))[0].map
+    assert assoc.plan(huge)[1:] == (1, 8 * 9261 + 2 * 32 * 290, True)
 
 
 @pytest.fixture(scope="module")

@@ -229,9 +229,9 @@ def test_port_imports_no_jax():
 def test_init_state_accepts_packs_and_dedup():
     """Every map option of the reference is ported: any pack whose dims
     divide the map (rows of 4 cpr floats) and dedup_gather; a pack that
-    does not divide raises as the reference asserts.  A window beyond K2's
-    instances is named by `assoc.kernel_supports` (the card's wrapper
-    raises NotImplementedError there; the plain version runs it)."""
+    does not divide raises as the reference asserts.  Every window has a
+    K2 instance (`assoc.instance`), one wider than registers hold the
+    staged one."""
     from mmloam_tpu_torch.ops import assoc
 
     for pack, dedup in (((2, 2, 2), True), ((1, 1, 1), False),
@@ -245,13 +245,14 @@ def test_init_state_accepts_packs_and_dedup():
         assert tuple(st.vm_surf.cells.shape) == (
             CFG.map.dim_x * CFG.map.dim_y * CFG.map.dim_z // cpr, 4 * cpr)
         assert st.vm_local_corner.cells.shape[1] == 4 * 16
-        assert assoc.kernel_supports(mc) and assoc.kernel_supports(lc)
+        assert assoc.instance(mc) in assoc.INSTANCES
+        assert assoc.instance(lc) in assoc.INSTANCES
     with pytest.raises(ValueError, match="multiples"):
         tp.init_state(CFG.replace(map=dataclasses.replace(CFG.map, pack_x=5)),
                       device="cpu")
     wide = dataclasses.replace(CFG.map, stencil_x=3, stencil_y=3,
                                stencil_z=2)
-    assert not assoc.kernel_supports(wide)
+    assert assoc.instance(wide) == "staged"
     # the reference-faithful settings and the rig's modes are ported
     tp.init_state(FCFG, device="cpu")
     for kw in (dict(use_nonfeature=True), dict(imu_mode=0),
