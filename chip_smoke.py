@@ -33,17 +33,27 @@ Phases (any failure ends the run with a non-zero exit code):
    bounds tests/test_torch_pipeline.py states and justifies), with every
    association through K2;
 4. the main path: `replay_batch` at `LIOConfig()` with B=4 lanes and T=16
-   scans of 16x1024 VLP-16 + 6x2048 Horizon input, every lane initialized,
+   scans of 16x1024 VLP-16 + 6x2048 Horizon input (one
+   `pipeline.step_core_batch` over all lanes a scan, as every replaying
+   phase runs it), every lane initialized,
    finite poses, ATE < 0.15 m per lane, surf-map occupancy in
    (500, n_cells/4), K1 launched exactly 4*T times and K2 for every
    association call and every rescue (assoc.LAUNCHES == assoc.CALLS +
-   assoc.RESCUE_LAUNCHES, RESCUE_LAUNCHES == CALLS > 0); then a second,
-   timed run for scans/sec;
+   assoc.RESCUE_LAUNCHES, RESCUE_LAUNCHES == CALLS > 0), each call and
+   each launch serving all lanes; then a second, timed run for
+   scans/sec; then B=16 x T=8 (bench.py's batch): finite poses, ATE <
+   0.15 m per lane, K1 4*T launches, and as many K2 launches a lockstep
+   scan as at B=4;
 5. K2 and each of its stages against the plain version at flagship shapes
-   on the maps phase 4 built with K1 (lane 0): the newest frame's corner
-   (M=512, line mode) and surf (M=2048, plane mode) stacks against the
+   with the main path's lane axis: every lane of phase 4's final state
+   (B=4) in one launch, each lane its own maps (built by K1), its own
+   distance gate (`lane_thres`: the schedule's 1, 25 and 10 m^2 in turn)
+   and, in a rescue pair, its own flags and ranks, against the plain
+   version with the same axis, compared lane by lane (each lane's largest
+   error logged): each lane's newest corner
+   (M=512, line mode) and surf (M=2048, plane mode) stacks against its
    persistent map, their compacted rescue queries (Mr=256 / 1024) against
-   the local map, fresh and from cached blocks, with dense_bf16 on and off
+   its local map, fresh and from cached blocks, with dense_bf16 on and off
    (and the plane fit without the scatter gate, as faithful_config runs
    it).  GATHER (rows and the addresses the kernel computed), SELECT,
    NEED and t_k, n are exact; the float bounds are `assoc.compare`'s; a
@@ -51,8 +61,9 @@ Phases (any failure ends the run with a non-zero exit code):
    queries are counted.  Then the fused rescue pair of each map pair
    (`assoc.compare_rescue`), fresh and cached, at the flagship cap and
    with every failure tried.  Times per case as in phase 2 (device,
-   launch incl. host, entry, plain, bound); for one case (K2_TIMED_CASE)
-   each stage's launch against its plain cut;
+   launch incl. host, entry, plain, bound), of the launch over all four
+   lanes; for one case (K2_TIMED_CASE) each stage's launch against its
+   plain cut;
 6. `faithful_config(tiny_config())` over the 25-scan hall sequence, as
    tests/test_faithful_mode.py runs it: initialized, finite poses,
    ATE < FAITHFUL_ATE_MAX, and every association through K2;
@@ -76,26 +87,28 @@ Phases (any failure ends the run with a non-zero exit code):
    `imu_mode` 1 and 0 (never initialized) and `velo_only_mode` (no
    Horizon merge); finite poses and the ATE bounds of MODES.  On the
    use_nonfeature run's final state, the two calls only that mode makes
-   against their plain versions: K2's non-feature association (lane 0's
-   newest non stack, M=512, plane mode on vm_non, every stage, fresh and
-   cached, as phase 5) and K1's insert of every lane's non stack into
+   against their plain versions: K2's non-feature association (both
+   lanes' newest non stacks, M=512, plane mode on vm_non, one launch,
+   every stage, fresh and cached, as phase 5) and K1's insert of every
+   lane's non stack into
    vm_non (as phase 2);
 9. every map option through both kernels at `LIOConfig()` map widths: K1
    against its plain version at packs (2,2,2), (1,1,1) and (4,4,4)
    (phase 2's persistent cases); K2 at those packs and at pack (4,4,2)
    with stencil (3,3,2) (864 candidates a query, the staged instance) on
-   lane 0's maps from phase 4 (`repack`ed: the same fine cells), every
-   stage, fresh and cached, surf (M=2048, plane) and corner (M=512,
-   line), and each rescue pair (as phase 5, bf16 blocks, the cap binding
-   and not); the same at phase 10's maps (persistent (2,2,2), local
+   every lane's maps from phase 4 (`repack`ed: the same fine cells), all
+   four lanes in one launch as in phase 5, every stage, fresh and cached,
+   surf (M=2048, plane) and corner (M=512, line), and each rescue pair
+   (as phase 5, bf16 blocks, the cap binding and not); the same at phase
+   10's maps (persistent (2,2,2), local
    (1,1,1), dedup_gather on both: the pair's launches of two geometries,
    the local bound from the NEED flags), and at phase 12's maps
    (persistent (4,4,4), local (4,4,2) with stencil (3,3,2): each rescue
    pair's NEED launch 16 a lane, its RESCUE launch staged);
    `dedup_gather` at capacity 2 on
-   the newest surf stack (which must launch K2's default instance and no
-   other) and its rescue pair, and at capacity 1 on M=2048 queries spread
-   over the torus, which must overflow: the rows the kernel dropped are
+   the newest surf stacks (which must launch K2's default instance and no
+   other) and their rescue pair, and at capacity 1 on M=2048 queries a
+   lane spread over the torus, which must overflow: the rows the kernel dropped are
    held equal to the plain dedup gather's.  Times and bounds per case as
    phase 5;
 10. `replay_batch` at `LIOConfig()` with `map` at pack (2,2,2), `local_map`
@@ -119,7 +132,15 @@ Phases (any failure ends the run with a non-zero exit code):
    0.15 m per lane (logged beside phase 4's), K1 4*T launches (2*T
    through its warp-a-position instance, 2*T through the default one) and K2
    counts as phase 4, the persistent map's calls through the 16-a-lane
-   instance and every rescue through the staged one.
+   instance and every rescue through the staged one;
+13. the lockstep batch against each lane alone: phase 4's inputs, B=4 x
+   T=12, against each lane replayed at B=1: discrete outputs equal, poses
+   within LANES_POSE_ATOL; the last scan of each run is one
+   `step_core_batch` under torch.cuda.set_sync_debug_mode("error") (any
+   sync raises, boolean-mask indexing and nonzero included) with the
+   marginalization's named eigh syncs (`solver.NAMED_SYNCS`) alone
+   allowed; its K2 launches, the replay's K2 launches a scan and the
+   named syncs the same at B=1 as at B=4.
 
 Phases 4, 10 and 12 count the launches of each kernel instance
 (`map_insert.INSTANCE_LAUNCHES`, `assoc.INSTANCE_LAUNCHES`, set to 0
@@ -130,7 +151,9 @@ Before the last line come a JSON object with a row for each kernel
 instance (K1's default, warp-a-position and group instances, K2's
 default, 4-, 8- and 16-a-lane and staged ones): its launches in the replay phases that run
 it, its error and times on its phase 2, 5 or 9 case ("ms" is the launch
-incl. host, "device_ms" the kernel's own), and the card's name and power
+incl. host, "device_ms" the kernel's own; a K2 case is one launch over
+phase 4's four lanes, "bound_ms" that launch's work), and the card's
+name and power
 limit; the last line is
 {"ok": true, "device": {...}}.  Every number also goes to
 chip_smoke_out/chip_smoke.json.
@@ -150,6 +173,9 @@ import torch
 GOLDEN_POSE_ATOL = 0.01
 GOLDEN_ATE_SLACK = 0.01
 FLAGSHIP_B, FLAGSHIP_T = 4, 16
+WIDE_B, WIDE_T = 16, 8        # phase 4's second batch (bench.py's B=16)
+LANES_T = 12                  # phase 13's scans
+LANES_POSE_ATOL = 1e-5        # phase 13: a lane alone against the batch (m)
 ATE_MAX = 0.15
 FAITHFUL_ATE_MAX = 0.5
 # the K2 case whose time stands in the kernels line, and whose stages are
@@ -306,8 +332,9 @@ K2_RESULT_BYTES = 33
 
 def row_bytes(pw, mcfg):
     """Bytes of the distinct superrows (16 B a cell: 512 B at the default
-    pack) whose stencils this run's queries touch, counted with
-    torch.unique; under dedup_gather only the rows the dedup keeps."""
+    pack) whose stencils one lane's queries pw (M, 3) touch in its map,
+    counted with torch.unique; under dedup_gather only the rows the dedup
+    keeps."""
     from mmloam_tpu_torch.ops import voxelmap
 
     slots = voxelmap.stencil_addresses(pw, mcfg).slot
@@ -319,23 +346,25 @@ def row_bytes(pw, mcfg):
 
 
 def k2_work(vm, pw, mcfg, fresh, want_blocks):
-    """Bytes the association of `pw` must move (each byte of the function's
-    inputs read once, each byte of its result written once: queries and
-    mask, the gate, the superrows touched or the cached blocks and their
-    queries, K2_RESULT_BYTES per query, the blocks when asked) and its f32
-    operations (~30 per candidate: offsets, d2, selection compares,
-    moments)."""
+    """Bytes the association of the lanes' queries pw (B, M, 3), each lane
+    against its own map, must move (each byte of the function's inputs
+    read once, each byte of its result written once: queries and mask,
+    each lane's gate, the superrows each lane touches in its map or the
+    cached blocks and their queries, K2_RESULT_BYTES per query, the
+    blocks when asked) and its f32 operations (~30 per candidate:
+    offsets, d2, selection compares, moments)."""
     from mmloam_tpu_torch.ops import voxelmap
 
-    M = pw.shape[0]
+    B, M = pw.shape[:2]
     C = int(np.prod(voxelmap._super_window(mcfg))) * voxelmap._cpr(mcfg)
-    blk = 4 * M * C * (2 if mcfg.dense_bf16 else 4)
-    nbytes = M * (12 + 1) + 4 + M * K2_RESULT_BYTES
+    blk = 4 * B * M * C * (2 if mcfg.dense_bf16 else 4)
+    nbytes = B * M * (12 + 1) + 4 * B + B * M * K2_RESULT_BYTES
     if fresh:
-        nbytes += row_bytes(pw, mcfg) + (blk if want_blocks else 0)
+        nbytes += (sum(row_bytes(pw[b], mcfg) for b in range(B))
+                   + (blk if want_blocks else 0))
     else:
-        nbytes += M * 12 + blk
-    return nbytes, M * C * 30
+        nbytes += B * M * 12 + blk
+    return nbytes, B * M * C * 30
 
 
 def k1_bytes(map_insert, pts, mask, mcfg):
@@ -358,7 +387,8 @@ def census_inputs(cfg, dev, B=4, N=2048, seed=0):
     """A synthetic room (two walls and a floor, N points per lane) at the
     main path's shapes: B lanes of points, the persistent surf maps built
     from them with `insert_batched`, lane 0's points in a local map, and
-    queries (lane 0's points moved by 2 cm) with their mask."""
+    queries (lane 0's points moved by 2 cm) with their mask and gate, as
+    one lane with its lane axis (vm, vml, q, q_mask, thres)."""
     from mmloam_tpu_torch.ops import map_insert, voxelmap
 
     rng = np.random.default_rng(seed)
@@ -375,8 +405,9 @@ def census_inputs(cfg, dev, B=4, N=2048, seed=0):
     q = pts[0] + torch.from_numpy(rng.normal(0.0, 0.02, (N, 3)).astype(
         np.float32)).to(dev)
     return dict(cells=cells, pts=pts, mask=mask, vm=voxelmap.VoxelMap(
-        cells[0]), vml=voxelmap.VoxelMap(local[0]), q=q, q_mask=mask[0],
-        thres=torch.tensor(cfg.solver.thres_dist, device=dev))
+        cells[:1]), vml=voxelmap.VoxelMap(local), q=q[None],
+        q_mask=mask[:1], thres=torch.tensor([cfg.solver.thres_dist],
+                                            device=dev))
 
 
 def census_calls(cfg, inp):
@@ -385,7 +416,7 @@ def census_calls(cfg, inp):
     from mmloam_tpu_torch.estimator import factors
     from mmloam_tpu_torch.ops import assoc, map_insert
 
-    M = inp["q"].shape[0]
+    M = inp["q"].shape[1]
     return {
         "associate_with_rescue": (lambda: assoc.associate_with_rescue(
             inp["vm"], inp["vml"], inp["q"], inp["q_mask"], cfg.map,
@@ -669,14 +700,14 @@ def check_flagship(dev):
     pose = outs.pose_p.cpu().numpy()
     ts = outs.t.cpu().numpy()
     n_cells = cfg.map.dim_x * cfg.map.dim_y * cfg.map.dim_z
-    lanes = []
+    per_lane = []
     for b in range(B):
         ate = _ate(pose[:, b], ts[:, b], *gts[b])
         occ = int((voxelmap.VoxelMap(st.vm_surf.cells[b]).count > 0)
                   .sum())
-        lanes.append(dict(ate=ate, surf_cells=occ,
-                          inited_at=int(np.argmax(inited[:, b]))))
-        log(f"  lane {b}: inited at scan {lanes[-1]['inited_at']}, ATE "
+        per_lane.append(dict(ate=ate, surf_cells=occ,
+                             inited_at=int(np.argmax(inited[:, b]))))
+        log(f"  lane {b}: inited at scan {per_lane[-1]['inited_at']}, ATE "
             f"{ate:.4f} m, surf cells {occ}")
         if not inited[-1, b]:
             raise AssertionError(f"lane {b} never initialized")
@@ -691,7 +722,7 @@ def check_flagship(dev):
     log(f"  replay_batch B={B} T={T}: K1 launches {launches}, first run "
         f"{first_secs:.1f} s")
 
-    lane0 = _lane0(st)
+    lanes = _final_lanes(st)
     st = outs = states = None
     states = fresh_states(cfg, B, dev)
     torch.cuda.synchronize()
@@ -701,55 +732,201 @@ def check_flagship(dev):
     secs = time.perf_counter() - t0
     rate = B * T / secs
     log(f"  timed run: {secs:.2f} s, {rate:.3f} scans/sec")
+    states = scans = None
+    wide = check_wide_batch(dev, cfg, k2_launches / T)
     return dict(B=B, T=T, launches=launches, k2_launches=k2_launches,
                 instances=instances, first_secs=first_secs, timed_secs=secs,
-                scans_per_sec=rate, lanes=lanes), lane0
+                scans_per_sec=rate, lanes=per_lane, wide=wide), lanes
 
 
-def _lane0(st):
-    """Lane 0's maps, window poses and stacks (copies)."""
+def check_wide_batch(dev, cfg, k2_per_scan):
+    """Phase 4's B=16 x T=8 run: finite poses, ATE < ATE_MAX per lane, K1
+    4*T launches, K2 counts as above and as many K2 launches a lockstep
+    scan as at B=4 (`k2_per_scan`): one launch serves every lane."""
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.ops import assoc, map_insert
+
+    B, T = WIDE_B, WIDE_T
+    scans, gts = flagship_inputs(cfg, B, T, 7, dev)
+    states = fresh_states(cfg, B, dev)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    st, outs = replay.replay_batch(states, scans, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k2 = _check_k2_counts(f"replay_batch B={B}")
+    pose = outs.pose_p.cpu().numpy()
+    ts = outs.t.cpu().numpy()
+    ates = [_ate(pose[:, b], ts[:, b], *gts[b]) for b in range(B)]
+    log(f"  replay_batch B={B} T={T}: {secs:.2f} s, {B * T / secs:.3f} "
+        f"scans/sec, K1 {map_insert.LAUNCHES} launches, K2 {k2 / T:g} a "
+        f"scan (B={FLAGSHIP_B}: {k2_per_scan:g}), worst lane ATE "
+        f"{max(ates):.4f} m")
+    if not np.isfinite(pose).all():
+        raise AssertionError(f"B={B}: non-finite poses")
+    if not max(ates) < ATE_MAX:
+        raise AssertionError(f"B={B}: a lane's ATE {max(ates)} >= {ATE_MAX}")
+    if map_insert.LAUNCHES != 4 * T:
+        raise AssertionError(f"B={B}: K1 launched {map_insert.LAUNCHES} "
+                             f"times, want {4 * T}")
+    if k2 / T != k2_per_scan:
+        raise AssertionError(f"B={B}: {k2 / T} K2 launches a scan, "
+                             f"{k2_per_scan} at B={FLAGSHIP_B}")
+    return dict(B=B, T=T, secs=secs, scans_per_sec=B * T / secs,
+                k2_per_scan=k2 / T, k1_launches=map_insert.LAUNCHES,
+                ates=ates)
+
+
+def _final_lanes(st):
+    """Every lane's maps, window poses, extrinsics and stacks (copies, lane
+    axis first): what the association of the run's next scan reads."""
     keep = ("vm_corner", "vm_surf", "vm_non", "vm_local_corner",
             "vm_local_surf")
-    out = {f: getattr(st, f).cells[0].clone() for f in keep}
-    out.update(x=st.x[0].clone(), Rbl=st.Rbl[0].clone(),
-               tbl=st.tbl[0].clone(), stacks=type(st.stacks)(
-                   *(None if a is None else a[0].clone() for a in st.stacks)))
+    out = {f: getattr(st, f).cells.clone() for f in keep}
+    out.update(x=st.x.clone(), Rbl=st.Rbl.clone(), tbl=st.tbl.clone(),
+               stacks=type(st.stacks)(
+                   *(None if a is None else a.clone() for a in st.stacks)))
     return out
+
+
+def lane_thres(cfg, B, dev):
+    """A squared-distance gate a lane (B,): the values the estimator's
+    schedule gives (the full window's, the short window's, its second
+    round's), lane by lane in turn, so each lane of a launch reads its
+    own."""
+    s = cfg.solver
+    vals = (s.thres_dist, s.thres_dist_short, 10.0)
+    return torch.tensor([vals[b % len(vals)] for b in range(B)],
+                        dtype=torch.float32, device=dev)
+
+
+# --------------------------------------------------------------------------
+# phase 13: the lockstep batch against each lane alone, and its host syncs
+# --------------------------------------------------------------------------
+
+def _step_checked(st, sc, cfg):
+    """One `step_core_batch` under torch.cuda.set_sync_debug_mode("error")
+    (a sync raises, boolean-mask indexing and nonzero included; the
+    marginalization's eigh is the named exception, counted in
+    solver.NAMED_SYNCS), then the map inserts.  Returns (state, out, K2
+    launches of the step, named syncs of the step)."""
+    from mmloam_tpu_torch import pipeline
+    from mmloam_tpu_torch.estimator import solver
+    from mmloam_tpu_torch.ops import assoc
+
+    torch.cuda.synchronize()
+    k2, named = assoc.LAUNCHES, solver.NAMED_SYNCS
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, out, pend = pipeline.step_core_batch(st, sc, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    k2, named = assoc.LAUNCHES - k2, solver.NAMED_SYNCS - named
+    st = pipeline.apply_inserts_batched(st, pend, cfg)
+    torch.cuda.synchronize()
+    return st, out, k2, named
+
+
+def _lanes_run(cfg, states, scans, T):
+    """replay_batch over scans 0 .. T-2, the last scan `_step_checked`.
+    Returns (outputs (T, B, ...), K2 launches of the replay, of the
+    checked step, named syncs of the checked step)."""
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.ops import assoc
+    from mmloam_tpu_torch.tree import tree_map
+
+    _reset_counts()
+    st, outs = replay.replay_batch(states, tree_map(lambda a: a[:T - 1],
+                                                    scans), cfg)
+    k2_replay = assoc.LAUNCHES
+    st, out, k2_step, named = _step_checked(
+        st, tree_map(lambda a: a[T - 1], scans), cfg)
+    outs = tree_map(lambda a, b: torch.cat([a, b[None]]), outs, out)
+    return outs, k2_replay, k2_step, named
+
+
+def check_lanes(dev):
+    """Phase 13 (see the module docstring)."""
+    from mmloam_tpu_torch.config import LIOConfig
+    from mmloam_tpu_torch.tree import tree_map
+
+    cfg = LIOConfig()
+    B, T = FLAGSHIP_B, LANES_T
+    scans, gts = flagship_inputs(cfg, B, T, 7, dev)
+    outs, k2_replay, k2_step, named = _lanes_run(
+        cfg, fresh_states(cfg, B, dev), scans, T)
+    log(f"  B={B}: {k2_replay} K2 launches over {T - 1} scans, the checked "
+        f"scan {k2_step} launches and {named} named syncs, no other sync")
+    res = dict(B=B, T=T, k2_per_scan=k2_replay / (T - 1),
+               k2_checked_scan=k2_step, named_syncs=named, lanes=[])
+    if not outs.inited[-1].all():
+        raise AssertionError("phase 13: a lane never initialized")
+    discrete = ("inited", "fail", "degenerate", "n_corner", "n_surf",
+                "n_assoc_line", "n_assoc_plane", "fast_rotation",
+                "hori_merged")
+    for b in range(B):
+        o1, k2_1, k2s_1, named_1 = _lanes_run(
+            cfg, fresh_states(cfg, 1, dev),
+            tree_map(lambda a: a[:, b:b + 1], scans), T)
+        diff = [f for f in discrete
+                if not torch.equal(getattr(outs, f)[:, b],
+                                   getattr(o1, f)[:, 0])]
+        err = float((outs.pose_p[:, b] - o1.pose_p[:, 0]).abs().max())
+        errq = float((outs.pose_q[:, b] - o1.pose_q[:, 0]).abs().max())
+        log(f"  lane {b} alone: discrete outputs "
+            f"{'equal' if not diff else 'differ: ' + ', '.join(diff)}, "
+            f"max |pose_p - batch| {err:.3g} m, |pose_q| {errq:.3g}; K2 "
+            f"{k2_1} over {T - 1} scans, {k2s_1} in the checked scan, "
+            f"{named_1} named syncs")
+        res["lanes"].append(dict(pose_err=err, quat_err=errq,
+                                 k2_replay=k2_1, k2_step=k2s_1,
+                                 named_syncs=named_1))
+        if diff:
+            raise AssertionError(f"phase 13 lane {b}: {diff} differ")
+        if not (err <= LANES_POSE_ATOL and errq <= LANES_POSE_ATOL):
+            raise AssertionError(f"phase 13 lane {b}: pose off the batch's "
+                                 f"by {err} / {errq} > {LANES_POSE_ATOL}")
+        if (k2_1, k2s_1, named_1) != (k2_replay, k2_step, named):
+            raise AssertionError(f"phase 13 lane {b}: K2 launches or named "
+                                 f"syncs per scan depend on the lanes")
+    return res
 
 
 # --------------------------------------------------------------------------
 # phase 5: K2 against its plain version at flagship shapes
 # --------------------------------------------------------------------------
 
-def _assoc_cases(lane0, cfg):
-    """At the main path's shapes: (cases, pairs).  A case (label, vm, pw,
-    mask, mcfg, mode, scatter_ratio, moved pw) is the newest frame's stack
-    against the persistent map, or its compacted rescue queries against
-    the local map; a pair (label, vm, vm_local, pw, mask, mode,
-    scatter_ratio, moved pw) is the stack against both, as the rescue runs
-    it."""
+def _assoc_cases(lanes, cfg, thres):
+    """At the main path's shapes, every lane of phase 4's final state at
+    once (lane axis first, each lane its own maps and gate `thres`, as
+    one launch of the main path serves them): (cases, pairs).  A case
+    (label, vm, pw, mask, mcfg, mode, scatter_ratio, moved pw) is each
+    lane's newest stack against its persistent map, or its compacted
+    rescue queries against its local map; a pair (label, vm, vm_local,
+    pw, mask, mode, scatter_ratio, moved pw) is the stacks against both,
+    as the rescue runs them."""
     from mmloam_tpu_torch.estimator import factors
     from mmloam_tpu_torch.ops import assoc, voxelmap
 
     W = cfg.solver.window
-    x6 = lane0["x"][W - 1, :6]
-    st = lane0["stacks"]
+    x6 = lanes["x"][:, W - 1, :6]
+    st = lanes["stacks"]
     cases, pairs = [], []
     for feat, mode, vm_f, vml_f in (
             ("corner", assoc.LINE, "vm_corner", "vm_local_corner"),
             ("surf", assoc.PLANE, "vm_surf", "vm_local_surf")):
-        pts = getattr(st, feat)[W - 1]
-        mask = getattr(st, feat + "_mask")[W - 1]
-        world = lambda x: factors._world_points(x, pts, lane0["Rbl"],
-                                                lane0["tbl"])
+        pts = getattr(st, feat)[:, W - 1]
+        mask = getattr(st, feat + "_mask")[:, W - 1].contiguous()
+        world = lambda x: factors._world_points(x, pts, lanes["Rbl"],
+                                                lanes["tbl"]).contiguous()
         pw, moved = world(x6), world(x6 + 3e-3)
         sr = cfg.solver.plane_scatter_ratio if mode == assoc.PLANE else 0.0
-        vm = voxelmap.VoxelMap(lane0[vm_f])
-        vml = voxelmap.VoxelMap(lane0[vml_f])
+        vm = voxelmap.VoxelMap(lanes[vm_f])
+        vml = voxelmap.VoxelMap(lanes[vml_f])
         r, _ = assoc.associate_reference(vm, pw, mask, cfg.map,
-                                         cfg.map.knn, mode,
-                                         cfg.solver.thres_dist, sr)
-        M = pw.shape[0]
+                                         cfg.map.knn, mode, thres, sr)
+        M = pw.shape[1]
         sel = assoc._compact_indices(
             mask & ~r.valid, factors._rescue_cap(M,
                                                  cfg.solver.local_rescue_frac))
@@ -766,9 +943,15 @@ def _assoc_cases(lane0, cfg):
 def time_stages(dev, cargs):
     """Each stage's launch alone (fresh entry, launch incl. host: CUDA
     events around the wrapper's launch, median of 20) against the same cut
-    of the plain version."""
-    from mmloam_tpu_torch.ops import assoc
+    of the plain version, and its bound: `k2_work` without blocks, plus
+    for GATHER the rows and addresses it writes (16 cpr + 21 bytes a
+    window row, 12 a query)."""
+    from mmloam_tpu_torch.ops import assoc, voxelmap
 
+    vm, pw, _, mcfg = cargs[:4]
+    nbytes, ops = k2_work(vm, pw, mcfg, True, False)
+    queries = pw.shape[0] * pw.shape[1]
+    rows = queries * assoc.window_rows(mcfg)
     out = {}
     for stage, sname in enumerate(assoc.STAGE_NAMES):
         a, bufs = assoc.prepare(stage, *cargs, None, False)
@@ -777,9 +960,14 @@ def time_stages(dev, cargs):
         ms = cuda_ms(launch)
         plain_ms = cuda_ms(lambda: assoc.stage_reference(stage, *cargs))
         bufs = None
-        out[sname] = dict(device_ms=d_ms, ms=ms, plain_ms=plain_ms)
+        extra = (rows * (16 * voxelmap._cpr(mcfg) + 21) + 12 * queries
+                 if stage == assoc.GATHER else 0)
+        bound, by = bound_ms(nbytes + extra, ops)
+        out[sname] = dict(device_ms=d_ms, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by)
         log(f"    stage {sname:8s} device {d_ms:.4f} ms, launch incl. host "
-            f"{ms:.4f} ms, plain cut {plain_ms:.4f} ms")
+            f"{ms:.4f} ms, plain cut {plain_ms:.4f} ms, bound {bound:.4f} "
+            f"ms ({by})")
     return out
 
 
@@ -802,17 +990,58 @@ def time_k2(dev, cargs, cached, want):
                 bytes=nbytes, bound_ms=bound, bound_by=by)
 
 
+def _lane_cut(res, b):
+    """Lane b of a stage result (`run_stage`, `stage_reference`,
+    `run_rescue`), its lane axis kept; each gate's threshold taken at that
+    lane."""
+    out = {}
+    for name, a in res.items():
+        if name == "gates":
+            out[name] = [(q[b:b + 1], torch.as_tensor(
+                t, dtype=q.dtype, device=q.device).expand_as(q)[b:b + 1])
+                for q, t in a]
+        else:
+            out[name] = a[b:b + 1]
+    return out
+
+
+def compare_by_lane(check, mask, *results):
+    """A comparison of a lane-axis launch against the plain version with
+    the same axis, lane by lane: `check(*lane b of each result, lane b's
+    mask)` is `assoc.compare` or `assoc.compare_rescue`.  Returns (the
+    stats over the lanes: the largest error, the counts summed; each
+    lane's largest error).  A disagreement raises, naming its lane."""
+    stats, errs = {}, []
+    for b in range(mask.shape[0]):
+        try:
+            st = check(*(_lane_cut(r, b) for r in results), mask[b:b + 1])
+        except AssertionError as e:
+            raise AssertionError(f"lane {b}: {e}") from e
+        errs.append(st["max_abs_err"])
+        for key, v in st.items():
+            stats[key] = (max(stats.get(key, 0.0), v) if key == "max_abs_err"
+                          else stats.get(key, 0) + v)
+    return stats, errs
+
+
+def _errs(errs):
+    return "[" + ", ".join(f"{e:.3g}" for e in errs) + "]"
+
+
 def check_k2_case(dev, cfg, thres, case, timing, variants=None):
-    """One case (see `_assoc_cases`): K2 and each of its stages against
-    the plain version, fresh and from cached blocks, in each (dense_bf16,
+    """One case (see `_assoc_cases`): K2 and each of its stages, one
+    launch for all lanes, against the plain version with the same lane
+    axis, lane by lane, fresh and from cached blocks, in each (dense_bf16,
     scatter ratio) of `variants` (by default bf16 on and off, and a plane
-    fit also without the scatter gate); each variant's times, and the
-    rows a dedup gather dropped (the kernel's GATHER stage, held equal to
-    the plain version's), go into `timing`.  Returns (max error, queries
-    near a gate)."""
+    fit also without the scatter gate); each variant's times (of the
+    launch over every lane), each lane's largest error, and the rows a
+    dedup gather dropped (the kernel's GATHER stage, held equal to the
+    plain version's), go into `timing`.  Returns (max error, queries near
+    a gate)."""
     from mmloam_tpu_torch.ops import assoc
 
     label, vm, pw, mask, mcfg0, mode, sr, moved = case
+    B, M = pw.shape[:2]
     k = cfg.map.knn
     max_err, near = 0.0, 0
     if variants is None:
@@ -827,14 +1056,18 @@ def check_k2_case(dev, cfg, thres, case, timing, variants=None):
                                  ("cached", blocks, moved)):
             cargs = (vm, q) + args[2:]
             errs, n_near, dropped = [], 0, None
+            lane_errs = [0.0] * B
             for stage in range(len(assoc.STAGE_NAMES)):
                 if stage == assoc.GATHER and cached is not None:
                     continue
                 got = assoc.run_stage(stage, *cargs, cached=cached)
                 ref = assoc.stage_reference(stage, *cargs, cached=cached)
                 torch.cuda.synchronize()
-                st = assoc.compare(stage, got, ref, mask, mode)
+                st, per_lane = compare_by_lane(
+                    lambda g, r, m: assoc.compare(stage, g, r, m, mode),
+                    mask, got, ref)
                 errs.append(st["max_abs_err"])
+                lane_errs = [max(a, e) for a, e in zip(lane_errs, per_lane)]
                 n_near = max(n_near, st["near"])
                 if stage == assoc.GATHER:
                     dropped = st["dropped"]
@@ -843,14 +1076,15 @@ def check_k2_case(dev, cfg, thres, case, timing, variants=None):
             r, _ = assoc.associate_reference(*cargs, cached=cached)
             n_valid = int(r.valid.sum())
             name = f"{label} {entry} bf16={int(bf16)} scatter={ratio:g}"
-            timing[name] = dict(t, M=int(pw.shape[0]), valid=n_valid,
-                                near=n_near, max_abs_err=max(errs),
+            timing[name] = dict(t, B=B, M=M, valid=n_valid, near=n_near,
+                                max_abs_err=max(errs),
+                                lane_max_abs_err=lane_errs,
                                 dropped_rows=dropped)
             drops = ("" if dropped is None else
                      f", {dropped} window rows dropped (as plain)")
-            log(f"  K2 {name:42s} M={pw.shape[0]:4d}: all stages "
-                f"agree, max err {max(errs):.3g}, {n_near} near a "
-                f"gate, {n_valid} valid{drops}; device "
+            log(f"  K2 {name:42s} B={B} x M={M:4d}: all stages "
+                f"agree in every lane, max err by lane {_errs(lane_errs)}, "
+                f"{n_near} near a gate, {n_valid} valid{drops}; device "
                 f"{t['device_ms']:.4f}"
                 f" ms, launch incl. host {t['ms']:.4f} ms, entry "
                 f"{t['entry_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
@@ -862,10 +1096,13 @@ def check_k2_case(dev, cfg, thres, case, timing, variants=None):
     return max_err, near
 
 
-def check_assoc(dev, lane0, cfg):
-    thres = torch.tensor(cfg.solver.thres_dist, device=dev)
+def check_assoc(dev, lanes, cfg):
+    """Phase 5 (see the module docstring)."""
+    thres = lane_thres(cfg, lanes["x"].shape[0], dev)
+    log(f"  B={thres.shape[0]} lanes of phase 4's final state, a gate a "
+        f"lane {thres.tolist()}")
     max_err, near, timing = 0.0, 0, {}
-    cases, pairs = _assoc_cases(lane0, cfg)
+    cases, pairs = _assoc_cases(lanes, cfg, thres)
     for case in cases:
         err, n_near = check_k2_case(dev, cfg, thres, case, timing)
         max_err, near = max(max_err, err), near + n_near
@@ -877,18 +1114,28 @@ def check_assoc(dev, lane0, cfg):
 
 
 def check_rescue(dev, cfg, thres, label, vm, vml, pw, mask, mode, sr, moved):
-    """The fused rescue pair (NEED on the persistent map, RESCUE on the
-    local map) against both maps' plain versions, fresh and from cached
-    blocks, at the flagship cap and with every failure tried; times of
-    the fresh pair at the flagship cap."""
+    """The fused rescue pair (NEED on the persistent maps, RESCUE on the
+    local maps, each one launch for all lanes) against both maps' plain
+    versions with the same lane axis, lane by lane, fresh and from cached
+    blocks, at the flagship cap, at a cap that binds (half the fewest
+    flags a lane has: it binds in every lane with more flags than that)
+    and with every failure tried; times of the fresh pair at the flagship
+    cap."""
     from mmloam_tpu_torch.estimator import factors
     from mmloam_tpu_torch.ops import assoc
 
-    k, M = cfg.map.knn, pw.shape[0]
+    k, (B, M) = cfg.map.knn, pw.shape[:2]
     _, blocks = assoc.associate_reference(vm, pw, mask, cfg.map, k, mode,
                                           thres, sr)
+    flags = assoc.run_rescue(vm, vml, pw, mask, cfg.map, cfg.local_map, k,
+                             mode, thres, sr, M)["need"].sum(dim=1)
+    binding = max(1, int(flags.min()) // 2)
+    if not bool((flags > binding).any()):
+        raise AssertionError(f"{label}: no lane has more than {binding} "
+                             f"flags ({flags.tolist()}): no cap binds")
+    flagship = factors._rescue_cap(M, cfg.solver.local_rescue_frac)
     max_err, near, timing = 0.0, 0, {}
-    for cap in (factors._rescue_cap(M, cfg.solver.local_rescue_frac), M):
+    for cap in (flagship, binding, M):
         for entry, cached, q in (("fresh", None, pw), ("cached", blocks,
                                                        moved)):
             args = (vm, vml, q, mask, cfg.map, cfg.local_map, k, mode, thres,
@@ -899,30 +1146,37 @@ def check_rescue(dev, cfg, thres, label, vm, vml, pw, mask, mode, sr, moved):
             refs = assoc.rescue_stage_reference(*args, cached, cap,
                                                 got["need"])
             torch.cuda.synchronize()
-            st = assoc.compare_rescue(got, refs, mask, mode, cap)
+            st, lane_errs = compare_by_lane(
+                lambda g, r1, r2, m: assoc.compare_rescue(g, (r1, r2), m,
+                                                          mode, cap),
+                mask, got, *refs)
             name = f"{label} {entry} cap={cap}"
             dropped = local_rows_dropped(pw, got["need"], cfg.local_map, cap)
             drops = ("" if dropped is None else
                      f", {dropped} local window rows over the dedup bound")
-            log(f"  K2 {name:42s} M={M:4d}: agrees, max err "
-                f"{st['max_abs_err']:.3g}, {st['near']} near a gate, "
-                f"{st['flagged']} flagged, {st['served']} served{drops}")
+            log(f"  K2 {name:42s} B={B} x M={M:4d}: agrees in every lane, "
+                f"max err by lane {_errs(lane_errs)}, {st['near']} near a "
+                f"gate, {st['flagged']} flagged, {st['served']} "
+                f"served{drops}")
             max_err, near = max(max_err, st["max_abs_err"]), near + st["near"]
-            timing[name] = dict(M=M, flagged=st["flagged"],
+            timing[name] = dict(B=B, M=M, flagged=st["flagged"],
                                 served=st["served"], near=st["near"],
                                 max_abs_err=st["max_abs_err"],
+                                lane_max_abs_err=lane_errs,
                                 local_dropped_rows=dropped)
-            if entry != "fresh" or cap == M:
+            if entry != "fresh" or cap != flagship:
                 continue
             call = lambda: assoc.associate_with_rescue(
                 *args, cap, want_blocks=True)
             d_ms, how = device_ms(call, "assoc_kernel", call, per_call=2)
-            # the pair's function: the persistent map's association with
-            # its blocks, and the local map's rows for the queries it tries
-            tried = q[assoc._tried(got["need"], cap)]
+            # the pair's function: the persistent maps' association with
+            # their blocks, and each lane's local map's rows for the
+            # queries it tries
+            tried = assoc._tried(got["need"], cap)
             b1, o1 = k2_work(vm, q, cfg.map, True, True)
-            nbytes = b1 + row_bytes(tried, cfg.local_map)
-            bound, by = bound_ms(nbytes, o1 + tried.shape[0] * 30
+            nbytes = b1 + sum(row_bytes(q[b][tried[b]], cfg.local_map)
+                              for b in range(B))
+            bound, by = bound_ms(nbytes, o1 + int(tried.sum()) * 30
                                  * assoc.n_candidates(cfg.local_map))
             timing[name].update(
                 device_ms=d_ms, device_how=how,
@@ -938,20 +1192,21 @@ def check_rescue(dev, cfg, thres, label, vm, vml, pw, mask, mode, sr, moved):
 
 
 def local_rows_dropped(pw, need, lcfg, cap):
-    """Under the local map's dedup_gather, the window rows of the rescue's
-    query set (every query when the cap does not bind, else the first cap
-    flagged and the pads, as `assoc._rescue_pair` ranks them) whose slot
-    lies over the bound; None without dedup_gather."""
+    """Under the local map's dedup_gather, the window rows of each lane's
+    rescue query set (every query when the cap does not bind, else the
+    first cap flagged and the pads, as `assoc._rescue_pair` ranks them)
+    whose slot lies over that lane's bound, summed over the lanes; None
+    without dedup_gather."""
     from mmloam_tpu_torch.ops import assoc, voxelmap
 
     if not lcfg.dedup_gather:
         return None
-    M = pw.shape[0]
+    M = pw.shape[1]
     pw_r = pw if cap >= M else assoc._rescue_queries(pw, need, cap)[1]
     slot = voxelmap.stencil_addresses(pw_r, lcfg).slot
     thr = voxelmap.dedup_threshold(
-        slot, voxelmap.dedup_capacity(lcfg, pw_r.shape[0]))
-    return int((slot > thr).sum())
+        slot, voxelmap.dedup_capacity(lcfg, pw_r.shape[1]))
+    return int((slot > thr[:, None, None]).sum())
 
 
 # --------------------------------------------------------------------------
@@ -1341,21 +1596,22 @@ MODES = (("use_nonfeature", dict(use_nonfeature=True), ATE_MAX),
          ("velo_only_mode", dict(velo_only_mode=True), ATE_MAX))
 
 
-def _nonfeature_case(lane0, cfg):
+def _nonfeature_case(lanes, cfg):
     """The non-feature association as `reduced.build_reduced` runs it, at
-    the main path's shapes: lane 0's newest `non` stack (M=512) against its
-    vm_non, plane mode, no local map; a case of `_assoc_cases`."""
+    the main path's shapes: every lane's newest `non` stack (M=512)
+    against its vm_non, plane mode, no local map; a case of
+    `_assoc_cases`."""
     from mmloam_tpu_torch.estimator import factors
     from mmloam_tpu_torch.ops import assoc, voxelmap
 
     W = cfg.solver.window
-    x6 = lane0["x"][W - 1, :6]
-    pts = lane0["stacks"].non[W - 1]
-    world = lambda x: factors._world_points(x, pts, lane0["Rbl"],
-                                            lane0["tbl"])
-    return ("non persistent", voxelmap.VoxelMap(lane0["vm_non"]), world(x6),
-            lane0["stacks"].non_mask[W - 1], cfg.map, assoc.PLANE,
-            cfg.solver.plane_scatter_ratio, world(x6 + 3e-3))
+    x6 = lanes["x"][:, W - 1, :6]
+    pts = lanes["stacks"].non[:, W - 1]
+    world = lambda x: factors._world_points(x, pts, lanes["Rbl"],
+                                            lanes["tbl"]).contiguous()
+    return ("non persistent", voxelmap.VoxelMap(lanes["vm_non"]), world(x6),
+            lanes["stacks"].non_mask[:, W - 1].contiguous(), cfg.map,
+            assoc.PLANE, cfg.solver.plane_scatter_ratio, world(x6 + 3e-3))
 
 
 def check_nonfeature_insert(st, cfg):
@@ -1457,10 +1713,11 @@ def check_modes(dev):
             raise AssertionError(f"{name}: vm_non holds "
                                  f"{r['vm_non_cells']} cells")
         if cfg.use_nonfeature:
-            thres = torch.tensor(cfg.solver.thres_dist, device=dev)
+            thres = lane_thres(cfg, MODE_B, dev)
             timing = {}
             errs["k2"], near = check_k2_case(
-                dev, cfg, thres, _nonfeature_case(_lane0(st), cfg), timing)
+                dev, cfg, thres, _nonfeature_case(_final_lanes(st), cfg),
+                timing)
             errs["k1"], n_ins = check_nonfeature_insert(st, cfg)
             r.update(k2_cases=timing, k2_max_abs_err=errs["k2"],
                      k2_near=near, k1_max_abs_err=errs["k1"],
@@ -1523,21 +1780,22 @@ def spread_queries(mcfg, M, dev, seed=5):
     return torch.from_numpy(q).to(dev)
 
 
-def check_packs_and_dedup(dev, lane0):
+def check_packs_and_dedup(dev, lanes):
     """Phase 9 at `LIOConfig()` map widths.  K1 against its plain version
     at packs (2,2,2), (1,1,1) and (4,4,4) on the persistent map (phase 2's
     cases); K2 at those packs and at pack (4,4,2) with stencil (3,3,2) on
-    lane 0's maps from phase 4 (repacked), every stage, fresh and cached,
+    every lane's maps from phase 4 (repacked), one launch for all lanes
+    as in phase 5, every stage, fresh and cached,
     surf (M=2048, plane) and corner (M=512, line), and each rescue pair,
     as phase 5 runs them (bf16 blocks, the default's); the same at
     `pack_dedup_config()` (phase 10's maps, tag "mixed"), with each
     rescue pair's local rows over the dedup bound logged, and at
     `wide_config()` (phase 12's maps, tag "wide"); then
     `dedup_gather` at the default pack, capacity 2 on the newest surf
-    stack (clustered queries; it must launch K2's default instance and no
-    other), its rescue pair with the local map under the same dedup, and
-    capacity 1 on M=2048 queries spread over the torus, which must
-    overflow.  Rows dropped are the GATHER stage's, held equal to the
+    stacks (clustered queries; it must launch K2's default instance and
+    no other), its rescue pair with the local maps under the same dedup,
+    and capacity 1 on M=2048 queries a lane spread over the torus, which
+    must overflow.  Rows dropped are the GATHER stage's, held equal to the
     plain dedup gather's.  Returns the launches of each instance too."""
     from mmloam_tpu_torch.config import LIOConfig
     from mmloam_tpu_torch.ops import assoc, voxelmap
@@ -1547,7 +1805,8 @@ def check_packs_and_dedup(dev, lane0):
     shapes = [("pack{}{}{} persistent".format(*p), with_pack(cfg0.map, p),
                16, 2048) for p in NEW_PACKS]
     k1_err, k1_timing = check_map_insert(dev, shapes)
-    thres = torch.tensor(cfg0.solver.thres_dist, device=dev)
+    B = lanes["x"].shape[0]
+    thres = lane_thres(cfg0, B, dev)
     timing, max_err, near = {}, 0.0, 0
 
     def k2(cfg, case, pair=False):
@@ -1575,19 +1834,21 @@ def check_packs_and_dedup(dev, lane0):
     # lane), its RESCUE launch on the (4,4,2) / (3,3,2) local map (staged)
     geoms.append(("wide ", wide_config()))
     for tag, cfg in geoms:
-        lane = dict(lane0)
+        at = dict(lanes)
         for f in ("vm_corner", "vm_surf"):
-            lane[f] = repack(lane0[f], cfg0.map, cfg.map)
+            at[f] = torch.stack([repack(c, cfg0.map, cfg.map)
+                                 for c in lanes[f]])
         for f in ("vm_local_corner", "vm_local_surf"):
-            lane[f] = repack(lane0[f], cfg0.local_map, cfg.local_map)
-        cases, pairs = _assoc_cases(lane, cfg)
+            at[f] = torch.stack([repack(c, cfg0.local_map, cfg.local_map)
+                                 for c in lanes[f]])
+        cases, pairs = _assoc_cases(at, cfg, thres)
         for case in cases:
             k2(cfg, (tag + case[0],) + case[1:])
         for pair in pairs:
             k2(cfg, (tag + pair[0],) + pair[1:], pair=True)
-        lane = None
+        at = cases = pairs = None
 
-    cases, pairs = _assoc_cases(lane0, cfg0)
+    cases, pairs = _assoc_cases(lanes, cfg0, thres)
     surf = next(c for c in cases if c[0] == "surf persistent")
     rescue = next(p for p in pairs if p[0] == "surf rescue")
     dd = cfg0.replace(
@@ -1607,8 +1868,9 @@ def check_packs_and_dedup(dev, lane0):
     k2(dd, ("dedup2 surf rescue",) + rescue[1:], pair=True)
     spread = dataclasses.replace(cfg0.map, dedup_gather=True,
                                  dedup_capacity=1)
-    q = spread_queries(spread, 2048, dev)
-    ones = torch.ones(2048, dtype=torch.bool, device=dev)
+    q = torch.stack([spread_queries(spread, 2048, dev, seed=5 + b)
+                     for b in range(B)])
+    ones = torch.ones((B, 2048), dtype=torch.bool, device=dev)
     k2(dd, ("dedup1 spread persistent", surf[1], q, ones, spread,
             assoc.PLANE, surf[6], q + 3e-3))
     dropped = timing["dedup1 spread persistent fresh bf16=1 scatter="
@@ -1620,9 +1882,10 @@ def check_packs_and_dedup(dev, lane0):
         d = t.get("dropped_rows", t.get("local_dropped_rows"))
         if n.startswith("mixed") and d is not None:
             mixed[n] = d
-    log(f"  dedup: capacity 2 on the surf stack dropped {kept2} window "
+    log(f"  dedup: capacity 2 on the surf stacks dropped {kept2} window "
         f"rows; capacity 1 on spread queries dropped {dropped} of "
-        f"{2048 * assoc.window_rows(spread)}; pack (2,2,2) / local (1,1,1) "
+        f"{B * 2048 * assoc.window_rows(spread)}; pack (2,2,2) / local "
+        "(1,1,1) "
         "(phase 10's maps): " + ", ".join(f"{n} {d}"
                                           for n, d in mixed.items()))
     if not dropped > 0:
@@ -1975,6 +2238,8 @@ def kernel_rows(k1_err, k2_err, k1_timing, k2_timing, packs, paths):
             "case": case, "ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+        if not k1:      # the case's launch over phase 4's lanes
+            rows[-1]["lanes"] = t["B"]
         if (kern, inst) == ("k2", "default"):
             rows[-1]["dedup_default_window_launches"] = \
                 packs["dedup_default_launches"]
@@ -2024,12 +2289,13 @@ def main():
     check_hall_golden(dev)
 
     phase("phase 4: flagship replay_batch")
-    flag, lane0 = check_flagship(dev)
+    flag, lanes = check_flagship(dev)
 
-    phase("phase 5: K2 against its plain version at flagship shapes")
+    phase("phase 5: K2 against its plain version at flagship shapes, every "
+          "lane of phase 4 in one launch")
     from mmloam_tpu_torch.config import LIOConfig
 
-    k2_err, k2_near, k2_timing = check_assoc(dev, lane0, LIOConfig())
+    k2_err, k2_near, k2_timing = check_assoc(dev, lanes, LIOConfig())
     log(f"  {k2_near} query results excused near a gate threshold in all")
 
     phase("phase 6: faithful_config hall replay")
@@ -2045,8 +2311,8 @@ def main():
 
     phase("phase 9: K1 and K2 at packs (2,2,2), (1,1,1), (4,4,4) and "
           "(4,4,2) with stencil (3,3,2), and under dedup_gather")
-    packs = check_packs_and_dedup(dev, lane0)
-    lane0 = None
+    packs = check_packs_and_dedup(dev, lanes)
+    lanes = None
     max_err = max(max_err, packs["k1_max_abs_err"])
     k2_err = max(k2_err, packs["k2_max_abs_err"])
 
@@ -2061,6 +2327,10 @@ def main():
           "replay_batch at full width")
     wide = check_wide_replay(dev, flag)
 
+    phase("phase 13: the lockstep batch against each lane alone; a scan "
+          "under torch.cuda.set_sync_debug_mode('error')")
+    lanes = check_lanes(dev)
+
     phase("all phases passed")
     kernels = {"kernels": kernel_rows(
         max_err, k2_err, k1_timing, k2_timing, packs,
@@ -2072,7 +2342,7 @@ def main():
         json.dump(dict(card=card, traces=traces, k1=k1_timing, k2=k2_timing,
                        flagship=flag, faithful=faithful, recorded=recorded,
                        modes=modes, packs=packs, pack_replay=pack_replay,
-                       split=split, wide=wide), f, indent=1)
+                       split=split, wide=wide, lanes=lanes), f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,12 +15,17 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   synthetic room at the main path's shapes: `factors.associate_planes`
   and `associate_lines` with the local rescue, `assoc.associate_with_rescue`
   where the tree has it, and `map_insert.insert_batched`;
-- then on the flagship `replay_batch` (LIOConfig(), B=4 x T=16, inputs as
-  chip_smoke.py phase 4 builds them): each lane's ATE (the warm-up run),
-  replay scans/sec (a warm-up run, then two timed runs; host clock around
-  work that ends in a synchronize), and the device busy share over scans
-  14-15 of a third run under torch.profiler (kernel device time over the
-  profiled wall, and over the unprofiled wall of the timed runs);
+- then on the flagship `replay_batch` (LIOConfig(), B=4 x T=16 unless
+  `--batch`/`--scans` say otherwise, inputs as chip_smoke.py phase 4
+  builds them): each lane's ATE (the warm-up run), replay scans/sec (a
+  warm-up run, then `--timed` timed runs, two by default; host clock
+  around work that ends in a synchronize), K1's and K2's launches per
+  lockstep scan (the counters over the first timed run), and, over the
+  last two scans of a further run under torch.profiler, the device busy
+  share (kernel device time over the profiled wall, and over the
+  unprofiled wall of the timed runs) and the host syncs per lockstep scan
+  (`aten::_local_scalar_dense` events, and those under
+  `aten::_linalg_eigh`, the named ones);
 - K2 on lane 0's maps (surf M=2048 fresh with blocks, surf from cached
   blocks, corner M=512 fresh): the kernel's device time (torch.profiler
   self device time over its launches, or a CUDA graph of 100 launches
@@ -29,6 +34,12 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   version (`assoc.associate_reference`) and the bound (chip_smoke.k2_work,
   from this run's inputs); one `associate_planes` / `associate_lines`
   call and `associate_with_rescue` alone, synchronised host clock;
+- where the tree has the batched step, the breakdown of a B x T=12
+  replay (B the replay's lanes) after a warm-up: a synchronize and a host
+  clock around each layer (`BREAKDOWN`);
+- K2's lane axis, where the tree has one: one fresh launch (surf, M=2048
+  a lane, with blocks) over 4 and 16 lanes (the replay's lanes repeated),
+  beside one launch on lane 0 alone;
 - K1 on chip_smoke.py phase 2's accumulate case (second insert) at B=16
   and B=4, N=2048, and on the main path's own insert (each lane's newest
   surf stack into its persistent surf map after the warm-up run): device
@@ -44,11 +55,16 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   its `map_insert.instance` picks.  A geometry a tree's kernels refuse is
   recorded with the error.
 
-`--only-k1` times K1's cases alone (no census, replay or K2).
+`--only-k1` times K1's cases alone (no census, replay or K2);
+`--replay-only` the replay rows, K2's lane axis and the breakdown alone
+(a B=16 x T=8 call takes about 80 s a run on the parent tree:
+`--replay-only --batch 16 --scans 8 --timed 1`; one sequence alone, as
+`replay.replay` runs it: `--replay-only --batch 1`).
 
 The kernels' launch functions differ between trees; where a tree has the
-older API (no `map_insert.sort_points`, no `assoc.associate_with_rescue`)
-this script takes that tree's.  Prints one JSON line per tree and writes
+older API (no `map_insert.sort_points`, no `assoc.associate_with_rescue`,
+K2 wrappers without a lane axis: no `assoc._check_lanes`) this script
+takes that tree's (`_up` gives one lane in the form the tree's K2 takes).  Prints one JSON line per tree and writes
 them all to `--out`.
 """
 
@@ -76,6 +92,26 @@ def _smoke():
     return mod
 
 
+def _up(assoc):
+    """One lane's K2 arguments (queries, masks, gates, maps' cells, x6
+    and extrinsics) in the form this tree's wrappers take them: with a
+    lane axis of one, or as they are on a tree older than the lane axis
+    (no `assoc._check_lanes`)."""
+    if hasattr(assoc, "_check_lanes"):
+        return lambda a: a[None]
+    return lambda a: a
+
+
+def _lane0(cs, st):
+    """Lane 0 of a run's final state without its lane axis: maps, window
+    poses, extrinsics and stacks (copies)."""
+    full = cs._final_lanes(st)
+    out = {k: v[0] for k, v in full.items() if k != "stacks"}
+    out["stacks"] = type(full["stacks"])(
+        *(None if a is None else a[0] for a in full["stacks"]))
+    return out
+
+
 def _synced_ms(fn, reps=20):
     """Median host-clock time of `fn()` between two synchronizes, ms."""
     import numpy as np
@@ -94,16 +130,18 @@ def _synced_ms(fn, reps=20):
 
 def _association_calls(cfg, inp):
     """{name: call} of one association as the estimator makes it, on
-    chip_smoke's census inputs (identity pose)."""
+    chip_smoke's census inputs (one lane, identity pose) in the tree's
+    form."""
     import torch
 
     from mmloam_tpu_torch.estimator import factors
-    from mmloam_tpu_torch.ops import assoc
+    from mmloam_tpu_torch.ops import assoc, voxelmap
 
-    q, mask, vm, vml, thres = (inp[f] for f in ("q", "q_mask", "vm", "vml",
-                                                "thres"))
+    up = _up(assoc)
+    q, mask, thres = (up(inp[f][0]) for f in ("q", "q_mask", "thres"))
+    vm, vml = (voxelmap.VoxelMap(up(inp[f].cells[0])) for f in ("vm", "vml"))
     dev = q.device
-    x6, Rbl, tbl = (torch.zeros(6, device=dev), torch.eye(3, device=dev),
+    x6, Rbl, tbl = (up(torch.zeros(6, device=dev)), torch.eye(3, device=dev),
                     torch.zeros(3, device=dev))
     calls = {
         "associate_planes": lambda: factors.associate_planes(
@@ -116,7 +154,7 @@ def _association_calls(cfg, inp):
         calls["associate_with_rescue"] = lambda: assoc.associate_with_rescue(
             vm, vml, q, mask, cfg.map, cfg.local_map, cfg.map.knn,
             assoc.PLANE, thres, cfg.solver.plane_scatter_ratio,
-            factors._rescue_cap(q.shape[0], cfg.solver.local_rescue_frac),
+            factors._rescue_cap(q.shape[-2], cfg.solver.local_rescue_frac),
             want_blocks=True)
     return calls
 
@@ -143,19 +181,35 @@ def _census(cs, cfg, dev):
     return out, inp
 
 
-def _replay(cs, cfg, dev):
+def _syncs(prof):
+    """(host syncs, those under torch.linalg.eigh) in a profile: the
+    `aten::_local_scalar_dense` events, each a device value read on the
+    host."""
+    n = named = 0
+    for e in prof.events():
+        if e.name != "aten::_local_scalar_dense":
+            continue
+        n += 1
+        p = e.cpu_parent
+        while p is not None and "linalg_eigh" not in p.name:
+            p = p.cpu_parent
+        named += p is not None
+    return n, named
+
+
+def _replay(cs, cfg, dev, B=4, T=16, timed=2):
     import torch
 
     from mmloam_tpu_torch import replay
     from mmloam_tpu_torch.estimator import factors
+    from mmloam_tpu_torch.ops import assoc, map_insert
 
-    B, T = 4, 16
     scans, gts = cs.flagship_inputs(cfg, B, T, 7, dev)
     st, outs = replay.replay_batch(cs.fresh_states(cfg, B, dev), scans, cfg)
     torch.cuda.synchronize()
     pose, ts = outs.pose_p.cpu().numpy(), outs.t.cpu().numpy()
     ate = [cs._ate(pose[:, b], ts[:, b], *gts[b]) for b in range(B)]
-    lane0 = cs._lane0(st)
+    lane0 = _lane0(cs, st)
     # the main path's own insert: each lane's newest surf stack into its
     # persistent surf map
     W = cfg.solver.window
@@ -165,14 +219,19 @@ def _replay(cs, cfg, dev):
     main_insert = (st.vm_surf.cells.clone(), pw,
                    st.stacks.surf_mask[:, W - 1].contiguous())
     st = None
-    secs = []
-    for _ in range(2):
+    secs, launches = [], None
+    for _ in range(timed):
         states = cs.fresh_states(cfg, B, dev)
         torch.cuda.synchronize()
+        cs._reset_counts()
         t0 = time.perf_counter()
         replay.replay_batch(states, scans, cfg)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        if launches is None:
+            launches = dict(k1_per_scan=map_insert.LAUNCHES / T,
+                            k2_per_scan=assoc.LAUNCHES / T,
+                            k2_calls_per_scan=assoc.CALLS / T)
     cut = lambda lo, hi: type(scans)(*(None if a is None else a[lo:hi]
                                        for a in scans))
     st, _ = replay.replay_batch(cs.fresh_states(cfg, B, dev), cut(0, T - 2),
@@ -188,14 +247,52 @@ def _replay(cs, cfg, dev):
         wall = time.perf_counter() - t0
     dev_us = sum(cs._self_device_us(e) for e in prof.key_averages()
                  if "CUDA" in str(getattr(e, "device_type", "")))
+    syncs, named = _syncs(prof)
     lane_scans = B * 2
     per_scan_unprof = min(secs) / (B * T)
     return lane0, main_insert, dict(
         B=B, T=T, ate=ate, timed_secs=secs,
         scans_per_sec=[B * T / s for s in secs],
-        busy_window="scans 14-15", device_ms_per_lane_scan=dev_us / 1e3
-        / lane_scans, busy_share_profiled=dev_us / 1e6 / wall,
-        busy_share_unprofiled=dev_us / 1e6 / lane_scans / per_scan_unprof)
+        busy_window=f"scans {T - 2}-{T - 1}",
+        device_ms_per_lane_scan=dev_us / 1e3 / lane_scans,
+        device_ms_per_lockstep_scan=dev_us / 1e3 / 2,
+        busy_share_profiled=dev_us / 1e6 / wall,
+        busy_share_unprofiled=dev_us / 1e6 / lane_scans / per_scan_unprof,
+        syncs_per_lockstep_scan=syncs / 2,
+        named_syncs_per_lockstep_scan=named / 2, **launches)
+
+
+def _time_k2(cs, dev, vm, pw, mask, mcfg, mode, thres, sr, cached, want):
+    """K2's times on one lane's case, its arguments in the tree's form
+    (`_up`): device time, launch incl. host, the entry (`assoc.associate`),
+    the plain version (`assoc.associate_reference`) and the bound."""
+    from mmloam_tpu_torch.ops import assoc
+
+    cargs = (vm, pw, mask, mcfg, mcfg.knn, mode, thres, sr)
+    a, bufs = assoc.prepare(assoc.OUT, *cargs, cached, want)
+    launch = lambda: assoc.launch(assoc.OUT, a, dev)
+    entry = lambda: assoc.associate(*cargs, cached=cached, want_blocks=want)
+    d_ms, how = cs.device_ms(entry, "assoc_kernel", launch)
+    q = pw if pw.dim() == 3 else pw[None]
+    nbytes, ops = cs.k2_work(vm, q, mcfg, cached is None, want)
+    bound, by = cs.bound_ms(nbytes, ops)
+    return dict(M=int(q.shape[1]), device_ms=d_ms, device_how=how,
+                launch_ms=cs.cuda_ms(launch), entry_ms=cs.cuda_ms(entry),
+                plain_ms=cs.cuda_ms(lambda: assoc.associate_reference(
+                    *cargs, cached=cached)),
+                bytes=nbytes, bound_ms=bound, bound_by=by)
+
+
+def _stack(lane0, cfg, feat, moved=False):
+    """Lane 0's newest `feat` stack in the world at its window pose (3 mm
+    off with `moved`) and its mask, without a lane axis."""
+    from mmloam_tpu_torch.estimator import factors
+
+    W = cfg.solver.window
+    x6 = lane0["x"][W - 1, :6] + (3e-3 if moved else 0.0)
+    p_l = getattr(lane0["stacks"], feat)[W - 1]
+    return (factors._world_points(x6, p_l, lane0["Rbl"], lane0["tbl"]),
+            getattr(lane0["stacks"], feat + "_mask")[W - 1])
 
 
 def _k2(cs, lane0, cfg, dev):
@@ -204,65 +301,152 @@ def _k2(cs, lane0, cfg, dev):
     from mmloam_tpu_torch.estimator import factors
     from mmloam_tpu_torch.ops import assoc, voxelmap
 
+    up = _up(assoc)
     W = cfg.solver.window
     st = lane0["stacks"]
     x6 = lane0["x"][W - 1, :6]
     k = cfg.map.knn
-    thres = torch.tensor(cfg.solver.thres_dist, device=dev)
+    thres = up(torch.tensor(cfg.solver.thres_dist, device=dev))
     out = {}
     calls = {}
     for feat, mode, vm_f, vml_f in (
             ("surf", assoc.PLANE, "vm_surf", "vm_local_surf"),
             ("corner", assoc.LINE, "vm_corner", "vm_local_corner")):
         p_l = getattr(st, feat)[W - 1]
-        mask = getattr(st, feat + "_mask")[W - 1]
-        pw = factors._world_points(x6, p_l, lane0["Rbl"], lane0["tbl"])
-        moved = factors._world_points(x6 + 3e-3, p_l, lane0["Rbl"],
-                                      lane0["tbl"])
+        pw, mask = _stack(lane0, cfg, feat)
+        moved, _ = _stack(lane0, cfg, feat, moved=True)
         sr = cfg.solver.plane_scatter_ratio if mode == assoc.PLANE else 0.0
-        vm = voxelmap.VoxelMap(lane0[vm_f])
-        vml = voxelmap.VoxelMap(lane0[vml_f])
-        args = (vm, pw, mask, cfg.map, k, mode, thres, sr)
-        _, blocks = assoc.associate_reference(*args)
+        vm = voxelmap.VoxelMap(up(lane0[vm_f]))
+        vml = voxelmap.VoxelMap(up(lane0[vml_f]))
+        _, blocks = assoc.associate_reference(vm, up(pw), up(mask), cfg.map,
+                                              k, mode, thres, sr)
         entries = [("fresh", None, pw)]
         if feat == "surf":
             entries.append(("cached", blocks, moved))
         for entry, cached, q in entries:
-            cargs = (vm, q) + args[2:]
-            want = cached is None
-            a, bufs = assoc.prepare(assoc.OUT, *cargs, cached, want)
-            launch = lambda: assoc.launch(assoc.OUT, a, dev)
-            entry_fn = lambda: assoc.associate(*cargs, cached=cached,
-                                               want_blocks=want)
-            d_ms, how = cs.device_ms(entry_fn, "assoc_kernel", launch)
-            nbytes, ops = cs.k2_work(vm, q, cfg.map, cached is None, want)
-            bound, by = cs.bound_ms(nbytes, ops)
-            out[f"{feat} persistent {entry}"] = dict(
-                M=int(q.shape[0]), device_ms=d_ms, device_how=how,
-                launch_ms=cs.cuda_ms(launch), entry_ms=cs.cuda_ms(entry_fn),
-                plain_ms=cs.cuda_ms(lambda: assoc.associate_reference(
-                    *cargs, cached=cached)),
-                bytes=nbytes, bound_ms=bound, bound_by=by)
-            bufs = None
+            out[f"{feat} persistent {entry}"] = _time_k2(
+                cs, dev, vm, up(q), up(mask), cfg.map, mode, thres, sr,
+                cached, cached is None)
+        args = (up(x6), up(p_l), up(mask), vm, lane0["Rbl"], lane0["tbl"],
+                cfg, thres)
         if mode == assoc.PLANE:
             call = lambda: factors.associate_planes(
-                x6, p_l, mask, vm, lane0["Rbl"], lane0["tbl"], cfg, thres,
-                cfg.solver.plan_weight_tan, vm_local=vml, with_blocks=True)
+                *args, cfg.solver.plan_weight_tan, vm_local=vml,
+                with_blocks=True)
         else:
             call = lambda: factors.associate_lines(
-                x6, p_l, mask, vm, lane0["Rbl"], lane0["tbl"], cfg, thres,
-                vm_local=vml, with_blocks=True)
+                *args, vm_local=vml, with_blocks=True)
         rec = dict(synced_ms=_synced_ms(call))
         if hasattr(assoc, "associate_with_rescue"):
             rec["with_rescue_synced_ms"] = _synced_ms(
                 lambda: assoc.associate_with_rescue(
-                    vm, vml, pw, mask, cfg.map, cfg.local_map, k, mode,
-                    thres, sr, factors._rescue_cap(
+                    vm, vml, up(pw), up(mask), cfg.map, cfg.local_map, k,
+                    mode, thres, sr, factors._rescue_cap(
                         pw.shape[0], cfg.solver.local_rescue_frac),
                     want_blocks=True))
         calls[f"associate_{'planes' if mode == assoc.PLANE else 'lines'}"] \
             = rec
     return out, calls
+
+
+# the layers the breakdown times (module, function), outermost first
+BREAKDOWN = (
+    ("pipeline", "step_core_batch"), ("pipeline", "prepare_frame_batch"),
+    ("features", "extract_scan_features"), ("preintegration", "preintegrate"),
+    ("undistort", "undistort"), ("pipeline", "_build_stacks"),
+    ("estimate", "estimate"), ("reduced", "build_reduced"),
+    ("solver", "lm_solve"), ("solver", "marginalize"),
+    ("pipeline", "_init_bookkeeping"), ("initializer", "initialize"),
+    ("initializer", "refine_gravity"), ("pipeline", "apply_inserts_batched"))
+
+
+def _breakdown(cs, cfg, dev, B=4, T=12):
+    """Where a replay's wall goes (trees with `pipeline.step_core_batch`):
+    after a warm-up run, `replay_batch` B x T with a synchronize and a host
+    clock around each layer of BREAKDOWN (seconds and calls; a layer's
+    time includes the layers it calls)."""
+    import importlib
+
+    import torch
+
+    from mmloam_tpu_torch import pipeline, replay
+
+    if not hasattr(pipeline, "step_core_batch"):
+        return None
+    scans, _ = cs.flagship_inputs(cfg, B, T, 7, dev)
+    replay.replay_batch(cs.fresh_states(cfg, B, dev), scans, cfg)
+    mods = {n: importlib.import_module(p + n) for p, n in (
+        ("mmloam_tpu_torch.", "pipeline"), ("mmloam_tpu_torch.ops.",
+                                            "features"),
+        ("mmloam_tpu_torch.ops.", "preintegration"),
+        ("mmloam_tpu_torch.ops.", "undistort"),
+        ("mmloam_tpu_torch.estimator.", "estimate"),
+        ("mmloam_tpu_torch.estimator.", "reduced"),
+        ("mmloam_tpu_torch.estimator.", "solver"),
+        ("mmloam_tpu_torch.estimator.", "initializer"))}
+    acc, saved = {}, []
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            s, n = acc.get(key, (0.0, 0))
+            acc[key] = (s + time.perf_counter() - t0, n + 1)
+            return out
+        return run
+
+    for m, f in BREAKDOWN:
+        fn = getattr(mods[m], f)
+        saved.append((mods[m], f, fn))
+        setattr(mods[m], f, timed(f"{m}.{f}", fn))
+    try:
+        states = cs.fresh_states(cfg, B, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay.replay_batch(states, scans, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, f, fn in saved:
+            setattr(mod, f, fn)
+    return dict(B=B, T=T, wall=wall, layers={
+        k: dict(secs=s, calls=n, share=s / wall) for k, (s, n) in acc.items()})
+
+
+def _k2_lanes(cs, cfg, dev, main_insert):
+    """K2's lane axis (trees that have one): device time of one fresh
+    launch (surf, plane mode, M=2048 a lane, with blocks) over the main
+    path's lanes (the run's B) and over 4 and 16 lanes (its lanes
+    repeated), beside one launch on lane 0 alone, and each one's bound."""
+    import torch
+
+    from mmloam_tpu_torch.ops import assoc, voxelmap
+
+    if not hasattr(assoc, "_check_lanes"):
+        return None
+    cells, pw, mask = main_insert
+    sr = cfg.solver.plane_scatter_ratio
+    out = {}
+    for B in (1, 4, 16):
+        rep = -(-B // cells.shape[0])
+        c = cells.repeat(rep, 1, 1)[:B].contiguous()
+        p, m = pw.repeat(rep, 1, 1)[:B], mask.repeat(rep, 1)[:B]
+        thres = torch.full((B,), cfg.solver.thres_dist, device=dev)
+        vm = voxelmap.VoxelMap(c)
+        a, bufs = assoc.prepare(assoc.OUT, vm, p, m, cfg.map, cfg.map.knn,
+                                assoc.PLANE, thres, sr, None, True)
+        launch = lambda: assoc.launch(assoc.OUT, a, dev)
+        d_ms, how = cs.device_ms(launch, "assoc_kernel", launch)
+        bound, by = cs.bound_ms(*cs.k2_work(vm, p, cfg.map, True, True))
+        out[f"B={B}"] = dict(device_ms=d_ms, device_how=how, bound_ms=bound,
+                             bound_by=by, M=int(p.shape[1]))
+        bufs = c = None
+    one = out["B=1"]["device_ms"]
+    for B in (4, 16):
+        out[f"B={B}"]["single_lane_times_B_ms"] = B * one
+    return out
 
 
 def _k1(cs, cfg, dev, main_insert):
@@ -363,20 +547,19 @@ def _general(cs, lane0, cfg, dev):
     if lane0 is None:
         return out
 
-    thres = torch.tensor(cfg.solver.thres_dist, device=dev)
+    up = _up(assoc)
+    thres = up(torch.tensor(cfg.solver.thres_dist, device=dev))
+    pw, mask = _stack(lane0, cfg, "surf")
+    sr = cfg.solver.plane_scatter_ratio
 
     def k2_case(gcfg, pair=False):
-        lane = dict(lane0)
-        for f in ("vm_corner", "vm_surf"):
-            lane[f] = cs.repack(lane0[f], cfg.map, gcfg.map)
-        for f in ("vm_local_corner", "vm_local_surf"):
-            lane[f] = cs.repack(lane0[f], cfg.local_map, gcfg.local_map)
-        cases, pairs = cs._assoc_cases(lane, gcfg)
+        vm = voxelmap.VoxelMap(up(cs.repack(lane0["vm_surf"], cfg.map,
+                                            gcfg.map)))
         if pair:
-            _, vm, vml, pw, mask, mode, sr, _ = next(
-                p for p in pairs if p[0] == "surf rescue")
-            args = (vm, vml, pw, mask, gcfg.map, gcfg.local_map,
-                    gcfg.map.knn, mode, thres, sr,
+            vml = voxelmap.VoxelMap(up(cs.repack(
+                lane0["vm_local_surf"], cfg.local_map, gcfg.local_map)))
+            args = (vm, vml, up(pw), up(mask), gcfg.map, gcfg.local_map,
+                    gcfg.map.knn, assoc.PLANE, thres, sr,
                     factors._rescue_cap(pw.shape[0],
                                         gcfg.solver.local_rescue_frac))
             call = lambda: assoc.associate_with_rescue(*args,
@@ -384,10 +567,8 @@ def _general(cs, lane0, cfg, dev):
             d_ms, how = cs.device_ms(call, "assoc_kernel", call, per_call=2)
             return dict(device_ms=d_ms, device_how=how,
                         entry_ms=cs.cuda_ms(call))
-        _, vm, pw, mask, mcfg, mode, sr, _ = next(
-            c for c in cases if c[0] == "surf persistent")
-        cargs = (vm, pw, mask, mcfg, gcfg.map.knn, mode, thres, sr)
-        return cs.time_k2(dev, cargs, None, True)
+        return _time_k2(cs, dev, vm, up(pw), up(mask), gcfg.map, assoc.PLANE,
+                        thres, sr, None, True)
 
     st332 = dict(stencil_x=3, stencil_y=3, stencil_z=2)
     geoms = [("pack{}{}{}".format(*p), p, {}) for p in
@@ -405,7 +586,8 @@ def _general(cs, lane0, cfg, dev):
     return out
 
 
-def child(tree, only_k1=False):
+def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
+          timed=2):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -424,10 +606,20 @@ def child(tree, only_k1=False):
         res["general"] = _general(cs, None, cfg, dev)
         print(json.dumps(res), flush=True)
         return
+    if replay_only:
+        _, main_insert, res["replay"] = _replay(cs, cfg, dev, batch, scans,
+                                                timed)
+        res["k2_lanes"] = _k2_lanes(cs, cfg, dev, main_insert)
+        res["breakdown"] = _breakdown(cs, cfg, dev, batch)
+        print(json.dumps(res), flush=True)
+        return
     res["census"], inp = _census(cs, cfg, dev)
     inp = None
-    lane0, main_insert, res["replay"] = _replay(cs, cfg, dev)
+    lane0, main_insert, res["replay"] = _replay(cs, cfg, dev, batch, scans,
+                                                timed)
     res["k2"], res["assoc_calls"] = _k2(cs, lane0, cfg, dev)
+    res["k2_lanes"] = _k2_lanes(cs, cfg, dev, main_insert)
+    res["breakdown"] = _breakdown(cs, cfg, dev, batch)
     res["k1"] = _k1(cs, cfg, dev, main_insert)
     res["general"] = _general(cs, lane0, cfg, dev)
     print(json.dumps(res), flush=True)
@@ -440,17 +632,26 @@ def main():
     ap.add_argument("--only-k1", action="store_true",
                     help="time K1 alone: its B=16 and B=4 cases and its "
                     "general instances, each beside the others")
+    ap.add_argument("--replay-only", action="store_true",
+                    help="the replay rows alone")
+    ap.add_argument("--batch", type=int, default=4, help="replay lanes")
+    ap.add_argument("--scans", type=int, default=16, help="replay scans")
+    ap.add_argument("--timed", type=int, default=2, help="timed replays")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
-        child(a.tree[0], a.only_k1)
+        child(a.tree[0], a.only_k1, a.replay_only, a.batch, a.scans,
+              a.timed)
         return 0
     results, rc = [], 0
     for tree in a.tree:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--child", "--tree", tree]
-                           + ["--only-k1"] * a.only_k1, capture_output=True,
-                           text=True, timeout=900)
+                            "--child", "--tree", tree,
+                            "--batch", str(a.batch), "--scans", str(a.scans),
+                            "--timed", str(a.timed)]
+                           + ["--only-k1"] * a.only_k1
+                           + ["--replay-only"] * a.replay_only,
+                           capture_output=True, text=True, timeout=1800)
         sys.stderr.write(p.stderr[-4000:])
         if p.returncode != 0:
             rc = p.returncode

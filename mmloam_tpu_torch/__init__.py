@@ -7,12 +7,15 @@ to find, and is held against it on identical inputs by the
 `tests/test_torch_*.py` suite.  It imports `torch` and never `jax`.
 
 Containers are NamedTuples with the reference's field names and order;
-`tree.tree_map` walks them.  Functions keep the reference's unbatched
-signatures; `replay.replay_batch` runs B sequences in lockstep with the
-per-lane step in a Python loop and one batched map insert per map through
-the hand-written CUDA kernel `csrc/map_insert.cu` (`ops/map_insert.py`),
-and with `mesh=[device, ...]` splits the batch over devices, whole
-sequences to a device.
+`tree.tree_map` walks them.  `pipeline.step_core_batch` is the reference's
+`vmap` of the step: one step over the lanes of a batch, every per-lane
+branch a select, with no host read of the device; `pipeline.step` and
+`step_core` are it at one lane.  `replay.replay_batch` runs B sequences in
+lockstep: one batched step per scan (the association kernel
+`csrc/assoc.cu` launched once for all lanes) and one batched map insert
+per map through the hand-written CUDA kernel `csrc/map_insert.cu`
+(`ops/map_insert.py`); with `mesh=[device, ...]` it splits the batch over
+devices, whole sequences to a device.
 """
 
 __version__ = "0.1.0"

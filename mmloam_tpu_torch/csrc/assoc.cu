@@ -49,6 +49,15 @@
 // checks each lane's own candidates and votes.  A rescue warp finds its rank
 // from the flag bytes below it: 16 flags per 16-byte load, popc, warp sum.
 //
+// Lanes.  A batch of independent sequences (the lockstep replay's lanes) is
+// one launch: queries, masks, records, dense blocks and GATHER outputs are
+// lane-major (lanes, m, ...) and a warp's query row q belongs to lane q / m.
+// Each lane reads its own map (lane * cells_stride floats in), its own
+// distance gate and dedup bound, and writes, counts and ranks its own rescue
+// flags (need_stride bytes a lane), so every result equals a launch on that
+// lane alone.  The per-warp table and buffer are a warp's, whatever its
+// lane: the grid grows with the lanes, a block's shared memory does not.
+//
 // Other maps.  The above is the default window's instance (32 cells a row,
 // a 2x2x2-superrow window; with MapConfig.dedup_gather too).  Any other
 // pack and stencil (S superrows of cpr cells, voxelmap._super_window, C = S
@@ -107,12 +116,12 @@
 // C entry point must not have a parameter of internal linkage.
 struct AssocArgs {
   const float* cells;          // fresh: (rows, 4 cpr) map superrows
-  const float* pw;             // (m, 3) queries
+  const float* pw;             // (lanes, m, 3) queries
   const unsigned char* mask;   // (m,) bool (unused by RESCUE)
   const void* blk_in[4];       // cached: dx, dy, dz, d2 blocks (m, ncand)
   const float* pw0;            // cached: (m, 3) queries the blocks were made at
   void* blk_out[4];            // fresh: blocks to write, or null
-  const float* thres;          // (1,) squared-distance gate
+  const float* thres;          // (lanes,) squared-distance gate of each lane
   float* out;                  // (m, 16) records
   unsigned char* valid;        // OUT, NEED, RESCUE: (m,) bool, record's lane
   float* rows;                 // GATHER: (m, S, 4 cpr) rows read
@@ -120,15 +129,20 @@ struct AssocArgs {
   int* g_sv;                   // GATHER: (m, S, 3) superrow coords
   int* g_slot;                 // GATHER: (m, S) torus slots
   float* g_key;                // GATHER: (m, S) expected epoch keys
-  unsigned char* need;         // NEED: (m,) written; RESCUE: read (padded
-                               // to a multiple of 16 bytes)
-  int* need_count;             // NEED: (1,) number of flags, or null
-  const int* dedup_thr;        // fresh: (1,) dedup bound (MapConfig.
-                               // dedup_gather), or null
+  unsigned char* need;         // NEED: (lanes, need_stride) written;
+                               // RESCUE: read (16-byte rows)
+  int* need_count;             // NEED: (lanes,) number of flags, or null
+  const int* dedup_thr;        // fresh: (lanes,) dedup bound of each lane
+                               // (MapConfig.dedup_gather), or null
   unsigned char* g_keep;       // GATHER: (m, S) rows the dedup kept
-  float* scratch;              // (m, warp_words) per-warp buffers in device
-                               // memory, or null: in shared memory
-  int m, mode, bf16, cached, k, rescue_cap;
+  float* scratch;              // (lanes m, warp_words) per-warp buffers in
+                               // device memory, or null: in shared memory
+  long long cells_stride;      // floats from one lane's map to the next's
+  int m;                       // queries a lane; the arrays above that have
+                               // an m axis hold lanes x m rows, lane-major
+  int lanes;                   // lanes of the batch, one launch for all
+  int need_stride;             // flag bytes a lane (m padded to 16)
+  int mode, bf16, cached, k, rescue_cap;
   int pack[3], stencil[3], sdim[3];
   int nb[3];                   // superrows of the window per axis (S = their
                                // product)
@@ -138,7 +152,7 @@ struct AssocArgs {
   int wpb, warp_words;         // warps a block; floats of a warp's buffer
   float voxel, pvs[3], scatter_ratio;
 };
-static_assert(sizeof(AssocArgs) == 312, "AssocArgs layout changed: update "
+static_assert(sizeof(AssocArgs) == 328, "AssocArgs layout changed: update "
               "ops/assoc._args_struct");
 
 namespace {
@@ -329,6 +343,17 @@ __device__ __forceinline__ void write_record(float* out, int q,
                          rec[4 * i + 3]);
 }
 
+// What differs between the lanes of a batch, for one query: its lane's map
+// rows, dedup bound (INT_MAX without one), rescue flags and flag count, and
+// the query's index within the lane
+struct LaneView {
+  const float* cells;
+  int thr;
+  unsigned char* need;
+  int* need_count;
+  int i;
+};
+
 // A lane's candidates, in registers (kPer of them) ...
 template <int kPer>
 struct RegCands {
@@ -450,7 +475,8 @@ struct Table {
 // kDedup: the launch carries a dedup bound (a launch without one compiles
 // to no dedup code at all)
 template <int kStage, bool kDedup, class St>
-__device__ __forceinline__ bool default_fresh(const AssocArgs& a, int q,
+__device__ __forceinline__ bool default_fresh(const AssocArgs& a,
+                                              const LaneView& lv, int q,
                                               int lane, bool mask, St& st) {
   const bool bf16 = a.bf16 != 0;
   const long long cand0 = static_cast<long long>(q) * kCand + lane;
@@ -472,7 +498,7 @@ __device__ __forceinline__ bool default_fresh(const AssocArgs& a, int q,
   stencil_axis(vz, a.stencil[2], pz, a.sdim[2], svz, mz, kz);
   // a row whose slot is above the dedup bound is dropped and reads the
   // bound's row, as the reference's compact table serves it
-  const int thr = kDedup ? *a.dedup_thr : INT_MAX;
+  const int thr = kDedup ? lv.thr : INT_MAX;
   const int thr_row = max(thr, 0);  // a bound below every slot reads row 0
   int slot[kRows];
 #pragma unroll
@@ -482,7 +508,7 @@ __device__ __forceinline__ bool default_fresh(const AssocArgs& a, int q,
 
   // every row load of the query in flight before the first use
   float fx[kRows], fy[kRows], fz[kRows], fm[kRows];
-  const float* __restrict__ cells = a.cells;
+  const float* __restrict__ cells = lv.cells;
 #pragma unroll
   for (int s = 0; s < kRows; ++s) {
     const int rs = slot[s] <= thr ? slot[s] : thr_row;
@@ -564,7 +590,8 @@ __device__ __forceinline__ bool default_fresh(const AssocArgs& a, int q,
 // then each lane's candidates into st; GATHER writes the rows read and the
 // addresses instead and returns true
 template <int kStage, class St>
-__device__ __forceinline__ bool general_fresh(const AssocArgs& a, int q,
+__device__ __forceinline__ bool general_fresh(const AssocArgs& a,
+                                              const LaneView& lv, int q,
                                               int lane, bool mask,
                                               float* wbuf, St& st) {
   const bool bf16 = a.bf16 != 0;
@@ -576,7 +603,7 @@ __device__ __forceinline__ bool general_fresh(const AssocArgs& a, int q,
     v[ax] = voxel_index(qv[ax], a.voxel);
     s0[ax] = floor_div(v[ax] - a.stencil[ax], a.pack[ax]);
   }
-  const int thr = a.dedup_thr != nullptr ? *a.dedup_thr : INT_MAX;
+  const int thr = lv.thr;
   const int thr_row = max(thr, 0);  // a bound below every slot reads row 0
 
   // each window row addressed once a warp: lane r takes rows r, r+32, ...
@@ -611,7 +638,7 @@ __device__ __forceinline__ bool general_fresh(const AssocArgs& a, int q,
   __syncwarp();
 
   const long long rowf = 4LL * cpr;
-  const float* __restrict__ cells = a.cells;
+  const float* __restrict__ cells = lv.cells;
   // a row of one cell is one 16-byte load
   const bool vec4 =
       cpr == 1 && (reinterpret_cast<unsigned long long>(cells) & 15) == 0;
@@ -855,8 +882,9 @@ __device__ __forceinline__ float kth_smallest(St& st, int k) {
 // Selection, moments, the fit and the gates over a query's candidates st,
 // and its record (each stage's cut where kStage stops earlier)
 template <int kStage, class St>
-__device__ __forceinline__ void finish(const AssocArgs& a, int q, int lane,
-                                       bool mask, float thres, St& st) {
+__device__ __forceinline__ void finish(const AssocArgs& a, const LaneView& lv,
+                                       int q, int lane, bool mask,
+                                       float thres, St& st) {
   float rec[kRec];
 #pragma unroll
   for (int i = 0; i < kRec; ++i) rec[i] = 0.0f;
@@ -1007,29 +1035,41 @@ __device__ __forceinline__ void finish(const AssocArgs& a, int q, int lane,
     a.valid[q] = valid ? 1 : 0;
     if constexpr (kStage == kNeed) {
       const bool need = mask && !valid;
-      a.need[q] = need ? 1 : 0;
-      if (need && a.need_count != nullptr) atomicAdd(a.need_count, 1);
+      lv.need[lv.i] = need ? 1 : 0;
+      if (need && lv.need_count != nullptr) atomicAdd(lv.need_count, 1);
     }
   }
 }
 
-// One query a warp.  kDefault: the default window (kPer = 8, compile-time
-// addressing); else the general window with kPer candidates a lane in
-// registers, or staged in the warp's buffer (kPer = kStaged).
+// One query a warp, the queries of every lane in one grid (lane-major, so a
+// block's warps share a lane's map rows in L2).  kDefault: the default
+// window (kPer = 8, compile-time addressing); else the general window with
+// kPer candidates a lane in registers, or staged in the warp's buffer
+// (kPer = kStaged).
 template <int kStage, int kPer, bool kDefault>
 __global__ void __launch_bounds__(kMaxWarps * kLanes)
     assoc_kernel(const AssocArgs a) {
   static_assert(!kDefault || kPer == kRows, "the default window is 8 rows");
   extern __shared__ float4 smem[];  // a.wpb warp buffers of a.warp_words
   const int wid = threadIdx.x / kLanes;
-  const int q = blockIdx.x * a.wpb + wid;
+  const int q = blockIdx.x * a.wpb + wid;  // the query's row, all lanes
   const int lane = threadIdx.x % kLanes;
-  if (q >= a.m) return;  // the whole warp leaves together
-  const float thres = a.thres[0];  // in flight with the query's loads
+  if (q >= a.m * a.lanes) return;  // the whole warp leaves together
+  const int b = q / a.m;           // its lane of the batch
+  LaneView lv;
+  lv.cells = a.cells != nullptr ? a.cells + b * a.cells_stride : nullptr;
+  lv.thr = a.dedup_thr != nullptr ? a.dedup_thr[b] : INT_MAX;
+  lv.need = a.need != nullptr
+                ? a.need + static_cast<long long>(b) * a.need_stride
+                : nullptr;
+  lv.need_count = a.need_count != nullptr ? a.need_count + b : nullptr;
+  lv.i = q - b * a.m;
+  const float thres = a.thres[b];  // in flight with the query's loads
   bool mask;
   if constexpr (kStage == kRescue) {
-    if (!a.need[q]) return;
-    if (a.rescue_cap < a.m && rescue_rank(a.need, q, lane) >= a.rescue_cap)
+    if (!lv.need[lv.i]) return;
+    if (a.rescue_cap < a.m &&
+        rescue_rank(lv.need, lv.i, lane) >= a.rescue_cap)
       return;
     mask = true;  // factors' mask_r: every compacted query is live
   } else {
@@ -1043,16 +1083,16 @@ __global__ void __launch_bounds__(kMaxWarps * kLanes)
     if (fresh) {
       if constexpr (kDefault) {
         if (a.dedup_thr != nullptr
-                ? default_fresh<kStage, true>(a, q, lane, mask, st)
-                : default_fresh<kStage, false>(a, q, lane, mask, st))
+                ? default_fresh<kStage, true>(a, lv, q, lane, mask, st)
+                : default_fresh<kStage, false>(a, lv, q, lane, mask, st))
           return;
       } else {
-        if (general_fresh<kStage>(a, q, lane, mask, wbuf, st)) return;
+        if (general_fresh<kStage>(a, lv, q, lane, mask, wbuf, st)) return;
       }
     } else {
       cached_cands<kDefault>(a, q, lane, st);
     }
-    finish<kStage>(a, q, lane, mask, thres, st);
+    finish<kStage>(a, lv, q, lane, mask, thres, st);
   };
   if constexpr (kPer == kStaged) {
     const int table = fresh ? kRowWords * (a.ncand / a.cpr) : 0;
@@ -1079,7 +1119,7 @@ int launch_one(const AssocArgs& a, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 block(a.wpb * kLanes);
-  const dim3 grid((a.m + a.wpb - 1) / a.wpb);
+  const dim3 grid((a.m * a.lanes + a.wpb - 1) / a.wpb);
   kern<<<grid, block, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1122,10 +1162,14 @@ bool plan_ok(const AssocArgs& a) {
 }  // namespace
 
 // Launches the association kernel stopped after `stage` (0 GATHER, 1
-// SELECT, 2 MOMENTS, 3 EIG, 4 OUT, 5 NEED, 6 RESCUE) on `stream`; returns
+// SELECT, 2 MOMENTS, 3 EIG, 4 OUT, 5 NEED, 6 RESCUE) on `stream`, once for
+// every lane of the batch; returns
 // cudaGetLastError() (0 on success).  `args` is read on the host only.
 extern "C" int assoc_launch(int stage, const AssocArgs* args, void* stream) {
-  if (args->m <= 0) return 0;
+  if (args->m <= 0 || args->lanes <= 0) return 0;
+  if (static_cast<long long>(args->m) * args->lanes > INT_MAX / kLanes ||
+      args->need_stride < args->m || args->need_stride % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (args->ncand < 1 || args->cpr < 1 || args->k < 1 ||
       args->k > args->ncand || !plan_ok(*args))
     return static_cast<int>(cudaErrorInvalidValue);

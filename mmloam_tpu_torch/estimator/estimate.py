@@ -1,13 +1,17 @@
 """Estimator::Estimate orchestration — association rounds + LM solves
-(port of mmloam_tpu/estimator/estimate.py:123-275).
+(port of mmloam_tpu/estimator/estimate.py:123-275), over the lanes of a
+batch.
 
-The reference's `lax.scan` over outer rounds is a Python loop and its
-`lax.cond`s are Python branches on per-lane flags (under `vmap` both are
-pure masking, so per-lane values agree).  Full-window vs short-window mode,
-the threshold schedule, the old-slot refresh priority (`lax.top_k`, here a
-stable descending sort: ties go to the lowest slot), gather-free
-re-association from the round-0 blocks and the outer convergence break
-follow the reference.
+Every input carries a leading lane axis B, as the reference's `vmap`
+runs it, and what the reference decides per lane stays per lane: the
+full- or short-window schedule (thresholds, plane tangent weight, Huber
+scale and LM caps are tensors (B,)), the old-slot refresh choice (a
+stable descending sort per lane, ties to the lowest slot, as
+`lax.top_k`; the chosen slot is read with a gather), the outer rounds
+(a static range with `conv`, `fresh` and `odone` per lane) and the
+marginalization.  The reference's `lax.cond`s run both branches for
+every lane and select per lane: the refresh association runs every
+round, its result taken where `do_refresh`.
 """
 
 from __future__ import annotations
@@ -49,32 +53,55 @@ class EstimateResult(NamedTuple):
     NtN: torch.Tensor          # (3,3)
 
 
+def select(m, a, b):
+    """Per lane, `a` where m (B,) else `b`, over trees of lane-first
+    tensors: the counterpart of a `lax.cond` under `vmap`."""
+    def pick(x, y):
+        return torch.where(m.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
+    return tree_map(pick, a, b)
+
+
 def _rf_set_slot(rfs, rf, slot):
-    """Write one frame's ReducedFactor into the (W,)-stacked factors."""
+    """Write each lane's frame ReducedFactor rf (B, ...) into its slot
+    (a number, or one per lane (B,)) of the (B, W)-stacked factors."""
+    W = rfs.Q.shape[1]
+    ar = torch.arange(W, device=rfs.Q.device)
+    hit = (ar == slot if isinstance(slot, int) else ar == slot[:, None]
+           ).reshape(-1, W)
+
     def put(a, v):
-        out = a.clone()
-        out[slot] = v.to(a.dtype)
-        return out
+        m = hit.reshape(hit.shape + (1,) * (a.dim() - 2))
+        return torch.where(m, v.to(a.dtype)[:, None], a)
     return tree_map(put, rfs, rf)
 
 
 def _localizability_rfs(rfs, frame_valid, cfg):
     """checkLocalizability over the union of window frames' plane normals."""
     m = frame_valid.to(rfs.NtN.dtype)
-    NtN = torch.sum(rfs.NtN * m[:, None, None], dim=0)
+    NtN = torch.sum(rfs.NtN * m[..., None, None], dim=-3)
     n = torch.sum(torch.where(frame_valid, rfs.n_normal,
-                              torch.zeros_like(rfs.n_normal)))
+                              torch.zeros_like(rfs.n_normal)), dim=-1)
     return factors.localizability_ntn(NtN, n, cfg)
+
+
+def _at_slot(a, slot):
+    """Each lane's window slot of a (B, W, ...): a number, or a gather of
+    one slot per lane (B,)."""
+    if isinstance(slot, int):
+        return a[:, slot]
+    return a[torch.arange(a.shape[0], device=a.device), slot]
 
 
 def _assoc_frame(x, stacks: Stacks, slot, vm_corner, vm_surf, vm_lc, vm_ls,
                  vm_non, Rbl, tbl, cfg, thres, weight_tan, huber,
                  frame_valid, cached=None):
-    """One window frame's ReducedFactor at its current pose."""
-    fstack = Stacks(*(a[slot] if a is not None else None for a in stacks))
+    """Each lane's window frame `slot` as a ReducedFactor at its current
+    pose."""
+    fstack = Stacks(*(None if a is None else _at_slot(a, slot)
+                      for a in stacks))
     return reduced.build_reduced(
-        x[slot, :6], fstack, vm_corner, vm_surf, Rbl, tbl, cfg,
-        thres, weight_tan, huber, frame_valid[slot],
+        _at_slot(x, slot)[:, :6], fstack, vm_corner, vm_surf, Rbl, tbl, cfg,
+        thres, weight_tan, huber, _at_slot(frame_valid, slot),
         vm_local_corner=vm_lc, vm_local_surf=vm_ls, vm_non=vm_non,
         cached=cached)
 
@@ -83,21 +110,27 @@ def estimate(x0, stacks: Stacks, cached_rfs, vm_corner, vm_surf, preint,
              pair_valid, prior: solver.Prior, frame_valid, gravity, Rbl, tbl,
              cfg, full_window, refresh_slot, do_marginalize=None,
              vm_local_corner=None, vm_local_surf=None, vm_non=None):
-    """One scan's window optimization (see the reference docstring)."""
+    """One scan's window optimization of every lane (see the reference):
+    x0 (B, W, 15), the window's stacks, factors, preintegration and prior
+    (B, W, ...), maps (B, Cs, row), full_window and do_marginalize (B,)
+    bool, refresh_slot (B,) int.  No host read: every branch is a select.
+    """
     s = cfg.solver
-    W = x0.shape[0]
+    B, W = x0.shape[:2]
     dtype, dev = x0.dtype, x0.device
-    full = bool(full_window)
-    marg_flag = full if do_marginalize is None else bool(do_marginalize)
-    f32 = lambda v: torch.tensor(v, dtype=dtype, device=dev)
+    full = full_window.to(torch.bool).expand(B)
+    marg = full if do_marginalize is None else (
+        full & do_marginalize.to(torch.bool))
+    by_window = lambda f, sh: torch.where(
+        full, torch.full((B,), f, dtype=dtype, device=dev),
+        torch.full((B,), sh, dtype=dtype, device=dev))
 
     sched_short = ([s.thres_dist_short, 10.0]
                    + [s.thres_dist] * max(s.max_outer_iters - 2, 0)
                    )[:max(s.max_outer_iters, 1)]
-    sched = [f32(v) for v in ([s.thres_dist] * s.max_outer_iters
-                              if full else sched_short)]
-    weight_tan = f32(s.plan_weight_tan if full else 0.0)
-    huber = f32(_HUBER_OFF if full else s.huber_delta_scale)
+    sched = [by_window(s.thres_dist, v) for v in sched_short]
+    weight_tan = by_window(s.plan_weight_tan, 0.0)
+    huber = by_window(_HUBER_OFF, s.huber_delta_scale)
 
     vm_lc = vm_local_corner if cfg.use_local_map else None
     vm_ls = vm_local_surf if cfg.use_local_map else None
@@ -114,18 +147,18 @@ def estimate(x0, stacks: Stacks, cached_rfs, vm_corner, vm_surf, preint,
     n_old = min(s.refresh_old_frames, W - 1)
     if n_old > 0:
         moved = torch.sqrt(torch.sum(
-            (x0[:W - 1, 0:3] - cached_rfs.o[:W - 1]) ** 2, dim=-1))
-        empty = (cached_rfs.n_line + cached_rfs.n_plane)[:W - 1] == 0
-        fv_old = frame_valid[:W - 1]
-        tie = (torch.arange(W - 1, device=dev) == refresh_slot).to(dtype) \
-            * 1e-3
+            (x0[:, :W - 1, 0:3] - cached_rfs.o[:, :W - 1]) ** 2, dim=-1))
+        empty = (cached_rfs.n_line + cached_rfs.n_plane)[:, :W - 1] == 0
+        fv_old = frame_valid[:, :W - 1]
+        tie = (torch.arange(W - 1, device=dev)
+               == refresh_slot.reshape(-1, 1)).to(dtype) * 1e-3
         score = torch.where(fv_old, moved + 1e6 * (empty & fv_old).to(dtype)
                             + tie, torch.full_like(moved, float("-inf")))
-        slots = torch.sort(score, descending=True, stable=True).indices
+        slots = torch.sort(score, dim=-1, descending=True,
+                           stable=True).indices
         for j in range(n_old):
-            slot = int(slots[j])
-            rf_j, _ = assoc(x0, slot, sched[0])
-            rfs = _rf_set_slot(rfs, rf_j, slot)
+            rf_j, _ = assoc(x0, slots[:, j], sched[0])
+            rfs = _rf_set_slot(rfs, rf_j, slots[:, j])
     deg, fail, sv = _localizability_rfs(rfs, frame_valid, cfg)
 
     conv_rot = math.radians(s.converge_rot_deg)
@@ -133,53 +166,58 @@ def estimate(x0, stacks: Stacks, cached_rfs, vm_corner, vm_surf, preint,
     caps = ([s.max_inner_iters]
             + [s.max_inner_iters_later] * max(s.max_outer_iters - 2, 0)
             )[:max(s.max_outer_iters - 1, 0)]
+    lane_cap = lambda f, sh: torch.where(
+        full, torch.full((B,), f, dtype=torch.int32, device=dev),
+        torch.full((B,), sh, dtype=torch.int32, device=dev))
+
+    def solve(x, cap_full, cap_short, skip):
+        return solver.lm_solve(x, rfs, preint, pair_valid, prior,
+                               frame_valid, gravity, cfg,
+                               lane_cap(cap_full, cap_short),
+                               max(cap_full, cap_short), skip=skip)
 
     x = x0
-    conv, fresh, odone = False, True, False
+    false = torch.zeros((B,), dtype=torch.bool, device=dev)
+    conv, fresh, odone = false, ~false, false
     for rnd in range(1, s.max_outer_iters):
         refresh_flag = rnd < s.full_reassoc_rounds
         can_break = rnd >= s.full_reassoc_rounds
-        cap = caps[rnd - 1] if full else s.max_inner_iters
-        res = solver.lm_solve(
-            x, rfs, preint, pair_valid, prior, frame_valid, gravity,
-            cfg, cap, skip=(conv and not fresh) or odone)
+        res = solve(x, caps[rnd - 1], s.max_inner_iters,
+                    (conv & ~fresh) | odone)
         dxr = res.x - x
         x = res.x
-        conv = bool(res.converged)
-        dt_rnd = torch.amax(torch.sqrt(torch.sum(dxr[:, 0:3] ** 2, dim=-1))
-                            * fvf)
-        dr_rnd = torch.amax(torch.sqrt(torch.sum(dxr[:, 3:6] ** 2, dim=-1))
-                            * fvf)
-        odone = odone or (can_break and full
-                          and bool((dt_rnd < s.converge_trans)
-                                   & (dr_rnd < conv_rot)))
-        do_refresh = ((not full) or refresh_flag) and not odone
-        if do_refresh:
-            rf_n, _ = assoc(x, W - 1, sched[rnd], cached=blkc)
-            rfs = _rf_set_slot(rfs, rf_n, W - 1)
-            deg_i, fail_i, sv_i = _localizability_rfs(rfs, frame_valid, cfg)
-            deg, fail, sv = deg | deg_i, fail | fail_i, sv_i
+        conv = res.converged
+        dt_rnd = torch.amax(torch.sqrt(torch.sum(dxr[..., 0:3] ** 2, dim=-1))
+                            * fvf, dim=-1)
+        dr_rnd = torch.amax(torch.sqrt(torch.sum(dxr[..., 3:6] ** 2, dim=-1))
+                            * fvf, dim=-1)
+        if can_break:
+            odone = odone | (full & (dt_rnd < s.converge_trans)
+                             & (dr_rnd < conv_rot))
+        do_refresh = (~full | refresh_flag) & ~odone
+        # lax.cond(do_refresh, reassociate, frozen): both, then a select
+        rf_n, _ = assoc(x, W - 1, sched[rnd], cached=blkc)
+        rfs_n = _rf_set_slot(rfs, rf_n, W - 1)
+        deg_i, fail_i, sv_i = _localizability_rfs(rfs_n, frame_valid, cfg)
+        rfs, deg, fail, sv = select(do_refresh,
+                                    (rfs_n, deg | deg_i, fail | fail_i, sv_i),
+                                    (rfs, deg, fail, sv))
         fresh = do_refresh
 
-    res = solver.lm_solve(x, rfs, preint, pair_valid, prior,
-                          frame_valid, gravity, cfg,
-                          s.max_inner_iters_later if full
-                          else s.max_inner_iters,
-                          skip=(conv and not fresh) or odone)
+    res = solve(x, s.max_inner_iters_later, s.max_inner_iters,
+                (conv & ~fresh) | odone)
     x = res.x
 
-    if full and marg_flag:
-        rf0 = tree_map(lambda a: a[0], rfs)
-        new_prior = solver.marginalize(x, rf0, preint, prior, gravity, cfg)
-    else:
-        new_prior = prior
+    rf0 = tree_map(lambda a: a[:, 0], rfs)
+    new_prior = select(marg, solver.marginalize(x, rf0, preint, prior,
+                                                gravity, cfg), prior)
 
-    NtN = torch.sum(rfs.NtN * fvf[:, None, None], dim=0)
+    NtN = torch.sum(rfs.NtN * fvf[..., None, None], dim=1)
     zi = torch.zeros_like(rfs.n_line)
     return EstimateResult(
         x=x, degenerate=deg, fail=fail, sv_min=sv, prior=new_prior, rfs=rfs,
-        n_line=torch.sum(torch.where(frame_valid, rfs.n_line, zi)
-                         ).to(torch.int32),
-        n_plane=torch.sum(torch.where(frame_valid, rfs.n_plane, zi)
-                          ).to(torch.int32),
+        n_line=torch.sum(torch.where(frame_valid, rfs.n_line, zi),
+                         dim=-1).to(torch.int32),
+        n_plane=torch.sum(torch.where(frame_valid, rfs.n_plane, zi),
+                          dim=-1).to(torch.int32),
         NtN=NtN)

@@ -35,9 +35,7 @@ class PlaneTargets(NamedTuple):
 StackBlocks = assoc.StackBlocks
 
 
-def _mv(A, v):
-    """Batched matrix-vector product over leading dims."""
-    return (A @ v[..., None])[..., 0]
+_mv = lie.mv
 
 
 def pose_wl(x6, Rbl, tbl):
@@ -49,8 +47,10 @@ def pose_wl(x6, Rbl, tbl):
 
 
 def _world_points(x6, p_l, Rbl, tbl):
+    """World points (..., K, 3) of lidar points p_l (..., K, 3) at the
+    poses x6 (..., 6) (leading axes: the lanes of a batch)."""
     Rwl, twl = pose_wl(x6, Rbl, tbl)
-    return p_l @ Rwl.transpose(-1, -2) + twl
+    return p_l @ Rwl.transpose(-1, -2) + twl[..., None, :]
 
 
 # --------------------------------------------------------------------------
@@ -67,25 +67,27 @@ def associate_lines(x6, p_l, mask, vm, Rbl, tbl, cfg, thres_dist,
                     vm_local=None, cached=None, with_blocks=False):
     """Corner association: 5-NN -> PCA line fit -> eigenvalue gate, with
     the local-map rescue of failed points (kernel K2,
-    `assoc.associate_with_rescue`; see the reference)."""
+    `assoc.associate_with_rescue`; see the reference).  Batched over
+    lanes: x6 (B, 6), p_l (B, K, 3), maps (B, Cs, row), thres_dist (B,),
+    each lane rescuing its own failed points, in one kernel pair."""
     pw = _world_points(x6, p_l, Rbl, tbl)
     r, blocks = assoc.associate_with_rescue(
         vm, vm_local, pw, mask, cfg.map, cfg.local_map, cfg.map.knn,
         assoc.LINE, thres_dist, 0.0,
-        _rescue_cap(pw.shape[0], cfg.solver.local_rescue_frac),
+        _rescue_cap(pw.shape[-2], cfg.solver.local_rescue_frac),
         cached=cached, want_blocks=with_blocks)
     lt = LineTargets(p_l=p_l, c=pw + r.mu, u=r.vec, valid=r.valid)
     return (lt, blocks) if with_blocks else lt
 
 
 def _plane_basis(omega):
-    """Orthonormal bases (K,3,3) with first row = omega (rows: normal, 2
-    tangents), batched over K."""
+    """Orthonormal bases (..., K, 3, 3) with first row = omega (rows:
+    normal, 2 tangents), batched over the leading axes."""
     ax = torch.abs(omega)
     dev, dt = omega.device, omega.dtype
     e = torch.eye(3, dtype=dt, device=dev)
-    first = ((ax[:, 0] <= ax[:, 1]) & (ax[:, 0] <= ax[:, 2]))[:, None]
-    second = (ax[:, 1] <= ax[:, 2])[:, None]
+    first = ((ax[..., 0] <= ax[..., 1]) & (ax[..., 0] <= ax[..., 2]))[..., None]
+    second = (ax[..., 1] <= ax[..., 2])[..., None]
     seed = torch.where(first, e[0], torch.where(second, e[1], e[2]))
     t1 = lie.cross(omega, seed)
     t1 = t1 / torch.clamp(torch.sqrt(torch.sum(t1 * t1, dim=-1,
@@ -99,21 +101,24 @@ def associate_planes(x6, p_l, mask, vm, Rbl, tbl, cfg, thres_dist,
                      with_blocks=False):
     """Surf association: 5-NN -> TLS plane fit -> flatness gates, with the
     local-map rescue (kernel K2, `assoc.associate_with_rescue`).  Returns
-    (PlaneTargets, normals, normal_valid) (+ blocks when with_blocks)."""
+    (PlaneTargets, normals, normal_valid) (+ blocks when with_blocks).
+    Batched over lanes as `associate_lines`, weight_tan one per lane."""
     pw = _world_points(x6, p_l, Rbl, tbl)
     r, blocks = assoc.associate_with_rescue(
         vm, vm_local, pw, mask, cfg.map, cfg.local_map, cfg.map.knn,
         assoc.PLANE, thres_dist, cfg.solver.plane_scatter_ratio,
-        _rescue_cap(pw.shape[0], cfg.solver.local_rescue_frac),
+        _rescue_cap(pw.shape[-2], cfg.solver.local_rescue_frac),
         cached=cached, want_blocks=with_blocks)
     omega, valid = r.vec, r.valid
     dist = -torch.sum(omega * r.mu, dim=-1)
-    proj = pw - dist[:, None] * omega
+    proj = pw - dist[..., None] * omega
 
     basis = _plane_basis(omega)
-    wt = torch.as_tensor(weight_tan, dtype=pw.dtype, device=pw.device)
-    w = torch.stack([torch.ones_like(wt), wt, wt])
-    sqrt_info = w[None, :, None] * basis
+    wt = (weight_tan.to(pw.dtype) if torch.is_tensor(weight_tan)
+          else torch.full((), float(weight_tan), dtype=pw.dtype,
+                          device=pw.device))
+    w = torch.stack([torch.ones_like(wt), wt, wt], dim=-1)
+    sqrt_info = w[..., None, :, None] * basis
     pt = PlaneTargets(p_l=p_l, proj=proj, sqrt_info=sqrt_info, valid=valid)
     return (pt, omega, valid, blocks) if with_blocks else (pt, omega, valid)
 

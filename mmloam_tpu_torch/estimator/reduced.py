@@ -62,17 +62,20 @@ def _zvec(R, P, o):
 
 
 def _accumulate(a, q_rel, S, valid, R0, P0_rel):
-    """Σ BᵀB, Σ Bᵀr0, Σ|r0|² for factors r = S (R a + P' - q')."""
+    """Σ BᵀB, Σ Bᵀr0, Σ|r0|² for factors r = S (R a + P' - q') over the
+    K axis of a (..., K, 3) (leading axes: lanes)."""
     m = valid.to(a.dtype)
-    K = a.shape[0]
-    Sm = S * m[:, None, None]
-    BR = a[:, None, :, None] * Sm[:, :, None, :]        # (K, i, j, i')
-    B = torch.cat([BR.reshape(K, 3, 9), Sm], dim=-1)    # (K, 3, 12)
-    r0 = factors._mv(Sm, a @ R0.T + P0_rel[None, :] - q_rel)
-    Bf = B.reshape(K * 3, 12)
-    Q = Bf.T @ Bf
-    g0 = Bf.T @ r0.reshape(K * 3)
-    c0 = torch.sum(r0 * r0)
+    lead, K = tuple(a.shape[:-2]), a.shape[-2]
+    Sm = S * m[..., None, None]
+    BR = a[..., :, None, :, None] * Sm[..., :, :, None, :]   # (.., K, i, j, i')
+    B = torch.cat([BR.reshape(lead + (K, 3, 9)), Sm], dim=-1)  # (.., K, 3, 12)
+    r0 = factors._mv(Sm, a @ R0.transpose(-1, -2) + P0_rel[..., None, :]
+                     - q_rel)
+    BfT = B.reshape(lead + (K * 3, 12)).transpose(-1, -2)   # (.., 12, 3K)
+    # sums over the 3K rows per lane (lie.lane_sum), not matrix products
+    Q = lie.lane_sum(BfT[..., :, None, :] * BfT[..., None, :, :])
+    g0 = lie.mv(BfT, r0.reshape(lead + (K * 3,)))
+    c0 = torch.sum(r0 * r0, dim=(-2, -1))
     return Q, g0, c0
 
 
@@ -86,11 +89,17 @@ def build_reduced(x6, stacks_frame, vm_corner, vm_surf, Rbl, tbl, cfg,
     `cached` re-associates from the same persistent-map stencil rows.
     `vm_non` adds the non-feature stack as zero-tangent plane factors
     (Cost_NonFeature_ICP), associated against `vm_non` alone: a K2 launch
-    with no local-map rescue.
+    with no local-map rescue.  Batched over lanes: x6 (B, 6), the stacks
+    (B, K, ...), maps (B, Cs, row), Rbl (B, 3, 3), thres_dist, weight_tan,
+    huber_delta and frame_ok one per lane (B,); unbatched calls drop the
+    lane axis throughout.
     """
     dtype = x6.dtype
-    cpts, cmask = stacks_frame.corner, stacks_frame.corner_mask & frame_ok
-    spts, smask = stacks_frame.surf, stacks_frame.surf_mask & frame_ok
+    ok = frame_ok[..., None]
+    cpts, cmask = stacks_frame.corner, stacks_frame.corner_mask & ok
+    spts, smask = stacks_frame.surf, stacks_frame.surf_mask & ok
+    hub = (huber_delta[..., None] if torch.is_tensor(huber_delta)
+           else huber_delta)
 
     lt, blk_c = factors.associate_lines(
         x6, cpts, cmask, vm_corner, Rbl, tbl, cfg, thres_dist,
@@ -102,62 +111,62 @@ def build_reduced(x6, stacks_frame, vm_corner, vm_surf, Rbl, tbl, cfg,
         cached=None if cached is None else cached.surf, with_blocks=True)
 
     R0w, t0w = factors.pose_wl(x6, Rbl, tbl)
-    Rwb0 = lie.exp_matrix(x6[3:6])
-    P0 = x6[0:3]
+    Rwb0 = lie.exp_matrix(x6[..., 3:6])
+    P0 = x6[..., 0:3]
     o = P0
+    RblT, R0wT = Rbl.transpose(-1, -2), R0w.transpose(-1, -2)
 
     # line factors as 3-dim projected residuals
-    a_l = cpts @ Rbl.T + tbl[None, :]
-    pw_l = cpts @ R0w.T + t0w[None, :]
+    a_l = cpts @ RblT + tbl[..., None, :]
+    pw_l = cpts @ R0wT + t0w[..., None, :]
     d_l = lie.cross(pw_l - lt.c, lt.u)
     dist_l = torch.sqrt(torch.sum(d_l * d_l, dim=-1) + 1e-12)
     pn_l = torch.clamp(torch.sqrt(torch.sum(pw_l * pw_l, dim=-1)), min=1e-6)
     w_l = 1.0 - 0.9 * dist_l / torch.sqrt(pn_l)
-    w_l = w_l * factors.huber_weight((w_l * dist_l) ** 2, huber_delta)
-    S_l = ((torch.eye(3, dtype=dtype, device=x6.device)[None]
-            - lt.u[:, :, None] * lt.u[:, None, :]) * w_l[:, None, None])
-    Ql, gl, cl = _accumulate(a_l, lt.c - o[None, :], S_l, lt.valid, Rwb0,
-                             P0 - o)
+    w_l = w_l * factors.huber_weight((w_l * dist_l) ** 2, hub)
+    S_l = ((torch.eye(3, dtype=dtype, device=x6.device)
+            - lt.u[..., :, None] * lt.u[..., None, :]) * w_l[..., None, None])
+    Ql, gl, cl = _accumulate(a_l, lt.c - o[..., None, :], S_l, lt.valid,
+                             Rwb0, P0 - o)
 
     # plane factors
     def plane_accum(ppts, ptgt):
-        a_p = ppts @ Rbl.T + tbl[None, :]
-        pw_p = ppts @ R0w.T + t0w[None, :]
+        a_p = ppts @ RblT + tbl[..., None, :]
+        pw_p = ppts @ R0wT + t0w[..., None, :]
         r0_p = pw_p - ptgt.proj
         pn_p = torch.clamp(torch.sqrt(torch.sum(pw_p * pw_p, dim=-1)),
                            min=1e-6)
         w_p = 1.0 - 0.9 * torch.sqrt(torch.sum(r0_p * r0_p, dim=-1)
                                      + 1e-12) / torch.sqrt(pn_p)
-        rw = factors._mv(ptgt.sqrt_info, w_p[:, None] * r0_p)
-        w_p = w_p * factors.huber_weight(torch.sum(rw * rw, dim=-1),
-                                         huber_delta)
-        S_p = ptgt.sqrt_info * w_p[:, None, None]
-        return _accumulate(a_p, ptgt.proj - o[None, :], S_p, ptgt.valid,
-                           Rwb0, P0 - o)
+        rw = factors._mv(ptgt.sqrt_info, w_p[..., None] * r0_p)
+        w_p = w_p * factors.huber_weight(torch.sum(rw * rw, dim=-1), hub)
+        S_p = ptgt.sqrt_info * w_p[..., None, None]
+        return _accumulate(a_p, ptgt.proj - o[..., None, :], S_p,
+                           ptgt.valid, Rwb0, P0 - o)
 
     Qp, gp, cp = plane_accum(spts, pt)
-    n_plane = torch.sum(pt.valid)
+    n_plane = torch.sum(pt.valid, dim=-1)
 
     blk_n = None
     if vm_non is not None and stacks_frame.non is not None:
         npts = stacks_frame.non
-        nmask = stacks_frame.non_mask & frame_ok
+        nmask = stacks_frame.non_mask & ok
         ptn, _, _, blk_n = factors.associate_planes(
-            x6, npts, nmask, vm_non, Rbl, tbl, cfg, thres_dist,
-            torch.zeros((), dtype=dtype, device=x6.device),
+            x6, npts, nmask, vm_non, Rbl, tbl, cfg, thres_dist, 0.0,
             cached=None if cached is None else cached.non, with_blocks=True)
         Qn, gn, cn = plane_accum(npts, ptn)
         Qp, gp, cp = Qp + Qn, gp + gn, cp + cn
-        n_plane = n_plane + torch.sum(ptn.valid)
+        n_plane = n_plane + torch.sum(ptn.valid, dim=-1)
 
     m = nvalid.to(dtype)
-    om = omega * m[:, None]
+    om = omega * m[..., None]
     rf = ReducedFactor(
         Q=Ql + Qp, g0=gl + gp, c0=cl + cp,
-        z0=_zvec(Rwb0, P0, o), o=o, NtN=om.T @ om,
-        n_line=torch.sum(lt.valid).to(torch.int32),
+        z0=_zvec(Rwb0, P0, o), o=o,
+        NtN=lie.lane_sum(om[..., :, None] * om[..., None, :], dim=-3),
+        n_line=torch.sum(lt.valid, dim=-1).to(torch.int32),
         n_plane=n_plane.to(torch.int32),
-        n_normal=torch.sum(nvalid).to(torch.int32))
+        n_normal=torch.sum(nvalid, dim=-1).to(torch.int32))
     return rf, BlocksCache(corner=blk_c, surf=blk_s, non=blk_n)
 
 

@@ -11,17 +11,59 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+_CONSTS = {}
+
+
+def const(values, dtype, device):
+    """A constant tensor of `values` on `device`, made once per (values,
+    dtype, device) and cached: a tensor built from host values copies them
+    to the card, and a blocking copy synchronizes the stream, so the step
+    builds its constants through here (the first use copies without
+    blocking; later uses read the cached tensor).  Callers must not write
+    into the result."""
+    key = (values, dtype, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
+        _CONSTS[key] = t
+    return t
+
+
+_CHUNK = 256
+
+
+def lane_sum(x, dim=-1):
+    """Sum over `dim` whose rounding depends on the summed row alone: the
+    row is made contiguous and, past 256 values, cut into zero-padded
+    chunks of 256 that are summed first.  A batch's lanes then each get
+    the bits they would get alone, on the CPU (whose reductions across an
+    outer axis vectorize over however many outputs there are) and on the
+    card (whose long reductions split a row over more blocks when there
+    are fewer rows)."""
+    x = x.movedim(dim, -1).contiguous()
+    if x.shape[-1] > _CHUNK:
+        x = torch.nn.functional.pad(x, (0, -x.shape[-1] % _CHUNK))
+        x = x.unflatten(-1, (-1, _CHUNK)).sum(dim=-1)
+    return x.sum(dim=-1)
+
+
+def mv(A, v):
+    """A (..., m, n) times v (..., n) over leading dims, as `lane_sum` of
+    the products (a batched matrix product picks its kernel by the batch,
+    and with it the rounding)."""
+    return lane_sum(A * v[..., None, :])
+
+
+# hat(v) entries as positions in [0, x, y, z, -x, -y, -z]
+_HAT = (0, 6, 2, 3, 0, 4, 5, 1, 0)
 
 
 def hat(v):
-    """so(3) hat operator: v -> skew-symmetric matrix."""
-    x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    zero = torch.zeros_like(x)
-    return torch.stack([
-        torch.stack([zero, -z, y], dim=-1),
-        torch.stack([z, zero, -x], dim=-1),
-        torch.stack([-y, x, zero], dim=-1),
-    ], dim=-2)
+    """so(3) hat operator: v -> skew-symmetric matrix, one gather from
+    [0, v, -v] (the entries of the stacked form, bit for bit)."""
+    p = torch.cat([torch.zeros_like(v[..., :1]), v, -v], dim=-1)
+    idx = const(_HAT, torch.int64, v.device)
+    return torch.index_select(p, -1, idx).unflatten(-1, (3, 3))
 
 
 def _safe_norm(v):

@@ -210,9 +210,9 @@ def _neighbor_moments(vm, pw, mask, mcfg, knn, cached: StackBlocks = None):
             pw - cached.pw0, mcfg)
         blocks = cached
     t_k = voxelmap.kth_smallest_dense(d2d, knn)
-    wf = (d2d <= t_k[:, None]).to(pw.dtype)
+    wf = (d2d <= t_k[..., None]).to(pw.dtype)
     dxf, dyf, dzf = (a.to(pw.dtype) for a in (dxd, dyd, dzd))
-    red = lambda a: torch.sum(a, dim=1)
+    red = lambda a: torch.sum(a, dim=-1)
     wx, wy, wz = dxf * wf, dyf * wf, dzf * wf
     s1 = torch.stack([red(wx), red(wy), red(wz)], dim=-1)
     sxx, syy, szz = red(wx * dxf), red(wy * dyf), red(wz * dzf)
@@ -225,42 +225,48 @@ def _neighbor_moments(vm, pw, mask, mcfg, knn, cached: StackBlocks = None):
     return t_k.to(pw.dtype), n, s1, s2, (dxf, dyf, dzf, wf), blocks
 
 
+def _per_query(thres, t_k):
+    """Each lane's squared-distance gate (...,) against its t_k (..., M)."""
+    return torch.as_tensor(thres, dtype=t_k.dtype,
+                           device=t_k.device)[..., None]
+
+
 def _line_fit(pw, mask, t_k, n, s1, s2, thres_dist, k):
     """PCA line fit + gates (Estimator.cpp:189-277).  Returns (Assoc,
     eigenvalues, [(gate quantity, threshold), ...])."""
-    have5 = (n >= k) & (t_k < thres_dist)
+    have5 = (n >= k) & (t_k < _per_query(thres_dist, t_k))
     nf = torch.clamp(n, min=1).to(pw.dtype)
-    mu = s1 / nf[:, None]
-    cov = s2 / nf[:, None, None] - mu[:, None, :] * mu[:, :, None]
+    mu = s1 / nf[..., None]
+    cov = s2 / nf[..., None, None] - mu[..., None, :] * mu[..., :, None]
     evals = linalg3.eigvalsh3(cov)
     u = linalg3.principal_eigvec3(cov, evals)
-    line_like = evals[:, 2] > 3.0 * evals[:, 1]
+    line_like = evals[..., 2] > 3.0 * evals[..., 1]
     err0 = torch.sqrt(torch.sum(lie.cross(-mu, u) ** 2, dim=-1))
     valid = mask & have5 & line_like & (err0 > 1e-5)
     return (Assoc(mu, u, valid, t_k, n), evals,
-            [(evals[:, 2], 3.0 * evals[:, 1]), (err0, 1e-5)])
+            [(evals[..., 2], 3.0 * evals[..., 1]), (err0, 1e-5)])
 
 
 def _plane_fit(pw, mask, t_k, n, s1, s2, blk, thres_dist, k, scatter_ratio):
     """Total-LS plane fit + gates (Estimator.cpp:617-696).  Returns (Assoc,
     scatter eigenvalues, [(gate quantity, threshold), ...])."""
-    have5 = (n >= k) & (t_k < thres_dist)
+    have5 = (n >= k) & (t_k < _per_query(thres_dist, t_k))
     nf = torch.clamp(n, min=1).to(pw.dtype)
-    mu = s1 / nf[:, None]
-    scov = s2 - nf[:, None, None] * mu[:, None, :] * mu[:, :, None]
+    mu = s1 / nf[..., None]
+    scov = s2 - nf[..., None, None] * mu[..., None, :] * mu[..., :, None]
     sev = linalg3.eigvalsh3(scov)
     omega = linalg3.smallest_eigvec3(scov, sev)
     dist = -torch.sum(omega * mu, dim=-1)
     dxd, dyd, dzd, wf = blk
-    dev = wf * (dxd * omega[:, 0, None] + dyd * omega[:, 1, None]
-                + dzd * omega[:, 2, None] + dist[:, None])
-    max_dev = torch.amax(torch.abs(dev), dim=1)
+    dev = wf * (dxd * omega[..., 0, None] + dyd * omega[..., 1, None]
+                + dzd * omega[..., 2, None] + dist[..., None])
+    max_dev = torch.amax(torch.abs(dev), dim=-1)
     planar = max_dev <= 0.2
     err0 = torch.abs(dist)
     gates = [(max_dev, 0.2), (err0, 1e-5)]
     if scatter_ratio > 0:
-        planar = planar & (sev[:, 1] > scatter_ratio * sev[:, 2])
-        gates.append((sev[:, 1], scatter_ratio * sev[:, 2]))
+        planar = planar & (sev[..., 1] > scatter_ratio * sev[..., 2])
+        gates.append((sev[..., 1], scatter_ratio * sev[..., 2]))
     valid = mask & have5 & planar & (err0 > 1e-5)
     return Assoc(mu, omega, valid, t_k, n), sev, gates
 
@@ -275,7 +281,10 @@ def _fit(mode, pw, mask, t_k, n, s1, s2, blk, thres_dist, k, scatter_ratio):
 def associate_reference(vm, pw, mask, mcfg, k, mode, thres_dist,
                         scatter_ratio=0.0, cached: StackBlocks = None):
     """Plain PyTorch version of the kernel on any device: returns
-    (Assoc, StackBlocks of the persistent-map candidate blocks)."""
+    (Assoc, StackBlocks of the persistent-map candidate blocks).  Plain
+    torch over any leading axes (a batch's lanes): queries pw (..., M, 3),
+    mask (..., M), maps (..., Cs, row), cached blocks (..., M, C), a gate
+    thres_dist (...) a lane."""
     t_k, n, s1, s2, blk, blocks = _neighbor_moments(vm, pw, mask, mcfg, k,
                                                     cached)
     fit = _fit(mode, pw, mask, t_k, n, s1, s2, blk, thres_dist, k,
@@ -307,7 +316,8 @@ def stage_reference(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
     out = dict(r._asdict(), gates=gates, evals=evals)
     if stage == NEED:
         need = mask & ~r.valid
-        out.update(need=need, need_count=torch.sum(need.to(torch.int32)))
+        out.update(need=need,
+                   need_count=torch.sum(need.to(torch.int32), dim=-1))
     return out
 
 
@@ -370,8 +380,8 @@ def _sign_err(got, want):
 def _gap_clear(evals, mode):
     """Queries whose fitted eigenvector is well separated."""
     top = torch.clamp(torch.amax(torch.abs(evals), dim=-1), min=1e-30)
-    gap = (evals[:, 2] - evals[:, 1] if mode == LINE
-           else evals[:, 1] - evals[:, 0])
+    gap = (evals[..., 2] - evals[..., 1] if mode == LINE
+           else evals[..., 1] - evals[..., 0])
     return gap > GAP_MIN * top
 
 
@@ -446,7 +456,9 @@ def compare(stage, got, ref, mask, mode):
         need = got["need"]
         if not torch.equal(need, mask & ~got["valid"]):
             fail("flags are not mask & ~valid of the same launch")
-        if int(got["need_count"]) != int(need.sum()):
+        count = torch.sum(need.to(torch.int64), dim=-1)
+        if not torch.equal(got["need_count"].to(torch.int64).reshape(
+                count.shape), count):
             fail("flag count differs from the flags")
         if bool(((need != ref["need"]) & ~near).any()):
             fail("flags differ from the plain version away from a gate")
@@ -458,31 +470,46 @@ def compare(stage, got, ref, mask, mode):
 # --------------------------------------------------------------------------
 
 def _compact_indices(fail, Mr):
-    """Indices of the first Mr True entries of `fail` (M,), padded with M."""
-    M = fail.shape[0]
+    """Indices of the first Mr True entries of each row of `fail` (..., M),
+    padded with M."""
+    M = fail.shape[-1]
     dev = fail.device
-    pos = torch.cumsum(fail.to(torch.int32), dim=0) - 1
+    pos = torch.cumsum(fail.to(torch.int32), dim=-1) - 1
     dst = torch.where(fail & (pos < Mr), pos, torch.full_like(pos, Mr))
-    sel = torch.full((Mr + 1,), M, dtype=torch.int32, device=dev)
-    sel = sel.index_put((dst.to(torch.int64),),
-                        torch.arange(M, dtype=torch.int32, device=dev))
-    return sel[:Mr]
+    sel = torch.full(tuple(fail.shape[:-1]) + (Mr + 1,), M,
+                     dtype=torch.int32, device=dev)
+    src = torch.arange(M, dtype=torch.int32, device=dev).expand(fail.shape)
+    return sel.scatter(-1, dst.to(torch.int64), src)[..., :Mr]
+
+
+def _rows_index(idx, a):
+    """idx (..., Mr) widened to index a (..., M, *rest) along its query
+    axis (idx.dim() - 1)."""
+    k = idx.dim() - 1
+    rest = tuple(a.shape[k + 1:])
+    return idx.to(torch.int64).reshape(tuple(idx.shape) + (1,) * len(rest)
+                                       ).expand(tuple(idx.shape) + rest)
+
+
+def _pad_row(a, k):
+    pad = torch.zeros(tuple(a.shape[:k]) + (1,) + tuple(a.shape[k + 1:]),
+                      dtype=a.dtype, device=a.device)
+    return torch.cat([a, pad], dim=k)
 
 
 def _take_fill(a, idx):
-    """a[idx] with out-of-range idx (== len(a)) reading zeros."""
-    pad = torch.zeros((1,) + tuple(a.shape[1:]), dtype=a.dtype,
-                      device=a.device)
-    return torch.cat([a, pad])[idx.to(torch.int64)]
+    """Rows idx (..., Mr) of a (..., M, *rest), lane by lane, with
+    out-of-range idx (== M) reading zeros."""
+    k = idx.dim() - 1
+    return torch.gather(_pad_row(a, k), k, _rows_index(idx, a))
 
 
 def _set_drop(a, idx, vals):
-    """a.at[idx].set(vals, mode="drop") with idx == len(a) dropped."""
-    pad = torch.zeros((1,) + tuple(a.shape[1:]), dtype=a.dtype,
-                      device=a.device)
-    out = torch.cat([a, pad]).index_put((idx.to(torch.int64),),
-                                        vals.to(a.dtype))
-    return out[:-1]
+    """a.at[idx].set(vals, mode="drop") along a's query axis, lane by lane,
+    with idx == M dropped."""
+    k = idx.dim() - 1
+    out = _pad_row(a, k).scatter(k, _rows_index(idx, a), vals.to(a.dtype))
+    return out.narrow(k, 0, a.shape[k])
 
 
 def associate_with_rescue_reference(vm, vm_local, pw, mask, mcfg, lcfg, k,
@@ -500,13 +527,14 @@ def associate_with_rescue_reference(vm, vm_local, pw, mask, mcfg, lcfg, k,
     blocks = blocks if want_blocks or cached is not None else None
     if vm_local is None:
         return r, blocks
-    M = pw.shape[0]
+    M = pw.shape[-2]
     if rescue_cap >= M:
         r2, _ = associate_reference(vm_local, pw, mask, lcfg, k, mode,
                                     thres_dist, scatter_ratio)
         use2 = ~r.valid & r2.valid
         pick = lambda a, b: torch.where(
-            use2.reshape((M,) + (1,) * (a.dim() - 1)), b, a)
+            use2.reshape(tuple(use2.shape) + (1,) * (a.dim() - use2.dim())),
+            b, a)
         return Assoc(*map(pick, r, r2)), blocks
     sel = _compact_indices(mask & ~r.valid, rescue_cap)
     r2, _ = associate_reference(vm_local, _take_fill(pw, sel), sel < M, lcfg,
@@ -518,7 +546,7 @@ def associate_with_rescue_reference(vm, vm_local, pw, mask, mcfg, lcfg, k,
 def _tried(need, rescue_cap):
     """Flagged queries whose rank among the flags below them is under the
     cap: the ones the rescue associates against the local map."""
-    rank = torch.cumsum(need.to(torch.int32), dim=0) - need.to(torch.int32)
+    rank = torch.cumsum(need.to(torch.int32), dim=-1) - need.to(torch.int32)
     return need & (rank < rescue_cap)
 
 
@@ -535,9 +563,10 @@ def _merge(first, second, use2):
                                               device=qa.device).expand_as(qa)
                 out[name].append((torch.where(use2, qb, qa),
                                   torch.where(use2, t(tb), t(ta))))
-        elif b is not None and torch.is_tensor(a) and a.dim() >= 1:
+        elif b is not None and torch.is_tensor(a) and a.dim() >= use2.dim():
             out[name] = torch.where(
-                use2.reshape((-1,) + (1,) * (a.dim() - 1)), b, a)
+                use2.reshape(tuple(use2.shape)
+                             + (1,) * (a.dim() - use2.dim())), b, a)
     return out
 
 
@@ -564,7 +593,7 @@ def rescue_stage_reference(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
                             scatter_ratio, cached)
     second = stage_reference(OUT, vm_local, pw, mask, lcfg, k, mode,
                              thres_dist, scatter_ratio)
-    M = pw.shape[0]
+    M = pw.shape[-2]
     if lcfg.dedup_gather and rescue_cap is not None and rescue_cap < M:
         sel, pw_r = _rescue_queries(
             pw, first["need"] if need is None else need, rescue_cap)
@@ -641,7 +670,9 @@ def _args_struct():
                 ("valid", p), ("rows", p), ("g_v", p), ("g_sv", p),
                 ("g_slot", p), ("g_key", p), ("need", p), ("need_count", p),
                 ("dedup_thr", p), ("g_keep", p), ("scratch", p),
-                ("m", i), ("mode", i), ("bf16", i), ("cached", i), ("k", i),
+                ("cells_stride", ctypes.c_longlong),
+                ("m", i), ("lanes", i), ("need_stride", i), ("mode", i),
+                ("bf16", i), ("cached", i), ("k", i),
                 ("rescue_cap", i), ("pack", i * 3),
                 ("stencil", i * 3), ("sdim", i * 3), ("nb", i * 3),
                 ("cpr", i), ("ncand", i), ("inst", i), ("wpb", i),
@@ -649,69 +680,90 @@ def _args_struct():
                 ("voxel", ctypes.c_float), ("pvs", ctypes.c_float * 3),
                 ("scatter_ratio", ctypes.c_float)]
 
-        assert ctypes.sizeof(AssocArgs) == 312, "see csrc/assoc.cu"
+        assert ctypes.sizeof(AssocArgs) == 328, "see csrc/assoc.cu"
         _ARGS_CLS.append(AssocArgs)
     return _ARGS_CLS[0]
 
 
-def _check_map(vm, mcfg, dev):
+def _check_map(vm, mcfg, dev, B=None):
+    """A map's cells: (B, Cs, row) for a batch of B lanes, (Cs, row) for
+    B None."""
     if mcfg.dedup_gather:
         voxelmap.dedup_capacity(mcfg, 1)  # raises below one row a query
     c = vm.cells
     row = 4 * voxelmap._cpr(mcfg)
-    if c.dtype != torch.float32 or c.dim() != 2 or c.shape[1] != row \
+    lead = () if B is None else (B,)
+    if c.dtype != torch.float32 or c.dim() != len(lead) + 2 \
+            or tuple(c.shape[:len(lead)]) != lead or c.shape[-1] != row \
             or not c.is_contiguous() or c.device != dev:
-        raise ValueError(f"cells must be a contiguous (Cs, {row}) float32 "
-                         f"tensor on {dev}")
+        raise ValueError(f"cells must be a contiguous {lead + ('Cs', row)} "
+                         f"float32 tensor on {dev}")
     sd = voxelmap._sdims(mcfg)
-    if c.shape[0] != sd[0] * sd[1] * sd[2]:
-        raise ValueError(f"cells hold {c.shape[0]} superrows, the map config "
-                         f"{sd[0] * sd[1] * sd[2]}")
+    if c.shape[-2] != sd[0] * sd[1] * sd[2]:
+        raise ValueError(f"cells hold {c.shape[-2]} superrows, the map "
+                         f"config {sd[0] * sd[1] * sd[2]}")
 
 
-def _check(vm, pw, mask, mcfg, k, mode, cached):
+def _check_lanes(pw, mask, thres_dist):
+    """The wrappers' one input form, on either device: queries pw
+    (B, M, 3) float32, mask (B, M) bool and a gate a lane thres_dist (B,)
+    on the queries' device."""
     dev = pw.device
-    M = pw.shape[0] if pw.dim() == 2 else -1
-    if pw.dtype != torch.float32 or tuple(pw.shape) != (M, 3):
-        raise ValueError(f"pw must be (M, 3) float32, got {tuple(pw.shape)} "
-                         f"{pw.dtype}")
-    if mask.dtype != torch.bool or tuple(mask.shape) != (M,) \
+    B, M = pw.shape[:2] if pw.dim() == 3 else (-1, -1)
+    if pw.dtype != torch.float32 or tuple(pw.shape) != (B, M, 3):
+        raise ValueError(f"pw must be (B, M, 3) float32, got "
+                         f"{tuple(pw.shape)} {pw.dtype}")
+    if mask.dtype != torch.bool or tuple(mask.shape) != (B, M) \
             or mask.device != dev:
-        raise ValueError(f"mask must be ({M},) bool on {dev}")
+        raise ValueError(f"mask must be ({B}, {M}) bool on {dev}")
+    if not torch.is_tensor(thres_dist) or not thres_dist.is_floating_point() \
+            or tuple(thres_dist.shape) != (B,) or thres_dist.device != dev:
+        raise ValueError(f"thres_dist must be a ({B},) float tensor on {dev}")
+    return B, M
+
+
+def _check(vm, pw, mask, mcfg, k, mode, thres_dist, cached):
+    """The shapes of one launch's inputs, each with its lane axis: pw
+    (B, M, 3), mask (B, M), gate (B,), maps (B, Cs, row), cached blocks
+    (B, M, C)."""
+    dev = pw.device
+    B, M = _check_lanes(pw, mask, thres_dist)
     C = n_candidates(mcfg)
     if mode not in (PLANE, LINE) or not 1 <= k <= C:
         raise ValueError(f"mode {mode} / k {k} not supported")
     if cached is None:
-        _check_map(vm, mcfg, dev)
+        _check_map(vm, mcfg, dev, B)
         return
     store = torch.bfloat16 if mcfg.dense_bf16 else torch.float32
     for name in ("dxd", "dyd", "dzd", "d2d"):
         a = getattr(cached, name)
-        if a.dtype != store or tuple(a.shape) != (M, C) \
+        if a.dtype != store or tuple(a.shape) != (B, M, C) \
                 or not a.is_contiguous() or a.device != dev:
             raise ValueError(f"cached.{name}: expected contiguous "
-                             f"({M}, {C}) {store} on {dev}")
+                             f"({B}, {M}, {C}) {store} on {dev}")
     p0 = cached.pw0
-    if tuple(p0.shape) != (M, 3) or p0.dtype != torch.float32 \
+    if tuple(p0.shape) != (B, M, 3) or p0.dtype != torch.float32 \
             or not p0.is_contiguous() or p0.device != dev:
-        raise ValueError("cached.pw0 must be a contiguous (M, 3) float32 "
+        raise ValueError("cached.pw0 must be a contiguous (B, M, 3) float32 "
                          "tensor on the queries' device")
 
 
-def _set_map(a, vm, mcfg, bufs, M, name="scratch"):
+def _set_map(a, vm, mcfg, bufs, Q, name="scratch"):
     """The per-map fields of `AssocArgs`: the map's rows (None for the
-    cached entry, which reads none), its geometry and the launch's `plan`;
-    a device buffer for the warps' tables, where `plan` asks for one, goes
-    into bufs[name]."""
+    cached entry, which reads none) and the stride between the lanes'
+    maps, its geometry and the launch's `plan`; a device buffer for the
+    warps' tables of the launch's Q queries (all lanes), where `plan` asks
+    for one, goes into bufs[name]."""
     px, py, pz = voxelmap._pack(mcfg)
     inst, a.wpb, a.warp_words, scratch = plan(mcfg, cached=vm is None)
     a.inst = INSTANCES.index(inst)
     a.scratch = None
     if scratch:
-        bufs[name] = torch.empty((M, a.warp_words), dtype=torch.float32,
+        bufs[name] = torch.empty((Q, a.warp_words), dtype=torch.float32,
                                  device=bufs["pw"].device)
         a.scratch = bufs[name].data_ptr()
     a.cells = None if vm is None else vm.cells.data_ptr()
+    a.cells_stride = 0 if vm is None else vm.cells[0].numel()
     a.bf16 = int(bool(mcfg.dense_bf16))
     a.pack[:] = [px, py, pz]
     a.stencil[:] = [mcfg.stencil_x, mcfg.stencil_y, mcfg.stencil_z]
@@ -724,28 +776,29 @@ def _set_map(a, vm, mcfg, bufs, M, name="scratch"):
                 pz * mcfg.voxel_size]
 
 
-def _dedup_bound(pw, mcfg, M=None):
-    """The dedup bound of a fresh launch over queries pw (the rows of all
-    of them rank, masked or not) with a compact table of
-    `dedup_capacity(mcfg, M)` rows, on the device; None without
+def _dedup_bound(pw, mcfg):
+    """Each lane's dedup bound (B,) of a fresh launch over its queries pw
+    (B, M, 3) (the rows of all of them rank, masked or not) with a compact
+    table of `dedup_capacity(mcfg, M)` rows, on the device; None without
     `mcfg.dedup_gather`."""
     if not mcfg.dedup_gather:
         return None
     slot = voxelmap.stencil_addresses(pw, mcfg).slot
     return voxelmap.dedup_threshold(
-        slot, voxelmap.dedup_capacity(mcfg, pw.shape[0] if M is None else M))
+        slot, voxelmap.dedup_capacity(mcfg, pw.shape[-2]))
 
 
 def prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
             cached, want_blocks, need_count=True):
-    """Check the inputs and allocate the outputs of one launch.  Returns
-    (args, bufs): the ctypes `AssocArgs` for `launch` and the tensors it
-    points to, which must live until the launch has run.  The NEED stage
-    counts its flags only with `need_count`."""
-    _check(vm, pw, mask, mcfg, k, mode, cached)
+    """Check the inputs (each with its lane axis, see `_check`) and
+    allocate the outputs of one launch over every lane.  Returns (args,
+    bufs): the ctypes `AssocArgs` for `launch` and the tensors it points
+    to, which must live until the launch has run.  The NEED stage counts
+    each lane's flags only with `need_count`."""
+    _check(vm, pw, mask, mcfg, k, mode, thres_dist, cached)
     if stage == GATHER and cached is not None:
         raise ValueError("the GATHER stage reads map rows: fresh entry only")
-    M = pw.shape[0]
+    B, M = pw.shape[:2]
     dev = pw.device
     f32, i32 = torch.float32, torch.int32
     pw = pw.contiguous()
@@ -753,47 +806,49 @@ def prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
     a = _args_struct()()
     C, S = n_candidates(mcfg), window_rows(mcfg)
     bufs = dict(pw=pw, mask=mask,
-                thres=torch.as_tensor(thres_dist, dtype=f32,
-                                      device=dev).reshape(1).contiguous(),
-                out=torch.empty((M, _REC), dtype=f32, device=dev),
-                valid=torch.empty((M,), dtype=torch.bool, device=dev))
+                thres=thres_dist.to(torch.float32).contiguous(),
+                out=torch.empty((B, M, _REC), dtype=f32, device=dev),
+                valid=torch.empty((B, M), dtype=torch.bool, device=dev))
     if cached is None:
-        _set_map(a, vm, mcfg, bufs, M)
+        _set_map(a, vm, mcfg, bufs, B * M)
         bufs["cells"] = vm.cells
         thr = _dedup_bound(pw, mcfg)
         if thr is not None:
             bufs["dedup_thr"] = thr
         if want_blocks:
             store = torch.bfloat16 if mcfg.dense_bf16 else f32
-            blk = [torch.empty((M, C), dtype=store, device=dev)
+            blk = [torch.empty((B, M, C), dtype=store, device=dev)
                    for _ in range(4)]
             bufs["blk_out"] = blk
             a.blk_out[:] = [b.data_ptr() for b in blk]
     else:                       # the cached entry reads no map
-        _set_map(a, None, mcfg, bufs, M)
+        _set_map(a, None, mcfg, bufs, B * M)
         bufs["pw0"] = cached.pw0
         a.blk_in[:] = [cached.dxd.data_ptr(), cached.dyd.data_ptr(),
                        cached.dzd.data_ptr(), cached.d2d.data_ptr()]
     if stage == GATHER:
         R = 4 * voxelmap._cpr(mcfg)
-        bufs.update(rows=torch.empty((M, S, R), dtype=f32, device=dev),
-                    g_v=torch.empty((M, 3), dtype=i32, device=dev),
-                    g_sv=torch.empty((M, S, 3), dtype=i32, device=dev),
-                    g_slot=torch.empty((M, S), dtype=i32, device=dev),
-                    g_key=torch.empty((M, S), dtype=f32, device=dev),
-                    g_keep=torch.empty((M, S), dtype=torch.bool, device=dev))
+        bufs.update(rows=torch.empty((B, M, S, R), dtype=f32, device=dev),
+                    g_v=torch.empty((B, M, 3), dtype=i32, device=dev),
+                    g_sv=torch.empty((B, M, S, 3), dtype=i32, device=dev),
+                    g_slot=torch.empty((B, M, S), dtype=i32, device=dev),
+                    g_key=torch.empty((B, M, S), dtype=f32, device=dev),
+                    g_keep=torch.empty((B, M, S), dtype=torch.bool,
+                                       device=dev))
+    # each lane's flags padded to whole 16-byte words: RESCUE reads 16
+    # flags at a time
+    a.need_stride = (M + 15) // 16 * 16
     if stage == NEED:
-        # padded to whole 16-byte words: RESCUE reads 16 flags at a time
-        bufs["need"] = torch.empty(((M + 15) // 16 * 16,), dtype=torch.bool,
+        bufs["need"] = torch.empty((B, a.need_stride), dtype=torch.bool,
                                    device=dev)
         if need_count:
-            bufs["need_count"] = torch.zeros((1,), dtype=i32, device=dev)
+            bufs["need_count"] = torch.zeros((B,), dtype=i32, device=dev)
     for name in ("pw", "mask", "pw0", "thres", "out", "valid", "rows", "g_v",
                  "g_sv", "g_slot", "g_key", "g_keep", "need", "need_count",
                  "dedup_thr"):
         if name in bufs:
             setattr(a, name, bufs[name].data_ptr())
-    a.m, a.mode, a.k = M, mode, k
+    a.m, a.lanes, a.mode, a.k = M, B, mode, k
     a.cached = int(cached is not None)
     a.scatter_ratio = scatter_ratio
     return a, bufs
@@ -809,8 +864,9 @@ def _bind(lib):
 
 def launch(stage, args, device):
     """Launch the kernel stopped after `stage` on `device`'s current
-    stream (counted in LAUNCHES, and a RESCUE launch in RESCUE_LAUNCHES);
-    raises if it cannot be built or launched."""
+    stream, one launch for every lane (counted in LAUNCHES, and a RESCUE
+    launch in RESCUE_LAUNCHES); raises if it cannot be built or
+    launched."""
     import ctypes
 
     from .. import cuda_build
@@ -823,24 +879,15 @@ def launch(stage, args, device):
         with torch.cuda.device(device):
             rc = fn(stage, ctypes.byref(args),
                     torch.cuda.current_stream().cuda_stream)
-    if args.m > 0:                  # assoc_launch launches nothing for m = 0
+    if args.m > 0 and args.lanes > 0:   # else assoc_launch launches nothing
         _count(INSTANCES[args.inst], LAUNCHES=1,
                RESCUE_LAUNCHES=int(stage == RESCUE))
     if rc != 0:
         raise RuntimeError(f"assoc_launch failed: CUDA error {rc}")
 
 
-def _launch(stage, vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio,
-            cached, want_blocks):
-    """One kernel launch; returns the buffers it wrote."""
-    a, bufs = prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
-                      scatter_ratio, cached, want_blocks)
-    launch(stage, a, pw.device)
-    return bufs
-
-
 def _s2(rec):
-    """(M, 3, 3) from the kernel's (xx, xy, xz, yy, yz, zz) lanes."""
+    """(..., 3, 3) from the kernel's (xx, xy, xz, yy, yz, zz) lanes."""
     xx, xy, xz, yy, yz, zz = rec.unbind(-1)
     return torch.stack([torch.stack([xx, xy, xz], -1),
                         torch.stack([xy, yy, yz], -1),
@@ -854,39 +901,45 @@ def _decode(stage, bufs):
                 for name in ("rows", "g_v", "g_sv", "g_slot", "g_key",
                              "g_keep")}
     if stage == SELECT:
-        return dict(t_k=out[:, 7], n=out[:, 8])
+        return dict(t_k=out[..., 7], n=out[..., 8])
     if stage == MOMENTS:
-        return dict(s1=out[:, 0:3], s2=_s2(out[:, 3:9]), t_k=out[:, 9],
-                    n=out[:, 10])
+        return dict(s1=out[..., 0:3], s2=_s2(out[..., 3:9]), t_k=out[..., 9],
+                    n=out[..., 10])
     if stage == EIG:
-        return dict(evals=out[:, 0:3], vec=out[:, 3:6])
-    res = dict(mu=out[:, 0:3], vec=out[:, 3:6], valid=bufs["valid"],
-               t_k=out[:, 7], n=out[:, 8])
+        return dict(evals=out[..., 0:3], vec=out[..., 3:6])
+    res = dict(mu=out[..., 0:3], vec=out[..., 3:6], valid=bufs["valid"],
+               t_k=out[..., 7], n=out[..., 8])
     if stage == NEED:
-        M = out.shape[0]
-        res["need"] = bufs["need"][:M]
+        res["need"] = bufs["need"][:, :out.shape[1]]
         if "need_count" in bufs:
-            res["need_count"] = bufs["need_count"][0]
+            res["need_count"] = bufs["need_count"]
     return res
 
 
 def run_stage(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
               scatter_ratio=0.0, cached: StackBlocks = None):
-    """The kernel stopped after `stage` on CUDA tensors (`stage_reference`
-    on CPU tensors); a dict keyed by what that stage returns."""
+    """The kernel stopped after `stage` on CUDA tensors, one launch for
+    every lane (`stage_reference` on CPU tensors); a dict keyed by what
+    that stage returns.  Inputs with their lane axis, as `associate`
+    takes them."""
+    _check_lanes(pw, mask, thres_dist)
     if not pw.is_cuda:
         ref = stage_reference(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
                               scatter_ratio, cached)
         ref.pop("gates", None)
         return ref
-    return _decode(stage, _launch(stage, vm, pw, mask, mcfg, k, mode,
-                                  thres_dist, scatter_ratio, cached, False))
+    a, bufs = prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
+                      scatter_ratio, cached, False)
+    launch(stage, a, pw.device)
+    return _decode(stage, bufs)
 
 
 def associate(vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio=0.0,
               cached: StackBlocks = None, want_blocks=False):
-    """Association of queries pw (M, 3) against one map: the kernel on
-    CUDA tensors, `associate_reference` on CPU tensors.
+    """Association of a batch's lanes, queries pw (B, M, 3) and mask
+    (B, M), each lane against its own map (B, Cs, row) with its own gate
+    thres_dist (B,): the kernel on CUDA tensors, one launch for every
+    lane, `associate_reference` on CPU tensors.
 
     `cached` (the round-0 StackBlocks) selects the gather-free entry;
     otherwise the map rows are read and, with `want_blocks`, the four dense
@@ -899,13 +952,14 @@ def associate(vm, pw, mask, mcfg, k, mode, thres_dist, scatter_ratio=0.0,
 
 def _rescue_pair(vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
                  scatter_ratio, rescue_cap, cached, want_blocks):
-    """Launch NEED on the persistent map, then RESCUE on the local map
-    (OUT alone without one); returns the buffers they wrote."""
+    """Launch NEED on the persistent maps, then RESCUE on the local maps
+    (OUT alone without them), each once for every lane; returns the
+    buffers they wrote."""
     dev = pw.device
-    M = pw.shape[0]
+    B, M = pw.shape[:2]
     stage = OUT if vm_local is None else NEED
     if vm_local is not None:
-        _check_map(vm_local, lcfg, dev)
+        _check_map(vm_local, lcfg, dev, B)
         if not 1 <= k <= n_candidates(lcfg):
             raise ValueError(f"k {k} not supported on the local map")
     a, bufs = prepare(stage, vm, pw, mask, mcfg, k, mode, thres_dist,
@@ -913,18 +967,18 @@ def _rescue_pair(vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
     launch(stage, a, dev)
     if vm_local is not None:
         a2 = _args_struct().from_buffer_copy(a)
-        _set_map(a2, vm_local, lcfg, bufs, M, "scratch_local")
+        _set_map(a2, vm_local, lcfg, bufs, B * M, "scratch_local")
         a2.cached, a2.mask, a2.dedup_thr = 0, None, None
         a2.blk_out[:] = [None] * 4
         a2.rescue_cap = min(int(rescue_cap), M)
         bufs["cells_local"] = vm_local.cells
         if lcfg.dedup_gather:
-            # the reference ranks the rows of the rescue's own query set:
-            # every query when the cap does not bind, else the first
+            # the reference ranks the rows of each lane's rescue query
+            # set: every query when the cap does not bind, else the first
             # rescue_cap flags of the NEED launch and the pads (on the
             # device, between the two launches)
             pw_r = pw if a2.rescue_cap >= M else _rescue_queries(
-                pw, bufs["need"][:M], a2.rescue_cap)[1]
+                pw, bufs["need"][:, :M], a2.rescue_cap)[1]
             bufs["dedup_thr_local"] = _dedup_bound(pw_r, lcfg)
             a2.dedup_thr = bufs["dedup_thr_local"].data_ptr()
         launch(RESCUE, a2, dev)
@@ -938,9 +992,12 @@ def associate_with_rescue(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
     rescue of factors (`vm_local` None: none): the queries that failed
     (mask & ~valid), the first `rescue_cap` of them in index order (all
     when rescue_cap >= M), are associated against `vm_local` with `lcfg`,
-    and take that result where it is valid.  On CUDA tensors two kernel
-    launches and no torch op; `associate_with_rescue_reference` on CPU
-    tensors.  Returns (Assoc merged, StackBlocks or None) as `associate`."""
+    and take that result where it is valid.  A batch's lanes (pw (B, M, 3),
+    maps (B, Cs, row), thres_dist (B,)) each rescue their own failed
+    queries.  On CUDA tensors two kernel launches for all lanes and
+    no torch op; `associate_with_rescue_reference` on CPU tensors.
+    Returns (Assoc merged, StackBlocks or None) as `associate`."""
+    _check_lanes(pw, mask, thres_dist)
     _count(CALLS=1, LOCAL_CALLS=int(vm_local is not None))
     if not pw.is_cuda:
         return associate_with_rescue_reference(
@@ -964,6 +1021,7 @@ def run_rescue(vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
     launch's flags `need` and `served` (the local map answered).  The
     kernel on CUDA tensors; on CPU tensors the plain cuts of
     `rescue_stage_reference`, merged as the kernel merges them."""
+    _check_lanes(pw, mask, thres_dist)
     if not pw.is_cuda:
         first, second = rescue_stage_reference(
             vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
@@ -974,5 +1032,4 @@ def run_rescue(vm, vm_local, pw, mask, mcfg, lcfg, k, mode, thres_dist,
                     served=served)
     bufs = _rescue_pair(vm, vm_local, pw, mask, mcfg, lcfg, k, mode,
                         thres_dist, scatter_ratio, rescue_cap, cached, False)
-    res = _decode(NEED, bufs)
-    return dict(res, served=bufs["out"][:, 9] > 0.5)
+    return dict(_decode(NEED, bufs), served=bufs["out"][..., 9] > 0.5)

@@ -41,97 +41,114 @@ def _wrap_i32(x):
 
 
 def _stable_argsort2(k1, k2):
-    """Permutation sorting by (k1, k2) lexicographically, ties in order."""
-    p = torch.sort(k2, stable=True).indices
-    p2 = torch.sort(k1[p], stable=True).indices
-    return p[p2]
+    """Permutation sorting each row of (B, N) by (k1, k2)
+    lexicographically, ties in order: two stable passes along the last
+    axis, the secondary key first."""
+    p = torch.sort(k2, dim=-1, stable=True).indices
+    p2 = torch.sort(torch.gather(k1, -1, p), dim=-1, stable=True).indices
+    return torch.gather(p, -1, p2)
 
 
 def voxel_downsample_multi(pts, masks, leaves, capacities, table: int = 8192,
                            extra=None):
     """Downsample disjoint point classes of one scan in one sorted sweep.
 
-    Returns a list of (out (capacity, 3), out_mask (capacity,), n ()) per
-    class, plus the voxel-mean `extra` payload (capacity,) as a 4th element
-    when `extra` is given.  `table` is ignored (API compatibility).
+    pts (..., N, 3), masks and `extra` (..., N); leading axes are lanes,
+    each downsampled on its own (its keys sorted along its own row).
+    Returns a list of (out (..., capacity, 3), out_mask (..., capacity),
+    n (...)) per class, plus the voxel-mean `extra` payload (...,
+    capacity) as a 4th element when `extra` is given.  `table` is ignored
+    (API compatibility).
     """
     n_cls = len(masks)
     if n_cls > 8:
         raise ValueError("key packing supports at most 8 classes")
-    N = pts.shape[0]
+    lead = tuple(pts.shape[:-2])
+    N = pts.shape[-2]
+    pts = pts.reshape(-1, N, 3)
+    masks = [m.reshape(-1, N) for m in masks]
+    if extra is not None:
+        extra = extra.reshape(-1, N)
+    B = pts.shape[0]
     dtype = pts.dtype
     dev = pts.device
 
-    key1 = torch.full((N,), _I32_BIG, dtype=torch.int32, device=dev)
-    key2 = torch.zeros((N,), dtype=torch.int32, device=dev)
-    rel = torch.zeros((N, 3), dtype=dtype, device=dev)
-    corner = torch.zeros((N, 3), dtype=dtype, device=dev)
+    key1 = torch.full((B, N), _I32_BIG, dtype=torch.int32, device=dev)
+    key2 = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    rel = torch.zeros((B, N, 3), dtype=dtype, device=dev)
+    corner = torch.zeros((B, N, 3), dtype=dtype, device=dev)
     for c, (mask, leaf) in enumerate(zip(masks, leaves)):
         v = torch.floor(pts / leaf).to(torch.int32)
         v64 = v.to(torch.int64)
-        k1 = _wrap_i32(c * (1 << 27) + (v64[:, 0] + (1 << 26)))
+        k1 = _wrap_i32(c * (1 << 27) + (v64[..., 0] + (1 << 26)))
         # (v_y + 2^15) << 16 overflows int32 on purpose (a raw bit
         # pattern compared as signed): build in int64, wrap explicitly
-        k2 = _wrap_i32(((v64[:, 1] + (1 << 15)) << 16)
-                       | ((v64[:, 2] + (1 << 15)) & 0xFFFFFFFF))
+        k2 = _wrap_i32(((v64[..., 1] + (1 << 15)) << 16)
+                       | ((v64[..., 2] + (1 << 15)) & 0xFFFFFFFF))
         key1 = torch.where(mask, k1, key1)
         key2 = torch.where(mask, k2, key2)
         cornr = v.to(dtype) * leaf
-        rel = torch.where(mask[:, None], pts - cornr, rel)
-        corner = torch.where(mask[:, None], cornr, corner)
+        rel = torch.where(mask[..., None], pts - cornr, rel)
+        corner = torch.where(mask[..., None], cornr, corner)
 
     perm = _stable_argsort2(key1, key2)
-    k1s, k2s = key1[perm], key2[perm]
-    rels, corners = rel[perm], corner[perm]
-    exs = extra.to(dtype)[perm] if extra is not None else None
+    take3 = lambda a: torch.gather(a, 1, perm[..., None].expand(a.shape))
+    k1s, k2s = torch.gather(key1, 1, perm), torch.gather(key2, 1, perm)
+    rels, corners = take3(rel), take3(corner)
+    exs = (torch.gather(extra.to(dtype), 1, perm) if extra is not None
+           else None)
 
     valid_s = k1s < _I32_BIG
-    change = (k1s[1:] != k1s[:-1]) | (k2s[1:] != k2s[:-1])
-    one = torch.ones((1,), dtype=torch.bool, device=dev)
-    starts = torch.cat([one, change])
-    ends = torch.cat([change, one])
-    cols = [rels[:, 0], rels[:, 1], rels[:, 2]]
+    change = ((k1s[:, 1:] != k1s[:, :-1]) | (k2s[:, 1:] != k2s[:, :-1]))
+    one = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    starts = torch.cat([one, change], dim=1)
+    ends = torch.cat([change, one], dim=1)
+    cols = [rels[..., 0], rels[..., 1], rels[..., 2]]
     if exs is not None:
         cols.append(exs)
-    pay = torch.stack(cols + [torch.ones((N,), dtype=dtype, device=dev)],
+    pay = torch.stack(cols + [torch.ones((B, N), dtype=dtype, device=dev)],
                       dim=-1)
-    seg = _seg_scan_sum(pay, starts)
+    # the scan runs along axis 0: the points first, the lanes trailing
+    seg = _seg_scan_sum(pay.transpose(0, 1),
+                        starts.transpose(0, 1)).transpose(0, 1)
 
     ok_end = ends & valid_s
-    cls_s = torch.where(valid_s, k1s >> 27,
-                        torch.full_like(k1s, n_cls))
-    cnt = torch.clamp(seg[:, -1:], min=1.0)
-    centroid = corners + seg[:, 0:3] / cnt
-    emean = seg[:, 3] / cnt[:, 0] if exs is not None else None
+    cls_s = torch.where(valid_s, k1s >> 27, torch.full_like(k1s, n_cls))
+    cnt = torch.clamp(seg[..., -1:], min=1.0)
+    centroid = corners + seg[..., 0:3] / cnt
+    emean = seg[..., 3] / cnt[..., 0] if exs is not None else None
 
     # compact ok segment-ends to the front, preserving (class, voxel) order
-    grank = torch.cumsum(ok_end.to(torch.int32), dim=0) - 1
+    grank = torch.cumsum(ok_end.to(torch.int32), dim=1) - 1
     key3 = torch.where(ok_end, grank, torch.full_like(grank, _I32_BIG))
-    perm3 = torch.sort(key3, stable=True).indices
+    perm3 = torch.sort(key3, dim=1, stable=True).indices
     max_cap = max(capacities)
-    padz = torch.zeros((max_cap,), dtype=dtype, device=dev)
-    ocx = torch.cat([centroid[perm3, 0], padz])
-    ocy = torch.cat([centroid[perm3, 1], padz])
-    ocz = torch.cat([centroid[perm3, 2], padz])
-    oce = torch.cat([emean[perm3], padz]) if emean is not None else None
+    padz = torch.zeros((B, max_cap), dtype=dtype, device=dev)
+    ordered = lambda a: torch.cat([torch.gather(a, 1, perm3), padz], dim=1)
+    ocx, ocy, ocz = (ordered(centroid[..., i]) for i in range(3))
+    oce = ordered(emean) if emean is not None else None
 
     okf = ok_end.to(torch.int32)
     outs = []
     for c, capacity in enumerate(capacities):
-        n_before = torch.sum(okf * (cls_s < c))
-        n = torch.sum(okf * (cls_s == c))
+        n_before = torch.sum(okf * (cls_s < c), dim=1)
+        n = torch.sum(okf * (cls_s == c), dim=1)
         # n_before + capacity <= N + max_cap, so the reference's
         # dynamic_slice never clamps: a plain offset gather is equal
-        take = n_before + torch.arange(capacity, device=dev)
-        out_mask = torch.arange(capacity, device=dev) < n
-        out = torch.stack([ocx[take], ocy[take], ocz[take]], dim=-1)
-        out = torch.where(out_mask[:, None], out, torch.zeros_like(out))
-        n = n.to(torch.int32)
+        ar = torch.arange(capacity, device=dev)
+        take = n_before[:, None] + ar
+        out_mask = ar < n[:, None]
+        out = torch.stack([torch.gather(o, 1, take) for o in (ocx, ocy, ocz)],
+                          dim=-1)
+        out = torch.where(out_mask[..., None], out, torch.zeros_like(out))
+        res = (out.reshape(lead + (capacity, 3)),
+               out_mask.reshape(lead + (capacity,)),
+               n.to(torch.int32).reshape(lead))
         if oce is not None:
-            e = torch.where(out_mask, oce[take], torch.zeros_like(oce[take]))
-            outs.append((out, out_mask, n, e))
-        else:
-            outs.append((out, out_mask, n))
+            e = torch.gather(oce, 1, take)
+            e = torch.where(out_mask, e, torch.zeros_like(e))
+            res += (e.reshape(lead + (capacity,)),)
+        outs.append(res)
     return outs
 
 

@@ -96,8 +96,18 @@ def _segment_pass(order, curv, depth, angle, reflect, flat_th_sq, curv_half,
 
 
 def extract_scan_features(pts, intensity, n_valid, cfg):
-    """Feature labels for padded scan lines: pts (L,N,3), intensity (L,N),
-    n_valid (L,).  Returns int32 labels (L,N)."""
+    """Feature labels for padded scan lines: pts (..., L, N, 3), intensity
+    (..., L, N), n_valid (..., L).  Returns int32 labels (..., L, N).
+    Lines are independent, so the lanes of a batch (leading axes) join the
+    line axis: every per-segment pass runs once for all of them."""
+    L, N = pts.shape[-3:-1]
+    labels = _line_labels(pts.reshape(-1, N, 3), intensity.reshape(-1, N),
+                          n_valid.reshape(-1), cfg)
+    return labels.reshape(tuple(pts.shape[:-3]) + (L, N))
+
+
+def _line_labels(pts, intensity, n_valid, cfg):
+    """`extract_scan_features` of lines pts (L, N, 3)."""
     f = cfg.feature
     L, N = pts.shape[:2]
     dtype = pts.dtype
@@ -118,9 +128,8 @@ def extract_scan_features(pts, intensity, n_valid, cfg):
                                                     > 0.966)
     ch_hi = f.th_num_curv_size
     ch_lo = max(f.th_num_curv_size - 1, 1)
-    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
     curv_half = torch.where((dis > f.th_distance_faraway) | both_steep,
-                            i32(ch_lo), i32(ch_hi))
+                            ch_lo, ch_hi).to(torch.int32)
     angle_flag = (both_steep & interior).to(torch.int32)
 
     # the first multiply-add here and the sum of squares below round once,

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from .. import lie
+
 _EPS = 1e-12
 
 
@@ -49,7 +51,7 @@ def _largest_column(M, fallback):
     sel = (is_max & first).to(M.dtype)
     v = torch.sum(M * sel[..., None, :], dim=-1)
     n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
-    fb = torch.tensor(fallback, dtype=M.dtype, device=M.device).expand(v.shape)
+    fb = lie.const(fallback, M.dtype, M.device).expand(v.shape)
     return torch.where(n > 1e-9, v / torch.clamp(n, min=1e-9), fb)
 
 
@@ -58,7 +60,7 @@ def principal_eigvec3(A, evals):
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     M = ((A - evals[..., 1, None, None] * eye)
          @ (A - evals[..., 0, None, None] * eye))
-    return _largest_column(M, [1.0, 0.0, 0.0])
+    return _largest_column(M, (1.0, 0.0, 0.0))
 
 
 def smallest_eigvec3(A, evals):
@@ -66,7 +68,7 @@ def smallest_eigvec3(A, evals):
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     M = ((A - evals[..., 1, None, None] * eye)
          @ (A - evals[..., 2, None, None] * eye))
-    return _largest_column(M, [0.0, 0.0, 1.0])
+    return _largest_column(M, (0.0, 0.0, 1.0))
 
 
 def solve3(A, b):

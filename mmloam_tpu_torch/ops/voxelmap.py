@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import lie
+
 _NF = 4
 _META_MOD = 128.0
 
@@ -178,8 +180,8 @@ def insert(vm: VoxelMap, pts, mask, cfg) -> VoxelMap:
 
 def insert_guard(pts, center, cfg):
     """Points within half a torus period (x0.96) of `center` on every axis."""
-    lim = torch.tensor([cfg.dim_x, cfg.dim_y, cfg.dim_z], dtype=pts.dtype,
-                       device=pts.device) * (0.48 * cfg.voxel_size)
+    lim = lie.const((float(cfg.dim_x), float(cfg.dim_y), float(cfg.dim_z)),
+                    pts.dtype, pts.device) * (0.48 * cfg.voxel_size)
     return torch.all(torch.abs(pts - center[..., None, :]) < lim, dim=-1)
 
 
@@ -204,68 +206,82 @@ class StencilAddr(NamedTuple):
     """Per-query stencil addressing (counterpart of the archived kernel's
     `prepare_queries`, scripts/pallas_assoc.py:76-109)."""
 
-    v: torch.Tensor      # (M, 3) int32 fine-voxel coords of the query
-    sv: torch.Tensor     # (M, S, 3) int32 superrow coords of the window
-    slot: torch.Tensor   # (M, S) int32 torus slot of each superrow
-    key: torch.Tensor    # (M, S) f32 expected epoch key
+    v: torch.Tensor      # (..., M, 3) int32 fine-voxel coords of the query
+    sv: torch.Tensor     # (..., M, S, 3) int32 superrow coords of the window
+    slot: torch.Tensor   # (..., M, S) int32 torus slot of each superrow
+    key: torch.Tensor    # (..., M, S) f32 expected epoch key
 
 
 def stencil_addresses(q, cfg) -> StencilAddr:
     """Voxel, superrow, slot and key addressing of each query's stencil
-    window: the plain version's addressing.  The association kernel
-    computes the same integers itself (its GATHER stage writes them, held
-    bit-equal to these)."""
+    window (queries q (..., M, 3)): the plain version's addressing.  The
+    association kernel computes the same integers itself (its GATHER stage
+    writes them, held bit-equal to these)."""
     px, py, pz = _pack(cfg)
     nbx, nby, nbz = _super_window(cfg)
     v = _voxel_coords(q, cfg)
-    sx0 = _fdiv(v[:, 0] - cfg.stencil_x, px)
-    sy0 = _fdiv(v[:, 1] - cfg.stencil_y, py)
-    sz0 = _fdiv(v[:, 2] - cfg.stencil_z, pz)
+    sx0 = _fdiv(v[..., 0] - cfg.stencil_x, px)
+    sy0 = _fdiv(v[..., 1] - cfg.stencil_y, py)
+    sz0 = _fdiv(v[..., 2] - cfg.stencil_z, pz)
     ox, oy, oz = _grid(nbx, nby, nbz, q.device)
-    sv = torch.stack([sx0[:, None] + ox[None, :],
-                      sy0[:, None] + oy[None, :],
-                      sz0[:, None] + oz[None, :]], dim=-1).to(torch.int32)
+    sv = torch.stack([sx0[..., None] + ox, sy0[..., None] + oy,
+                      sz0[..., None] + oz], dim=-1).to(torch.int32)
     slot, key = _super_decompose(sv, cfg)
     return StencilAddr(v, sv, slot, key)
 
 
+def _lane_rows(cells, idx):
+    """Rows idx (B, ...) of each lane's cells (B, Cs, R) -> (B, ..., R)."""
+    b = torch.arange(cells.shape[0], device=cells.device)
+    return cells[b.reshape((-1,) + (1,) * (idx.dim() - 1)),
+                 idx.to(torch.int64)]
+
+
 def _dedup_gather_rows(cells, slot, capacity):
-    """The reference's two-level superrow gather (`voxelmap.py:239-284`):
-    the (M, S) rows of `slot`, each unique row read once into a compact
-    table of `capacity` rows, ranked by slot id.  Returns (rows (M, S, R),
-    valid (M, S)): a position whose unique rank overflows `capacity` gets
-    valid=False and the compact table's last row (candidates dropped,
-    never wrong data where valid).  Stable sorts, as `lax.sort`'s."""
-    M, S = slot.shape
-    n_super = cells.shape[0]
-    flat = slot.reshape(-1)
-    s_ids, pos = torch.sort(flat, stable=True)
-    newrun = torch.cat([torch.ones((1,), dtype=torch.bool,
+    """The reference's two-level superrow gather (`voxelmap.py:239-284`)
+    of each lane: its (M, S) rows of `slot`, each unique row read once into
+    a compact table of `capacity` rows, ranked by slot id.  cells (B, Cs,
+    R), slot (B, M, S).  Returns (rows (B, M, S, R), valid (B, M, S)): a
+    position whose unique rank overflows `capacity` gets valid=False and
+    the compact table's last row (candidates dropped, never wrong data
+    where valid).  Stable sorts along each lane's row, as `lax.sort`'s.
+    Unbatched cells (Cs, R) and slot (M, S) are one lane."""
+    if slot.dim() == 2:
+        rows, ok = _dedup_gather_rows(cells[None], slot[None], capacity)
+        return rows[0], ok[0]
+    B, M, S = slot.shape
+    n_super = cells.shape[1]
+    flat = slot.reshape(B, -1)
+    s_ids, pos = torch.sort(flat, dim=1, stable=True)
+    newrun = torch.cat([torch.ones((B, 1), dtype=torch.bool,
                                    device=flat.device),
-                        s_ids[1:] != s_ids[:-1]])
-    rank = torch.cumsum(newrun.to(torch.int32), 0, dtype=torch.int32) - 1
+                        s_ids[:, 1:] != s_ids[:, :-1]], dim=1)
+    rank = torch.cumsum(newrun.to(torch.int32), 1, dtype=torch.int32) - 1
     k_uid = torch.where(newrun, rank, torch.full_like(rank, capacity))
-    uid = s_ids[torch.sort(k_uid, stable=True).indices][:capacity]
-    inv = torch.empty_like(rank).scatter_(0, pos, rank).reshape(M, S)
-    compact = cells[torch.clamp(uid, 0, n_super - 1).to(torch.int64)]
-    rows = compact[torch.clamp(inv, max=capacity - 1).to(torch.int64)]
+    uid = torch.gather(s_ids, 1, torch.sort(k_uid, dim=1,
+                                            stable=True).indices)[:, :capacity]
+    inv = torch.empty_like(rank).scatter_(1, pos, rank).reshape(B, M, S)
+    compact = _lane_rows(cells, torch.clamp(uid, 0, n_super - 1))
+    rows = _lane_rows(compact, torch.clamp(inv, max=capacity - 1))
     return rows, inv < capacity
 
 
 def dedup_threshold(slot, capacity):
-    """The largest slot id whose unique rank is below `capacity`, as a (1,)
-    int32 tensor on the slots' device: a window row survives
-    `_dedup_gather_rows` iff its slot is <= this (all rows when there are
-    fewer distinct ids), and an overflowed one reads this slot's row.
-    Fixed-shape ops only (sort, neighbour compare, cumsum): no host sync.
-    The association kernel takes it as its per-launch dedup bound."""
-    s_ids = torch.sort(slot.reshape(-1)).values
-    newrun = torch.cat([torch.ones((1,), dtype=torch.bool,
+    """The largest slot id whose unique rank is below `capacity`, per lane:
+    slot (B, M, S) gives (B,), an unbatched (M, S) a (1,) int32 tensor on
+    the slots' device.  A window row survives `_dedup_gather_rows` iff its
+    slot is <= this (all rows when there are fewer distinct ids), and an
+    overflowed one reads this slot's row.  Fixed-shape ops only (sort,
+    neighbour compare, cumsum): no host sync.  The association kernel
+    takes it as each lane's dedup bound."""
+    flat = slot.reshape(-1, slot.shape[-2] * slot.shape[-1])
+    s_ids = torch.sort(flat, dim=1).values
+    newrun = torch.cat([torch.ones((flat.shape[0], 1), dtype=torch.bool,
                                    device=s_ids.device),
-                        s_ids[1:] != s_ids[:-1]])
-    rank = torch.cumsum(newrun.to(torch.int32), 0, dtype=torch.int32) - 1
+                        s_ids[:, 1:] != s_ids[:, :-1]], dim=1)
+    rank = torch.cumsum(newrun.to(torch.int32), 1, dtype=torch.int32) - 1
     low = torch.full_like(s_ids, torch.iinfo(torch.int32).min)
-    return torch.amax(torch.where(rank < capacity, s_ids, low)).reshape(1)
+    return torch.amax(torch.where(rank < capacity, s_ids, low), dim=1)
 
 
 def dedup_capacity(cfg, M):
@@ -278,19 +294,24 @@ def dedup_capacity(cfg, M):
 
 
 def gather_rows(vm: VoxelMap, slot, cfg):
-    """The (M, S, 4 cpr) stencil rows of `slot` and their validity (None
-    without `cfg.dedup_gather`): the plain gather, or the reference's
-    dedup gather with `dedup_capacity(cfg, M)` compact rows."""
+    """The (..., M, S, 4 cpr) stencil rows of `slot` (..., M, S) and their
+    validity (None without `cfg.dedup_gather`): the plain gather, or the
+    reference's dedup gather with `dedup_capacity(cfg, M)` compact rows.
+    Batched maps (B, Cs, 4 cpr) serve slots (B, M, S), lane by lane."""
     if getattr(cfg, "dedup_gather", False):
         return _dedup_gather_rows(vm.cells, slot,
-                                  dedup_capacity(cfg, slot.shape[0]))
-    return vm.cells[slot.to(torch.int64)], None
+                                  dedup_capacity(cfg, slot.shape[-2]))
+    if vm.cells.dim() == 2:
+        return vm.cells[slot.to(torch.int64)], None
+    return _lane_rows(vm.cells, slot), None
 
 
 def query_candidates(vm: VoxelMap, q, mask, cfg):
     """Stencil candidate block for each query point — no selection.
 
-    Returns (dx, dy, dz, d2, ok), each (M, S, cpr): centroid offsets from
+    Queries q (..., M, 3) and mask (..., M); a batched map (B, Cs, 4 cpr)
+    serves queries (B, M, 3) lane by lane.
+    Returns (dx, dy, dz, d2, ok), each (..., M, S, cpr): centroid offsets from
     the query, squared distances (inf where invalid) and validity.  Under
     `cfg.dedup_gather` every one of the M queries' window rows, masked or
     not, takes part in the ranking, as in the reference.
@@ -308,7 +329,7 @@ def query_candidates(vm: VoxelMap, q, mask, cfg):
     meta = rows[..., 3 * cpr:4 * cpr]
     key_st = torch.floor(meta / _META_MOD)
     cnt = meta - key_st * _META_MOD
-    ok = (key_st == key[..., None]) & (cnt > 0) & mask[:, None, None]
+    ok = (key_st == key[..., None]) & (cnt > 0) & mask[..., None, None]
     if dedup_ok is not None:
         ok = ok & dedup_ok[..., None]
 
@@ -316,17 +337,17 @@ def query_candidates(vm: VoxelMap, q, mask, cfg):
     for ax, (sub_i, p_i, s_i) in enumerate(
             [(subg[0], px, cfg.stencil_x), (subg[1], py, cfg.stencil_y),
              (subg[2], pz, cfg.stencil_z)]):
-        off = (sv[..., ax:ax + 1] * p_i + sub_i[None, None, :]
-               - v[:, None, ax:ax + 1])
+        off = (sv[..., ax:ax + 1] * p_i + sub_i
+               - v[..., None, ax:ax + 1])
         ok = ok & (torch.abs(off) <= s_i)
     inv_cnt = 1.0 / torch.clamp(cnt, min=1.0)
 
-    sub_x = (subg[0].to(dtype) * cfg.voxel_size)[None, None, :]
-    sub_y = (subg[1].to(dtype) * cfg.voxel_size)[None, None, :]
-    sub_z = (subg[2].to(dtype) * cfg.voxel_size)[None, None, :]
-    bx = sv[..., 0:1].to(dtype) * (px * cfg.voxel_size) - q[:, None, 0:1]
-    by = sv[..., 1:2].to(dtype) * (py * cfg.voxel_size) - q[:, None, 1:2]
-    bz = sv[..., 2:3].to(dtype) * (pz * cfg.voxel_size) - q[:, None, 2:3]
+    sub_x = subg[0].to(dtype) * cfg.voxel_size
+    sub_y = subg[1].to(dtype) * cfg.voxel_size
+    sub_z = subg[2].to(dtype) * cfg.voxel_size
+    bx = sv[..., 0:1].to(dtype) * (px * cfg.voxel_size) - q[..., None, 0:1]
+    by = sv[..., 1:2].to(dtype) * (py * cfg.voxel_size) - q[..., None, 1:2]
+    bz = sv[..., 2:3].to(dtype) * (pz * cfg.voxel_size) - q[..., None, 2:3]
     dx = bx + sub_x + sum_x * inv_cnt
     dy = by + sub_y + sum_y * inv_cnt
     dz = bz + sub_z + sum_z * inv_cnt
@@ -336,15 +357,14 @@ def query_candidates(vm: VoxelMap, q, mask, cfg):
 
 
 def query_candidates_dense(vm: VoxelMap, q, mask, cfg):
-    """`query_candidates` as dense (M, C) blocks (bf16 when
+    """`query_candidates` as dense (..., M, C) blocks (bf16 when
     cfg.dense_bf16; +inf survives the cast, so d2d carries validity)."""
     dx, dy, dz, d2, ok = query_candidates(vm, q, mask, cfg)
-    M = q.shape[0]
-    C = d2.shape[1] * d2.shape[2]
+    shape = tuple(d2.shape[:-2]) + (d2.shape[-2] * d2.shape[-1],)
     if getattr(cfg, "dense_bf16", False):
-        r = lambda a: a.reshape(M, C).to(torch.bfloat16)
+        r = lambda a: a.reshape(shape).to(torch.bfloat16)
     else:
-        r = lambda a: a.reshape(M, C)
+        r = lambda a: a.reshape(shape)
     return r(dx), r(dy), r(dz), r(d2)
 
 
@@ -354,9 +374,9 @@ def shift_dense_blocks(dense, delta, cfg):
     dxd, dyd, dzd, d2d = dense
     f32 = delta.dtype
     ok = torch.isfinite(d2d.to(f32))
-    dx = dxd.to(f32) - delta[:, 0:1]
-    dy = dyd.to(f32) - delta[:, 1:2]
-    dz = dzd.to(f32) - delta[:, 2:3]
+    dx = dxd.to(f32) - delta[..., 0:1]
+    dy = dyd.to(f32) - delta[..., 1:2]
+    dz = dzd.to(f32) - delta[..., 2:3]
     d2 = torch.where(ok, dx * dx + dy * dy + dz * dz,
                      torch.full_like(dx, float("inf")))
     out_dtype = d2d.dtype
@@ -365,19 +385,19 @@ def shift_dense_blocks(dense, delta, cfg):
 
 
 def kth_smallest_dense(d2d, k: int):
-    """k-th smallest entry per row of a dense (M, C) block, tie-INCLUSIVE:
-    the smallest distinct value whose cumulative count reaches k (inf when
-    fewer than k finite entries)."""
+    """k-th smallest entry per row of a dense (..., M, C) block,
+    tie-INCLUSIVE: the smallest distinct value whose cumulative count
+    reaches k (inf when fewer than k finite entries)."""
     inf = torch.full((), float("inf"), dtype=d2d.dtype, device=d2d.device)
     ms = []
-    t = torch.full((d2d.shape[0],), float("-inf"), dtype=d2d.dtype,
+    t = torch.full(d2d.shape[:-1], float("-inf"), dtype=d2d.dtype,
                    device=d2d.device)
     for _ in range(k):
-        t = torch.amin(torch.where(d2d > t[:, None], d2d, inf), dim=1)
+        t = torch.amin(torch.where(d2d > t[..., None], d2d, inf), dim=-1)
         ms.append(t)
-    mstack = torch.stack(ms, dim=1)
-    cnts = torch.sum(d2d[:, :, None] <= mstack[:, None, :], dim=1)
-    return torch.amin(torch.where(cnts >= k, mstack, inf), dim=1)
+    mstack = torch.stack(ms, dim=-1)
+    cnts = torch.sum(d2d[..., :, None] <= mstack[..., None, :], dim=-2)
+    return torch.amin(torch.where(cnts >= k, mstack, inf), dim=-1)
 
 
 def kth_smallest(d2, ok, k: int):

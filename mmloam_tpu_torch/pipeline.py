@@ -1,12 +1,40 @@
-"""The LIO pipeline: one `step(state, scan) -> (state, output)` (port of
-mmloam_tpu/pipeline.py).
+"""The LIO pipeline: one batched step over the lanes of a lockstep batch
+(port of mmloam_tpu/pipeline.py).
 
 Per scan: features on the raw rings, IMU prediction, undistortion, voxel
 downsampled stacks, window push, the windowed estimate, acceptance gates
 with the direction-selective degenerate update, post-solve re-deskew,
-deferred map inserts, and the IMU-init bookkeeping.  The reference's
-`lax.cond`s on per-sequence flags are Python branches here (one host read
-each); everything else keeps the reference's select-based form.
+deferred map inserts, and the IMU-init bookkeeping.
+
+`step_core_batch(states, scans, cfg)` is the counterpart of the
+reference's `jax.vmap(step_core)` (mmloam_tpu/replay.py:201-208): every
+field of `states` and `scans` carries a leading lane axis B and every
+function it reaches takes it.  `step_core` and `step` are that step at one
+lane (a lane axis of 1 added and dropped).  The translation rules:
+
+* `lax.cond` under `vmap` runs both branches for every lane and selects
+  per lane (`estimate.select`, `torch.where`): can_estimate
+  (mmloam_tpu/pipeline.py:661), do_refine (:804), inited | imu_mode <= 1
+  (:806), phase == 0 (:870), try_init (:897), res.ok (:992), do_refresh
+  (estimator/estimate.py:239) and the LM's skip (estimator/solver.py:312).
+  Branches on the config alone stay Python `if`s (imu_mode, use_nonfeature,
+  velo_only_mode, use_local_map, gravity_refine_every > 0); what the
+  reference decides per lane is a tensor per lane (the threshold schedule,
+  weight_tan, huber, the LM caps, the marginalization flag, the old-slot
+  choice, read with a gather).
+* `while_loop` (estimator/solver.py:319) runs the largest lane's cap with
+  a done flag per lane; a lane stops at its own cap or convergence and
+  keeps its carry, so it gets the iterates it would get alone.
+* Nothing reads the device from the host: no `.item()`, no `bool()`,
+  `int()` or `float()` of a device tensor, no boolean-mask indexing.  The
+  one exception is the error check of `torch.linalg.eigh` in the
+  marginalization (`solver.NAMED_SYNCS`, PERF.md).  Constants are built
+  once (`lie.const`).
+* A branch a lane does not take must neither fail nor write: eigh is fed
+  identity where a lane's matrix is not finite, the factorizations are
+  the `_ex` kinds with NaN on failure, and the slot writes of the
+  keyframe and init bookkeeping build new tensors that the select takes.
+  The maps are written only by `apply_inserts_batched`.
 
 The default path, `config.faithful_config()`, the rig's modes
 (`imu_mode` 0/1, `velo_only_mode`, `use_nonfeature`) and every map option
@@ -67,6 +95,9 @@ class StepOutput(NamedTuple):
 
 
 class LIOState(NamedTuple):
+    """One sequence's state (shapes below); a batch carries a leading lane
+    axis B on every field."""
+
     x: torch.Tensor          # (W, 15) body states [P phi V bg ba]
     t: torch.Tensor          # (W,)
     frame_valid: torch.Tensor
@@ -108,8 +139,7 @@ MAP_FIELDS = ("vm_corner", "vm_surf", "vm_non", "vm_local_corner",
 def _empty_preint(W, dtype, device):
     z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     return dict(
-        dq=torch.tensor([1.0, 0, 0, 0], dtype=dtype,
-                        device=device).repeat(W, 1),
+        dq=lie.const((1.0, 0.0, 0.0, 0.0), dtype, device).repeat(W, 1),
         dp=z(W, 3), dv=z(W, 3),
         jac=torch.eye(15, dtype=dtype, device=device).repeat(W, 1, 1),
         sqrt_info=z(W, 15, 15), dt=z(W), bg=z(W, 3), ba=z(W, 3))
@@ -257,13 +287,23 @@ def state_to_numpy(state):
 # step
 # --------------------------------------------------------------------------
 
+def _lane(tree):
+    """`tree` with a leading lane axis of 1 (views of its tensors)."""
+    return tree_map(lambda a: a[None], tree)
+
+
+def _unlane(tree):
+    """`tree` without its lane axis of 1."""
+    return tree_map(lambda a: a[0], tree)
+
+
 def _clamp_norm(v, max_norm):
-    n = torch.sqrt(torch.sum(v * v))
+    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
     return v * torch.clamp(max_norm / torch.clamp(n, min=1e-12), max=1.0)
 
 
 def _body_pose(x15):
-    return lie.exp_quat(x15[3:6]), x15[0:3]
+    return lie.exp_quat(x15[..., 3:6]), x15[..., 0:3]
 
 
 def _lidar_pose(x15, Rbl, tbl):
@@ -275,17 +315,33 @@ def _lidar_pose(x15, Rbl, tbl):
 
 
 def _roll_push(a, new):
-    """roll(a, -1, axis 0) with the last slot set to `new`."""
-    return torch.cat([a[1:], new[None].to(a.dtype)], dim=0)
+    """Each lane's roll(a, -1) along its window axis (1) with the last slot
+    set to `new`."""
+    return torch.cat([a[:, 1:], new[:, None].to(a.dtype)], dim=1)
 
 
 def _single(a, new):
-    """zeros_like(a) with the last slot set to `new`."""
-    return torch.cat([torch.zeros_like(a[1:]), new[None].to(a.dtype)], dim=0)
+    """zeros_like(a) with each lane's last slot set to `new`."""
+    return torch.cat([torch.zeros_like(a[:, 1:]), new[:, None].to(a.dtype)],
+                     dim=1)
 
 
 def _set_last(a, new):
-    return torch.cat([a[:-1], new[None].to(a.dtype)], dim=0)
+    return torch.cat([a[:, :-1], new[:, None].to(a.dtype)], dim=1)
+
+
+def _at(a, idx):
+    """a[b, idx[b]] for each lane b: a per-lane slot, read by a gather."""
+    return a[torch.arange(a.shape[0], device=a.device), idx]
+
+
+def _select_state(m, a: "LIOState", b: "LIOState"):
+    """Per lane, state `a` where m (B,) else `b`; the maps, which the step
+    never writes, are b's (a `lax.cond` over the state under `vmap`)."""
+    keep = {f: getattr(b, f) for f in MAP_FIELDS}
+    drop = {f: None for f in MAP_FIELDS}
+    return est.select(m, a._replace(**drop), b._replace(**drop)
+                      )._replace(**keep)
 
 
 class FrameStack(NamedTuple):
@@ -302,7 +358,7 @@ class FrameStack(NamedTuple):
 
 
 def _build_stacks(flat_pts, flat_rel, flat_labels, flat_valid, cfg, dtype):
-    """Label split + voxel downsample into one frame's fixed stacks; with
+    """Label split + voxel downsample into each lane's fixed stacks; with
     cfg.use_nonfeature the unlabelled points form a third class."""
     sc = cfg.scan
     masks = [flat_valid & (flat_labels == 1), flat_valid & (flat_labels == 2)]
@@ -350,32 +406,42 @@ class PreparedFrame(NamedTuple):
 
 
 def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
-    """Features, prediction, undistortion, stacks, window push."""
+    """Features, prediction, undistortion, stacks, window push of one
+    sequence: `prepare_frame_batch` at one lane."""
+    return _unlane(prepare_frame_batch(_lane(state), _lane(scan), cfg))
+
+
+def prepare_frame_batch(state: LIOState, scan: ScanInput, cfg
+                        ) -> PreparedFrame:
+    """Features, prediction, undistortion, stacks, window push of every
+    lane (state and scan with a leading lane axis B)."""
     dtype = state.x.dtype
     dev = state.x.device
-    ident_q = torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=dev)
+    B = state.x.shape[0]
+    ident_q = lie.const((1.0, 0.0, 0.0, 0.0), dtype, dev)
+    lane_sel = lambda m, a, b: torch.where(m[:, None], a, b)
 
     # ---- 1. features on the raw rings ----
     labels = features.extract_scan_features(scan.pts, scan.intensity,
                                             scan.n_valid, cfg)
-    ring_valid = (torch.arange(scan.pts.shape[1], device=dev)[None, :]
-                  < scan.n_valid[:, None])
+    ring_valid = (torch.arange(scan.pts.shape[-2], device=dev)
+                  < scan.n_valid[..., None])
     use_hori = scan.hori_pts is not None and not cfg.velo_only_mode
     if use_hori:
         hlabels = features.extract_scan_features(
             scan.hori_pts, scan.hori_intensity, scan.hori_n_valid, cfg)
-        h_valid = (torch.arange(scan.hori_pts.shape[1], device=dev)[None, :]
-                   < scan.hori_n_valid[:, None])
+        h_valid = (torch.arange(scan.hori_pts.shape[-2], device=dev)
+                   < scan.hori_n_valid[..., None])
         h_dist2 = torch.sum(scan.hori_pts * scan.hori_pts, dim=-1)
         h_valid = (h_valid
                    & (h_dist2 >= cfg.feature.near_points_threshold ** 2)
                    & (h_dist2 <= cfg.feature.far_points_threshold ** 2))
 
     # rotation gates from the interval's first/last gyro sample (:746-766)
-    gz = scan.imu_gyr[:, 2]
-    n_imu = torch.sum(scan.imu_mask.to(torch.int32))
-    gz0 = gz[0]
-    gzN = gz[torch.clamp(n_imu - 1, min=0)]
+    gz = scan.imu_gyr[..., 2]
+    n_imu = torch.sum(scan.imu_mask.to(torch.int32), dim=-1)
+    gz0 = gz[:, 0]
+    gzN = _at(gz, torch.clamp(n_imu - 1, min=0))
     have_imu = n_imu > 0
     fs = cfg.failsafe
     slow_rotation = have_imu & ((torch.abs(gz0) < fs.hori_rotate_th)
@@ -384,12 +450,12 @@ def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
                                 | (torch.abs(gzN) > fs.velo_rotate_th))
 
     # ---- 2. prediction ----
-    x_prev = state.x[-1]
+    x_prev = state.x[:, -1]
     q_prev, p_prev = _body_pose(x_prev)
-    have_prev = state.frame_valid[-1]
+    have_prev = state.frame_valid[:, -1]
     pre = preintegration.preintegrate(
         scan.imu_acc, scan.imu_gyr, scan.imu_dt, scan.imu_mask,
-        x_prev[9:12], x_prev[12:15], cfg.imu)
+        x_prev[:, 9:12], x_prev[:, 12:15], cfg.imu)
     dq_gyro = preintegration.gyro_integrate(scan.imu_gyr, scan.imu_dt,
                                             scan.imu_mask)
     # post-init: preintegration prediction, with the velocity and gravity
@@ -397,15 +463,15 @@ def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
     # them, unionPoseEstimation.cpp:806-817)
     q_pred_full = lie.quat_normalize(lie.quat_mul(q_prev, pre.dq))
     if cfg.predict_full_kinematics:
-        dt_scan = pre.dtime.to(dtype)
-        p_pred_full = (p_prev + x_prev[6:9] * dt_scan
+        dt_scan = pre.dtime.to(dtype)[:, None]
+        p_pred_full = (p_prev + x_prev[:, 6:9] * dt_scan
                        + 0.5 * state.gravity * dt_scan * dt_scan
                        + lie.quat_rotate(q_prev, pre.dp))
-        v_pred_full = (x_prev[6:9] + state.gravity * dt_scan
+        v_pred_full = (x_prev[:, 6:9] + state.gravity * dt_scan
                        + lie.quat_rotate(q_prev, pre.dv))
     else:
         p_pred_full = p_prev + lie.quat_rotate(q_prev, pre.dp)
-        v_pred_full = x_prev[6:9] + lie.quat_rotate(q_prev, pre.dv)
+        v_pred_full = x_prev[:, 6:9] + lie.quat_rotate(q_prev, pre.dv)
     # imu_mode 0 has no IMU: the pre-init rotation replays the previous
     # body delta; modes >= 1 integrate the gyro (modes <= 1 never
     # initialize, so this is their steady state)
@@ -414,12 +480,13 @@ def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
     p_pred_pre = p_prev + lie.quat_rotate(q_prev, state.dtb)
 
     inited = state.inited
-    q_pred = torch.where(inited, q_pred_full, q_pred_pre)
-    p_pred = torch.where(inited, p_pred_full, p_pred_pre)
-    v_pred = torch.where(inited, v_pred_full, x_prev[6:9])
-    q_pred = torch.where(have_prev, q_pred, ident_q)
-    p_pred = torch.where(have_prev, p_pred, torch.zeros_like(p_pred))
-    x_new = torch.cat([p_pred, lie.log_quat(q_pred), v_pred, x_prev[9:15]])
+    q_pred = lane_sel(inited, q_pred_full, q_pred_pre)
+    p_pred = lane_sel(inited, p_pred_full, p_pred_pre)
+    v_pred = lane_sel(inited, v_pred_full, x_prev[:, 6:9])
+    q_pred = lane_sel(have_prev, q_pred, ident_q.expand(B, 4))
+    p_pred = lane_sel(have_prev, p_pred, torch.zeros_like(p_pred))
+    x_new = torch.cat([p_pred, lie.log_quat(q_pred), v_pred,
+                       x_prev[:, 9:15]], dim=-1)
 
     # ---- 3. undistortion by the predicted lidar delta (:402-421) ----
     q_bl = lie.matrix_to_quat(state.Rbl)
@@ -429,24 +496,26 @@ def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
     p_wl_pred = lie.quat_rotate(q_pred, state.tbl) + p_pred
     dq_l = lie.quat_mul(lie.quat_conj(q_wl_prev), q_wl_pred)
     dt_l = lie.quat_rotate(lie.quat_conj(q_wl_prev), p_wl_pred - p_wl_prev)
-    dq_l = torch.where(have_prev, dq_l, ident_q)
-    dt_l = torch.where(have_prev, dt_l, torch.zeros_like(dt_l))
+    dq_l = lane_sel(have_prev, dq_l, ident_q.expand(B, 4))
+    dt_l = lane_sel(have_prev, dt_l, torch.zeros_like(dt_l))
 
-    flat_pts = scan.pts.reshape(-1, 3).to(dtype)
-    flat_rel = scan.rel_time.reshape(-1).to(dtype)
-    flat_lab = labels.reshape(-1)
-    flat_ok = ring_valid.reshape(-1)
-    hori_merged = torch.zeros((), dtype=torch.bool, device=dev)
+    flat_pts = scan.pts.reshape(B, -1, 3).to(dtype)
+    flat_rel = scan.rel_time.reshape(B, -1).to(dtype)
+    flat_lab = labels.reshape(B, -1)
+    flat_ok = ring_valid.reshape(B, -1)
+    hori_merged = torch.zeros((B,), dtype=torch.bool, device=dev)
     if use_hori:
-        h_corner_cnt = torch.sum((hlabels == 1) & h_valid)
+        h_corner_cnt = torch.sum(((hlabels == 1) & h_valid).reshape(B, -1),
+                                 dim=-1)
         hori_merged = slow_rotation & (
             h_corner_cnt > cfg.solver.corner_cnt_gate_hori)
         flat_pts = torch.cat([flat_pts,
-                              scan.hori_pts.reshape(-1, 3).to(dtype)])
+                              scan.hori_pts.reshape(B, -1, 3).to(dtype)], 1)
         flat_rel = torch.cat([flat_rel,
-                              scan.hori_rel_time.reshape(-1).to(dtype)])
-        flat_lab = torch.cat([flat_lab, hlabels.reshape(-1)])
-        flat_ok = torch.cat([flat_ok, h_valid.reshape(-1) & hori_merged])
+                              scan.hori_rel_time.reshape(B, -1).to(dtype)], 1)
+        flat_lab = torch.cat([flat_lab, hlabels.reshape(B, -1)], 1)
+        flat_ok = torch.cat([flat_ok, h_valid.reshape(B, -1)
+                             & hori_merged[:, None]], 1)
 
     pts_ds = undistort.undistort(flat_pts, flat_rel, dq_l, dt_l)
 
@@ -460,27 +529,26 @@ def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
                                  * preintegration.sqrt_info_from_cov(pre.cov)
                                  ).to(dtype),
                       dt=pre.dtime.to(dtype),
-                      bg=x_prev[9:12], ba=x_prev[12:15])
-    pair_ok = inited & have_prev & torch.any(scan.imu_mask)
+                      bg=x_prev[:, 9:12], ba=x_prev[:, 12:15])
+    pair_ok = inited & have_prev & torch.any(scan.imu_mask, dim=-1)
 
     new_stack = est.Stacks(*fstack)
-    sel = lambda rolled, fresh: torch.where(inited, rolled, fresh)
-    x_w = sel(_roll_push(state.x, x_new), _single(state.x, x_new))
-    t_w = sel(_roll_push(state.t, scan.t), _single(state.t, scan.t))
-    fv_true = torch.ones((), dtype=torch.bool, device=dev)
-    fv_w = sel(_roll_push(state.frame_valid, fv_true),
-               _single(state.frame_valid, fv_true))
-    stacks_w = tree_map(lambda old, new: sel(_roll_push(old, new),
-                                             _single(old, new)),
-                        state.stacks, new_stack)
-    preint_w = {k: sel(_roll_push(state.preint[k], new_preint[k]),
-                       _single(state.preint[k], new_preint[k]))
-                for k in state.preint}
-    pv_w = sel(_roll_push(state.pair_valid, pair_ok),
-               torch.zeros_like(state.pair_valid))
-    prior_w = tree_map(lambda p: sel(p, torch.zeros_like(p)), state.prior)
-    rfs_w = tree_map(lambda a: sel(torch.roll(a, -1, dims=0),
-                                   torch.zeros_like(a)), state.cached_rfs)
+    push = lambda old, new: est.select(inited, _roll_push(old, new),
+                                       _single(old, new))
+    fv_true = torch.ones((B,), dtype=torch.bool, device=dev)
+    x_w = push(state.x, x_new)
+    t_w = push(state.t, scan.t)
+    fv_w = push(state.frame_valid, fv_true)
+    stacks_w = tree_map(push, state.stacks, new_stack)
+    preint_w = {k: push(state.preint[k], new_preint[k]) for k in state.preint}
+    pv_w = est.select(inited, _roll_push(state.pair_valid, pair_ok),
+                      torch.zeros_like(state.pair_valid))
+    prior_w = est.select(inited, state.prior,
+                         tree_map(torch.zeros_like, state.prior))
+    rfs_w = est.select(inited,
+                       tree_map(lambda a: torch.roll(a, -1, dims=1),
+                                state.cached_rfs),
+                       tree_map(torch.zeros_like, state.cached_rfs))
 
     return PreparedFrame(x_w=x_w, t_w=t_w, fv_w=fv_w, stacks_w=stacks_w,
                          preint_w=preint_w, pv_w=pv_w, prior_w=prior_w,
@@ -553,98 +621,115 @@ def apply_inserts_batched(state: LIOState, pend: PendingInsert, cfg):
 def project_degenerate_update(x_opt, x_w, NtN, fail, degenerate_sv):
     """Direction-selective degenerate update (stage 7a): when `fail`,
     translation/velocity deltas are projected onto the observable subspace
-    of NtN = Σ ω ωᵀ (see the reference)."""
+    of NtN = Σ ω ωᵀ (see the reference).  Leading axes (lanes) broadcast:
+    x (..., W, 15), NtN (..., 3, 3), fail (...)."""
     dtype = x_opt.dtype
     evN = linalg3.eigvalsh3(NtN)
     v_lo = linalg3.smallest_eigvec3(NtN, evN)
     v_hi = linalg3.principal_eigvec3(NtN, evN)
     v_mid = lie.cross(v_hi, v_lo)
-    VN = torch.stack([v_lo, v_mid, v_hi], dim=1)
+    VN = torch.stack([v_lo, v_mid, v_hi], dim=-1)
     sv_dir = torch.sqrt(torch.clamp(evN, min=0.0))
     obs = (sv_dir >= degenerate_sv).to(dtype)
-    P_obs = (VN * obs[None, :]) @ VN.T
-    dP = (x_opt[:, 0:3] - x_w[:, 0:3]) @ P_obs.T
-    dV = (x_opt[:, 6:9] - x_w[:, 6:9]) @ P_obs.T
-    x_sel = torch.cat([x_w[:, 0:3] + dP, x_opt[:, 3:6], x_w[:, 6:9] + dV,
-                       x_opt[:, 9:15]], dim=1)
-    return torch.where(fail, x_sel, x_opt)
+    P_obsT = ((VN * obs[..., None, :]) @ VN.transpose(-1, -2)
+              ).transpose(-1, -2)
+    dP = (x_opt[..., 0:3] - x_w[..., 0:3]) @ P_obsT
+    dV = (x_opt[..., 6:9] - x_w[..., 6:9]) @ P_obsT
+    x_sel = torch.cat([x_w[..., 0:3] + dP, x_opt[..., 3:6],
+                       x_w[..., 6:9] + dV, x_opt[..., 9:15]], dim=-1)
+    return torch.where(fail[..., None, None], x_sel, x_opt)
 
 
 def step(state: LIOState, scan: ScanInput, cfg):
-    """One scan through the full LIO stack."""
+    """One scan of one sequence through the full LIO stack:
+    `step_core_batch` at one lane, then the scatter map insert."""
     state, out, pend = step_core(state, scan, cfg)
     return apply_inserts(state, pend, cfg), out
 
 
 def step_core(state: LIOState, scan: ScanInput, cfg):
-    """`step` minus the map writes — returns (state, out, PendingInsert)."""
+    """`step` minus the map writes — returns (state, out, PendingInsert):
+    `step_core_batch` at one lane."""
+    return _unlane(step_core_batch(_lane(state), _lane(scan), cfg))
+
+
+def step_core_batch(state: LIOState, scan: ScanInput, cfg):
+    """One scan of every lane of a batch, minus the map writes: the
+    counterpart of the reference's `jax.vmap(step_core)`.  state and scan
+    carry a leading lane axis B; returns (state, StepOutput (B, ...),
+    PendingInsert (B, ...)).  Every per-lane branch is a select (see the
+    module docstring); nothing here reads the device from the host."""
     dtype = state.x.dtype
     dev = state.x.device
     W = cfg.solver.window
+    B = state.x.shape[0]
+    lane_sel = lambda m, a, b: torch.where(m[:, None], a, b)
 
-    pf = prepare_frame(state, scan, cfg)
+    pf = prepare_frame_batch(state, scan, cfg)
     x_w, t_w, fv_w = pf.x_w, pf.t_w, pf.fv_w
     stacks_w, preint_w, pv_w, prior_w = (pf.stacks_w, pf.preint_w, pf.pv_w,
                                          pf.prior_w)
     q_prev, p_prev, have_prev = pf.q_prev, pf.p_prev, pf.have_prev
 
-    # ---- 6. estimate ----
-    n_frames = torch.sum(fv_w)
+    # ---- 6. estimate (lax.cond(can_estimate, estimate, skip)) ----
+    n_frames = torch.sum(fv_w, dim=-1)
     full = state.inited & (n_frames == W)
     can_estimate = state.map_has_data
     refresh_slot = state.step_idx % (W - 1)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
+    false = torch.zeros((B,), dtype=torch.bool, device=dev)
 
-    if bool(can_estimate):
-        res = est.estimate(
-            x_w, stacks_w, pf.rfs_w, state.vm_corner, state.vm_surf,
-            preint_w, pv_w, prior_w, fv_w, state.gravity, state.Rbl,
-            state.tbl, cfg, full_window=full, refresh_slot=refresh_slot,
-            vm_local_corner=state.vm_local_corner,
-            vm_local_surf=state.vm_local_surf, vm_non=state.vm_non)
-    else:
-        zi = torch.zeros((), dtype=torch.int32, device=dev)
-        res = est.EstimateResult(
-            x=x_w, degenerate=false, fail=false,
-            sv_min=torch.tensor(-1.0, dtype=dtype, device=dev),
-            prior=prior_w, rfs=pf.rfs_w, n_line=zi, n_plane=zi,
-            NtN=torch.zeros((3, 3), dtype=dtype, device=dev))
+    res = est.estimate(
+        x_w, stacks_w, pf.rfs_w, state.vm_corner, state.vm_surf,
+        preint_w, pv_w, prior_w, fv_w, state.gravity, state.Rbl,
+        state.tbl, cfg, full_window=full, refresh_slot=refresh_slot,
+        vm_local_corner=state.vm_local_corner,
+        vm_local_surf=state.vm_local_surf, vm_non=state.vm_non)
+    zi = torch.zeros((B,), dtype=torch.int32, device=dev)
+    skipped = est.EstimateResult(
+        x=x_w, degenerate=false, fail=false,
+        sv_min=torch.full((B,), -1.0, dtype=dtype, device=dev),
+        prior=prior_w, rfs=pf.rfs_w, n_line=zi, n_plane=zi,
+        NtN=torch.zeros((B, 3, 3), dtype=dtype, device=dev))
+    res = est.select(can_estimate, res, skipped)
     x_sel = project_degenerate_update(res.x, x_w, res.NtN, res.fail,
                                       cfg.solver.degenerate_sv)
-    jump = torch.sqrt(torch.sum((x_sel[-1, 0:3] - x_w[-1, 0:3]) ** 2))
+    jump = torch.sqrt(torch.sum((x_sel[:, -1, 0:3] - x_w[:, -1, 0:3]) ** 2,
+                                dim=-1))
     revert = res.fail & (jump > cfg.failsafe.max_solve_jump)
-    res = res._replace(x=torch.where(revert, x_w, x_sel),
+    res = res._replace(x=torch.where(revert[:, None, None], x_w, x_sel),
                        prior=res.prior._replace(
                            valid=res.prior.valid & ~res.fail))
     prior_next = res.prior
 
     # ---- 7. acceptance gates (EstimateLidarPose :1041-1067) ----
-    corner_cnt = torch.sum(fv_w[:, None] & stacks_w.corner_mask)
+    corner_cnt = torch.sum(fv_w[..., None] & stacks_w.corner_mask,
+                           dim=(-2, -1))
     accept = corner_cnt > cfg.solver.corner_cnt_gate_velo
     x_opt = res.x
     front_idx = W - n_frames
-    x_front = x_opt[front_idx]
+    x_front = _at(x_opt, front_idx)
     q_pub, p_pub = _lidar_pose(x_front, state.Rbl, state.tbl)
-    p_fb = torch.stack([p_pub[0], p_pub[1], pf.p_wl_pred[2]])
-    p_pub = torch.where(accept, p_pub, p_fb)
-    q_pub = torch.where(accept, q_pub, pf.q_wl_pred)
+    p_fb = torch.stack([p_pub[:, 0], p_pub[:, 1], pf.p_wl_pred[:, 2]],
+                       dim=-1)
+    p_pub = lane_sel(accept, p_pub, p_fb)
+    q_pub = lane_sel(accept, q_pub, pf.q_wl_pred)
     x_next = x_opt
 
     # ---- 7b. post-solve re-deskew of the newest frame's stacks ----
     q_bl_c = lie.matrix_to_quat(state.Rbl)
     q_wl_prev_c = lie.quat_mul(q_prev, q_bl_c)
     p_wl_prev_c = lie.quat_rotate(q_prev, state.tbl) + p_prev
-    q_wl_new, p_wl_new = _lidar_pose(x_next[-1], state.Rbl, state.tbl)
+    q_wl_new, p_wl_new = _lidar_pose(x_next[:, -1], state.Rbl, state.tbl)
     dq_s = lie.quat_mul(lie.quat_conj(q_wl_prev_c), q_wl_new)
     dt_s = lie.quat_rotate(lie.quat_conj(q_wl_prev_c),
                            p_wl_new - p_wl_prev_c)
-    dq_s = torch.where(have_prev, dq_s, pf.dq_l)
-    dt_s = torch.where(have_prev, dt_s, pf.dt_l)
+    dq_s = lane_sel(have_prev, dq_s, pf.dq_l)
+    dt_s = lane_sel(have_prev, dt_s, pf.dt_l)
 
     def _redeskew(pts_s, rel_s, mask_s):
-        fixed = undistort.reundistort(pts_s[-1], rel_s[-1], pf.dq_l,
+        fixed = undistort.reundistort(pts_s[:, -1], rel_s[:, -1], pf.dq_l,
                                       pf.dt_l, dq_s, dt_s)
-        fixed = torch.where(mask_s[-1][:, None], fixed, pts_s[-1])
+        fixed = torch.where(mask_s[:, -1][..., None], fixed, pts_s[:, -1])
         return _set_last(pts_s, fixed)
 
     stacks_w = stacks_w._replace(
@@ -661,19 +746,19 @@ def step_core(state: LIOState, scan: ScanInput, cfg):
     # cfg.solver.local_map_move_gate (Estimator.cpp:1083,:1125)
     do_map = ~res.fail
     if cfg.solver.local_map_move_gate:
-        moved = (torch.sum((p_pub - state.last_map_pos) ** 2)
+        moved = (torch.sum((p_pub - state.last_map_pos) ** 2, dim=-1)
                  >= cfg.solver.map_move_dist_sq)
         do_map_local = do_map & (moved | ~state.map_has_data)
     else:
         do_map_local = do_map
-    front_stack = tree_map(lambda a: a[front_idx], stacks_w)
+    front_stack = tree_map(lambda a: _at(a, front_idx), stacks_w)
     Rwl = lie.quat_to_matrix(q_pub)
     pend = PendingInsert(
         corner=front_stack.corner, corner_mask=front_stack.corner_mask,
         surf=front_stack.surf, surf_mask=front_stack.surf_mask,
         Rwl=Rwl, p=p_pub, do_map=do_map, do_map_local=do_map_local,
         non=front_stack.non, non_mask=front_stack.non_mask)
-    last_map_pos = torch.where(do_map_local, p_pub, state.last_map_pos)
+    last_map_pos = lane_sel(do_map_local, p_pub, state.last_map_pos)
     map_has_data = state.map_has_data | do_map
 
     # ---- 9. pre-init bookkeeping + TryMAPInitialization ----
@@ -682,15 +767,15 @@ def step_core(state: LIOState, scan: ScanInput, cfg):
         preint=preint_w, pair_valid=pv_w, prior=prior_next,
         cached_rfs=res.rfs,
         last_map_pos=last_map_pos, map_has_data=map_has_data,
-        dqb=torch.where(have_prev,
-                        lie.quat_mul(lie.quat_conj(q_prev),
-                                     lie.exp_quat(x_next[-1][3:6])),
-                        state.dqb),
-        dtb=torch.where(have_prev,
-                        _clamp_norm(lie.quat_rotate(lie.quat_conj(q_prev),
-                                                    x_next[-1][0:3] - p_prev),
-                                    cfg.failsafe.max_pred_delta),
-                        state.dtb),
+        dqb=lane_sel(have_prev,
+                     lie.quat_mul(lie.quat_conj(q_prev),
+                                  lie.exp_quat(x_next[:, -1, 3:6])),
+                     state.dqb),
+        dtb=lane_sel(have_prev,
+                     _clamp_norm(lie.quat_rotate(lie.quat_conj(q_prev),
+                                                 x_next[:, -1, 0:3] - p_prev),
+                                 cfg.failsafe.max_pred_delta),
+                     state.dtb),
         step_idx=state.step_idx + 1)
 
     # ---- 9b. periodic online gravity re-refinement ----
@@ -698,174 +783,186 @@ def step_core(state: LIOState, scan: ScanInput, cfg):
         do_refine = (state.inited & full & can_estimate & (~res.fail)
                      & (new_state.step_idx % cfg.solver.gravity_refine_every
                         == 0))
-        if bool(do_refine):
-            s = new_state
-            g_new, v_new = initializer.refine_gravity(
-                s.x, s.preint, s.pair_valid, s.gravity, cfg.imu.gnorm)
-            lin_J = s.prior.lin_J.clone()
-            lin_J[:, 6:9] = 0.0
-            px0 = s.prior.x0.clone()
-            px0[6:9] = v_new[0]
-            x = s.x.clone()
-            x[:, 6:9] = v_new
-            new_state = s._replace(gravity=g_new, x=x,
-                                   prior=s.prior._replace(lin_J=lin_J,
-                                                          x0=px0))
+        s = new_state
+        g_new, v_new = initializer.refine_gravity(
+            s.x, s.preint, s.pair_valid, s.gravity, cfg.imu.gnorm)
+        lin_J = s.prior.lin_J
+        lin_J = torch.cat([lin_J[..., 0:6], torch.zeros_like(lin_J[..., 6:9]),
+                           lin_J[..., 9:15]], dim=-1)
+        px0 = s.prior.x0
+        px0 = torch.cat([px0[:, 0:6], v_new[:, 0], px0[:, 9:15]], dim=-1)
+        x = torch.cat([s.x[..., 0:6], v_new, s.x[..., 9:15]], dim=-1)
+        refined = (g_new, x, s.prior._replace(lin_J=lin_J, x0=px0))
+        g_sel, x_sel, prior_sel = est.select(do_refine, refined,
+                                             (s.gravity, s.x, s.prior))
+        new_state = s._replace(gravity=g_sel, x=x_sel, prior=prior_sel)
 
-    # modes <= 1 never initialize (init needs the accelerometer)
-    if not (bool(state.inited) or cfg.imu_mode <= 1):
-        new_state = _init_bookkeeping(
+    # modes <= 1 never initialize (init needs the accelerometer); lanes
+    # already initialized keep their state
+    if cfg.imu_mode > 1:
+        booked = _init_bookkeeping(
             new_state, scan, q_pub, p_pub,
-            tree_map(lambda a: a[-1], stacks_w), cfg)
+            tree_map(lambda a: a[:, -1], stacks_w), cfg)
+        new_state = _select_state(state.inited, new_state, booked)
 
     out = StepOutput(
-        pose_q=q_pub, pose_p=p_pub, t=t_w[front_idx],
+        pose_q=q_pub, pose_p=p_pub, t=_at(t_w, front_idx),
         fail=res.fail, degenerate=res.degenerate,
         sv_min=res.sv_min, inited=new_state.inited,
         n_corner=corner_cnt.to(torch.int32),
-        n_surf=torch.sum(fv_w[:, None] & stacks_w.surf_mask).to(torch.int32),
+        n_surf=torch.sum(fv_w[..., None] & stacks_w.surf_mask,
+                         dim=(-2, -1)).to(torch.int32),
         fast_rotation=pf.fast_rotation, hori_merged=pf.hori_merged,
         n_assoc_line=res.n_line, n_assoc_plane=res.n_plane)
     return new_state, out, pend
 
 
+_KF_FIELDS = ("kf_x", "kf_t", "kf_stacks", "kf_rfs", "kf_imu", "kf_imu_mask",
+              "kf_imu_n", "kf_count")
+
+
 def _init_bookkeeping(state: LIOState, scan: ScanInput, q_pub, p_pub, fstack,
                       cfg):
-    """Keyframe accumulation + init attempt (unionPoseEstimation :934-985)."""
+    """Keyframe accumulation + init attempt (unionPoseEstimation :934-985)
+    of every lane, its branches selects."""
     dtype = state.x.dtype
     dev = state.x.device
-    Mi = state.kf_imu.shape[1]
+    B, Mi = state.kf_imu.shape[0], state.kf_imu.shape[2]
     phase = state.kf_phase
     new_kf_stack = est.Stacks(*fstack)
-    rf_cur = tree_map(lambda a: a[-1], state.cached_rfs)
-    pose = torch.cat([q_pub, p_pub])
+    rf_cur = tree_map(lambda a: a[:, -1], state.cached_rfs)
+    pose = torch.cat([q_pub, p_pub], dim=-1)
 
-    if int(phase) == 0:
-        state = state._replace(
-            kf_x=_roll_push(state.kf_x, pose),
-            kf_t=_roll_push(state.kf_t, scan.t),
-            kf_stacks=tree_map(_roll_push, state.kf_stacks, new_kf_stack),
-            kf_rfs=tree_map(_roll_push, state.kf_rfs, rf_cur),
-            kf_imu=_roll_push(state.kf_imu, torch.zeros_like(state.kf_imu[0])),
-            kf_imu_mask=_roll_push(state.kf_imu_mask,
-                                   torch.zeros_like(state.kf_imu_mask[0])),
-            kf_imu_n=_roll_push(state.kf_imu_n,
-                                torch.zeros_like(state.kf_imu_n[0])),
-            kf_count=torch.clamp(state.kf_count + 1, max=N_KF))
-    else:
-        state = state._replace(
-            kf_x=_set_last(state.kf_x, pose),
-            kf_t=_set_last(state.kf_t, scan.t),
-            kf_stacks=tree_map(_set_last, state.kf_stacks, new_kf_stack),
-            kf_rfs=tree_map(_set_last, state.kf_rfs, rf_cur))
+    # lax.cond(phase == 0, open_slot, update_slot)
+    opened = state._replace(
+        kf_x=_roll_push(state.kf_x, pose),
+        kf_t=_roll_push(state.kf_t, scan.t),
+        kf_stacks=tree_map(_roll_push, state.kf_stacks, new_kf_stack),
+        kf_rfs=tree_map(_roll_push, state.kf_rfs, rf_cur),
+        kf_imu=_roll_push(state.kf_imu, torch.zeros_like(state.kf_imu[:, 0])),
+        kf_imu_mask=_roll_push(state.kf_imu_mask,
+                               torch.zeros_like(state.kf_imu_mask[:, 0])),
+        kf_imu_n=_roll_push(state.kf_imu_n,
+                            torch.zeros_like(state.kf_imu_n[:, 0])),
+        kf_count=torch.clamp(state.kf_count + 1, max=N_KF))
+    updated = state._replace(
+        kf_x=_set_last(state.kf_x, pose),
+        kf_t=_set_last(state.kf_t, scan.t),
+        kf_stacks=tree_map(_set_last, state.kf_stacks, new_kf_stack),
+        kf_rfs=tree_map(_set_last, state.kf_rfs, rf_cur))
+    state = state._replace(**dict(zip(_KF_FIELDS, est.select(
+        phase == 0, tuple(getattr(opened, f) for f in _KF_FIELDS),
+        tuple(getattr(updated, f) for f in _KF_FIELDS)))))
 
     # append this scan's IMU into the newest keyframe buffer; masked or
-    # overflowing samples are dropped (mode="drop")
-    n0 = state.kf_imu_n[-1].to(torch.int64)
-    samples = torch.cat([scan.imu_acc, scan.imu_gyr, scan.imu_dt[:, None]],
+    # overflowing samples go to a dropped slot (mode="drop")
+    n0 = state.kf_imu_n[:, -1].to(torch.int64)
+    samples = torch.cat([scan.imu_acc, scan.imu_gyr, scan.imu_dt[..., None]],
                         dim=-1).to(dtype)
-    idx = n0 + torch.arange(samples.shape[0], device=dev)
+    idx = n0[:, None] + torch.arange(samples.shape[1], device=dev)
     idx = torch.where(scan.imu_mask & (idx < Mi), idx, torch.full_like(idx, Mi))
-    buf = torch.cat([state.kf_imu[-1], torch.zeros((1, 7), dtype=dtype,
-                                                   device=dev)])
-    buf = buf.index_put((idx,), samples)
-    mbuf = torch.cat([state.kf_imu_mask[-1],
-                      torch.zeros((1,), dtype=torch.bool, device=dev)])
-    mbuf = mbuf.index_put((idx,), torch.ones_like(scan.imu_mask))
-    n_new = torch.clamp(n0 + torch.sum(scan.imu_mask.to(torch.int64)), max=Mi)
+    buf = torch.cat([state.kf_imu[:, -1],
+                     torch.zeros((B, 1, 7), dtype=dtype, device=dev)], dim=1)
+    buf = buf.scatter(1, idx[..., None].expand(samples.shape), samples)
+    mbuf = torch.cat([state.kf_imu_mask[:, -1],
+                      torch.zeros((B, 1), dtype=torch.bool, device=dev)],
+                     dim=1)
+    mbuf = mbuf.scatter(1, idx, torch.ones_like(scan.imu_mask))
+    n_new = torch.clamp(n0 + torch.sum(scan.imu_mask.to(torch.int64), dim=-1),
+                        max=Mi)
     state = state._replace(
-        kf_imu=_set_last(state.kf_imu, buf[:Mi]),
-        kf_imu_mask=_set_last(state.kf_imu_mask, mbuf[:Mi]),
+        kf_imu=_set_last(state.kf_imu, buf[:, :Mi]),
+        kf_imu_mask=_set_last(state.kf_imu_mask, mbuf[:, :Mi]),
         kf_imu_n=_set_last(state.kf_imu_n, n_new.to(state.kf_imu_n.dtype)))
 
     avg = -preintegration.average_acc(scan.imu_acc, scan.imu_mask, cfg.imu)
     state = state._replace(
-        avg_acc=torch.where((state.kf_count == 1) & (phase == 0),
+        avg_acc=torch.where(((state.kf_count == 1) & (phase == 0))[:, None],
                             avg.to(dtype), state.avg_acc))
 
     phase_next = (phase + 1) % KF_EVERY
     try_init = (phase_next == 0) & (state.kf_count == N_KF)
     state = state._replace(kf_phase=phase_next)
-    if bool(try_init):
-        state = _try_init(state, cfg)
-    return state
+    return _try_init(state, cfg, try_init)
 
 
-def _try_init(state: LIOState, cfg):
-    """TryMAPInitialization (:425-627) + window seeding on success."""
+def _try_init(state: LIOState, cfg, attempt):
+    """TryMAPInitialization (:425-627) + window seeding on success, for the
+    lanes of `attempt` (B,) whose solve passes its gates; every lane runs
+    it, the others keep `state` (lax.cond under vmap)."""
     dtype = state.x.dtype
     dev = state.x.device
-    z3 = torch.zeros(3, dtype=dtype, device=dev)
+    B = state.x.shape[0]
+    W = cfg.solver.window
+    lead = W - N_KF
 
     def pre_all(bg, ba):
-        prs = [preintegration.preintegrate(
-            state.kf_imu[i, :, 0:3], state.kf_imu[i, :, 3:6],
-            state.kf_imu[i, :, 6], state.kf_imu_mask[i], bg, ba, cfg.imu)
-            for i in range(N_KF)]
-        return preintegration.PreintResult(
-            *(torch.stack(f) for f in zip(*prs)))
+        bg = bg[:, None].expand(B, N_KF, 3)
+        ba = ba[:, None].expand(B, N_KF, 3)
+        return preintegration.preintegrate(
+            state.kf_imu[..., 0:3], state.kf_imu[..., 3:6],
+            state.kf_imu[..., 6], state.kf_imu_mask, bg, ba, cfg.imu)
 
+    z3 = torch.zeros((B, 3), dtype=dtype, device=dev)
     pr = pre_all(z3, z3)
     preint9 = dict(dq=pr.dq, dp=pr.dp, dv=pr.dv, jac=pr.jac, cov=pr.cov,
                    dt=pr.dtime, bg=pr.bg, ba=pr.ba)
-    Rlb = state.Rbl.T
-    tlb = -state.Rbl.T @ state.tbl
-    res = initializer.initialize(state.kf_x[:, 4:7], state.kf_x[:, 0:4],
+    RblT = state.Rbl.transpose(-1, -2)
+    Rlb = RblT
+    tlb = -(RblT @ state.tbl[..., None])[..., 0]
+    res = initializer.initialize(state.kf_x[..., 4:7], state.kf_x[..., 0:4],
                                  state.avg_acc, preint9, cfg.imu.gnorm,
                                  Rlb, tlb,
                                  gravity_prior_w=cfg.init_gravity_prior_w,
                                  bias_bound=cfg.failsafe.init_bias_bound,
                                  velocity_bound=cfg.failsafe.init_velocity_bound)
-    if not bool(res.ok):
-        return state
 
     s = state
-    W = cfg.solver.window
-    x = torch.zeros((W, 15), dtype=dtype, device=dev)
-    t = torch.zeros((W,), dtype=dtype, device=dev)
-    fv = torch.zeros((W,), dtype=torch.bool, device=dev)
 
-    def seed(a, kf):
-        out = torch.zeros_like(a)
-        out[W - N_KF:] = kf
-        return out
+    def seed(kf, n=lead, tail=0):
+        """zeros in the first n window slots, then kf (B, k, ...), then
+        `tail` zero slots."""
+        z = lambda k: torch.zeros((B, k) + tuple(kf.shape[2:]),
+                                  dtype=kf.dtype, device=dev)
+        return torch.cat([z(n), kf] + ([z(tail)] if tail else []), dim=1)
 
-    stacks = tree_map(seed, s.stacks, s.kf_stacks)
+    xs = []
     for i in range(N_KF):
-        slot = W - N_KF + i
-        q_l = s.kf_x[i, 0:4]
-        p_l = s.kf_x[i, 4:7]
+        q_l = s.kf_x[:, i, 0:4]
+        p_l = s.kf_x[:, i, 4:7]
         if i == N_KF - 1:
             q_b = lie.quat_mul(q_l, lie.matrix_to_quat(Rlb))
             p_b = p_l + lie.quat_rotate(q_l, tlb)
         else:
             q_b, p_b = q_l, p_l
-        x[slot] = torch.cat([p_b, lie.log_quat(q_b), res.v[i], res.bg,
-                             res.ba])
-        t[slot] = s.kf_t[i]
-        fv[slot] = True
+        xs.append(torch.cat([p_b, lie.log_quat(q_b), res.v[:, i], res.bg,
+                             res.ba], dim=-1))
+    x = seed(torch.stack(xs, dim=1))
+    t = seed(s.kf_t)
+    fv = seed(torch.ones((B, N_KF), dtype=torch.bool, device=dev))
+    stacks = tree_map(lambda a, kf: seed(kf.to(a.dtype)), s.stacks,
+                      s.kf_stacks)
 
     pr2 = pre_all(res.bg, res.ba)
-    preint = _empty_preint(W, dtype, dev)
-    pv = torch.zeros((W,), dtype=torch.bool, device=dev)
-    for i in range(1, N_KF):
-        slot = W - N_KF + i
-        si = cfg.imu.lidar_m * preintegration.sqrt_info_from_cov(pr2.cov[i])
-        for k, v in (("dq", pr2.dq[i]), ("dp", pr2.dp[i]), ("dv", pr2.dv[i]),
-                     ("jac", pr2.jac[i]), ("sqrt_info", si),
-                     ("dt", pr2.dtime[i]), ("bg", res.bg), ("ba", res.ba)):
-            preint[k][slot] = v.to(dtype)
-        pv[slot] = True
-
-    def seed_rfs(a, kf):
-        out = torch.zeros_like(a)
-        out[W - N_KF:W - 1] = kf[:N_KF - 1].to(a.dtype)
-        return out
-
-    rfs0 = tree_map(seed_rfs, s.cached_rfs, s.kf_rfs)
-    return s._replace(x=x, t=t, frame_valid=fv, stacks=stacks,
-                      preint=preint, pair_valid=pv,
-                      inited=torch.ones((), dtype=torch.bool, device=dev),
-                      gravity=res.gravity.to(dtype),
-                      prior=solver.empty_prior(dtype, dev),
-                      cached_rfs=rfs0)
+    k1 = N_KF - 1
+    rest = dict(dq=pr2.dq[:, 1:], dp=pr2.dp[:, 1:], dv=pr2.dv[:, 1:],
+                jac=pr2.jac[:, 1:],
+                sqrt_info=cfg.imu.lidar_m
+                * preintegration.sqrt_info_from_cov(pr2.cov[:, 1:]),
+                dt=pr2.dtime[:, 1:], bg=res.bg[:, None].expand(B, k1, 3),
+                ba=res.ba[:, None].expand(B, k1, 3))
+    empty = _empty_preint(W, dtype, dev)
+    preint = {k: torch.cat([empty[k][None, :lead + 1].expand(
+        (B, lead + 1) + tuple(empty[k].shape[1:])), rest[k].to(dtype)], dim=1)
+        for k in empty}
+    pv = seed(torch.ones((B, k1), dtype=torch.bool, device=dev), lead + 1)
+    rfs0 = tree_map(lambda a, kf: seed(kf[:, :k1].to(a.dtype), tail=1),
+                    s.cached_rfs, s.kf_rfs)
+    prior0 = tree_map(lambda a: a.expand((B,) + tuple(a.shape)),
+                      solver.empty_prior(dtype, dev))
+    seeded = s._replace(x=x, t=t, frame_valid=fv, stacks=stacks,
+                        preint=preint, pair_valid=pv,
+                        inited=torch.ones((B,), dtype=torch.bool, device=dev),
+                        gravity=res.gravity.to(dtype), prior=prior0,
+                        cached_rfs=rfs0)
+    return _select_state(attempt & res.ok, seeded, s)

@@ -2,10 +2,11 @@
 mmloam_tpu/replay.py).
 
 `make_sequence` is a numpy copy of the reference's host-side builder (its
-outputs are bit-identical); `replay` steps one sequence; `replay_batch`
-steps B sequences in lockstep — `step_core` per lane, then ONE batched
+outputs are bit-identical); `replay_batch` steps B sequences in lockstep —
+one `pipeline.step_core_batch` over all lanes per scan, then ONE batched
 map insert per map through the CUDA kernel K1 — exactly the split the TPU
-path makes (`mmloam_tpu/replay.py:190-208`).  With `mesh`, a list of
+path makes (`mmloam_tpu/replay.py:190-208`); `replay` is the batch at one
+lane.  With `mesh`, a list of
 devices, `replay_batch` splits the batch as the reference splits it over a
 1-D mesh (`mmloam_tpu/replay.py:176-224`): each device owns whole
 sequences, and no tensor crosses devices during the replay.
@@ -21,6 +22,7 @@ import torch
 
 from . import lie, pipeline
 from .data import synthetic
+from .ops import voxelmap
 from .tree import tree_map
 
 
@@ -154,28 +156,20 @@ def _stack_outputs(outs):
 
 
 def replay(state, scans, cfg):
-    """Step one sequence over a stacked ScanInput (T, ...).  Returns
-    (final state, StepOutput stacked over T)."""
-    outs = []
-    for t in range(scans.pts.shape[0]):
-        state, out = pipeline.step(state,
-                                   tree_map(lambda a: a[t], scans), cfg)
-        outs.append(out)
-    return state, _stack_outputs(outs)
+    """Step one sequence over a stacked ScanInput (T, ...): the lockstep
+    batch at one lane, on copies of the state's maps (the input state is
+    left as it was).  Returns (final state, StepOutput stacked over T)."""
+    lane = pipeline._lane(state)
+    lane = lane._replace(**{f: voxelmap.VoxelMap(
+        getattr(lane, f).cells.clone()) for f in pipeline.MAP_FIELDS})
+    final, outs = _replay_lockstep(
+        lane, tree_map(lambda a: torch.as_tensor(a)[:, None], scans), cfg)
+    return pipeline._unlane(final), tree_map(lambda a: a[:, 0], outs)
 
 
 def stack_states(states):
     """Stack per-sequence LIOStates into a batch (B, ...)."""
     return tree_map(lambda *xs: torch.stack(xs), states[0], *states[1:])
-
-
-def _restack(lanes, batched):
-    """Batch the per-lane states, keeping the batched map tensors (the
-    per-lane step never writes maps; K1 updates them in place)."""
-    keep = {f: getattr(batched, f) for f in pipeline.MAP_FIELDS}
-    rest = [s._replace(**{f: None for f in pipeline.MAP_FIELDS})
-            for s in lanes]
-    return stack_states(rest)._replace(**keep)
 
 
 def stack_sequences(seqs):
@@ -271,29 +265,20 @@ def _replay_lockstep(states, scans, cfg):
     """Replay a BATCH of sequences in lockstep on one device.
 
     states: LIOState with a leading batch axis B; scans: ScanInput laid out
-    (T, B, ...).  For each scan, `step_core` runs per lane (a Python loop;
-    per-lane values equal the reference's vmap), then the four maps of all
-    B lanes are written by ONE batched `apply_inserts_batched` each —
-    through the CUDA kernel on CUDA tensors.  The maps of `states` are
-    updated IN PLACE (the reference donates the batch state the same way):
-    callers must not reuse the passed `states`.  Returns (final states,
-    StepOutput stacked as (T, B, ...)).
+    (T, B, ...).  For each scan, ONE `step_core_batch` over all lanes (the
+    reference's vmap of step_core), then the maps of all B lanes are
+    written by ONE batched `apply_inserts_batched` each — through the CUDA
+    kernel on CUDA tensors.  The maps of `states` are updated IN PLACE (the
+    reference donates the batch state the same way): callers must not
+    reuse the passed `states`.  Returns (final states, StepOutput stacked
+    as (T, B, ...)).
     """
-    B = states.x.shape[0]
     outs = []
     for t in range(scans.pts.shape[0]):
-        lanes, lane_outs, pends = [], [], []
-        for b in range(B):
-            lane = tree_map(lambda a: a[b], states)
-            sc = tree_map(lambda a: a[t, b], scans)
-            lane, out, pend = pipeline.step_core(lane, sc, cfg)
-            lanes.append(lane)
-            lane_outs.append(out)
-            pends.append(pend)
-        states = _restack(lanes, states)
-        pend = tree_map(lambda *xs: torch.stack(xs), pends[0], *pends[1:])
+        states, out, pend = pipeline.step_core_batch(
+            states, tree_map(lambda a: a[t], scans), cfg)
         states = pipeline.apply_inserts_batched(states, pend, cfg)
-        outs.append(_stack_outputs(lane_outs))
+        outs.append(out)
     return states, _stack_outputs(outs)
 
 

@@ -58,6 +58,7 @@ from mmloam_tpu.ops import voxelmap as jvx  # noqa: E402
 from mmloam_tpu_torch.config import tiny_config  # noqa: E402
 from mmloam_tpu_torch.estimator import factors as tfac  # noqa: E402
 from mmloam_tpu_torch.ops import assoc, voxelmap  # noqa: E402
+from mmloam_tpu_torch.tree import tree_map  # noqa: E402
 
 _TESTS = pathlib.Path(__file__).resolve().parent
 
@@ -210,21 +211,25 @@ def test_production_association_matches_jax(mode, rescue_frac, jax_assoc):
     p_l = np.where(np.isfinite(pw), pw, 0.0).astype(np.float32)
     thres = np.float32(1.0)
     fj = jax_assoc[mode]
-    tvm = voxelmap.VoxelMap(torch.from_numpy(cells))
-    tvml = voxelmap.VoxelMap(torch.from_numpy(cells_l))
+    # the port's association takes a lane axis: one lane here
+    tvm = voxelmap.VoxelMap(torch.from_numpy(cells)[None])
+    tvml = voxelmap.VoxelMap(torch.from_numpy(cells_l)[None])
+    lane = lambda a: torch.from_numpy(a)[None]
     jvm, jvml = jvx.VoxelMap(jnp.asarray(cells)), jvx.VoxelMap(
         jnp.asarray(cells_l))
 
     def port(x6, cached):
-        args = (torch.from_numpy(x6), torch.from_numpy(p_l),
-                torch.from_numpy(mask), tvm, torch.eye(3), torch.zeros(3),
-                cfg, torch.tensor(thres))
+        """The targets of the one lane, and the blocks with their lane
+        axis (the cached entry's input)."""
+        args = (lane(x6), lane(p_l), lane(mask), tvm, torch.eye(3),
+                torch.zeros(3), cfg, torch.tensor([thres]))
         if mode == assoc.LINE:
-            return tfac.associate_lines(*args, vm_local=tvml, cached=cached,
-                                        with_blocks=True)
+            lt, blk = tfac.associate_lines(*args, vm_local=tvml,
+                                           cached=cached, with_blocks=True)
+            return tree_map(lambda a: a[0], lt), blk
         pt, omega, valid, blk = tfac.associate_planes(
             *args, 0.5, vm_local=tvml, cached=cached, with_blocks=True)
-        return (pt, omega, valid), blk
+        return tree_map(lambda a: a[0], (pt, omega, valid)), blk
 
     x6 = np.zeros(6, np.float32)
     x6_moved = x6 + np.float32(3e-3)
@@ -235,10 +240,10 @@ def test_production_association_matches_jax(mode, rescue_frac, jax_assoc):
     assert assoc.CALLS == before + 1       # persistent + local tier, fused
     _assert_targets(mode, tt, tj)
     _assert_same_targets(mode, tt, _old_composition(
-        mode, torch.from_numpy(x6), torch.from_numpy(p_l),
-        torch.from_numpy(mask), tvm, tvml, cfg, torch.tensor(thres)))
+        mode, lane(x6), lane(p_l), lane(mask), tvm, tvml, cfg,
+        torch.tensor([thres])))
     for name in ("dxd", "dyd", "dzd", "d2d"):
-        a = _np(getattr(blk_t, name).float())
+        a = _np(getattr(blk_t, name)[0].float())
         b = np.asarray(getattr(blk_j, name).astype(jnp.float32))
         fin = np.isfinite(b)
         np.testing.assert_array_equal(np.isfinite(a), fin, err_msg=name)
@@ -251,17 +256,18 @@ def test_production_association_matches_jax(mode, rescue_frac, jax_assoc):
     tt2, _ = port(x6_moved, blk_t)
     _assert_targets(mode, tt2, tj2)
     _assert_same_targets(mode, tt2, _old_composition(
-        mode, torch.from_numpy(x6_moved), torch.from_numpy(p_l),
-        torch.from_numpy(mask), tvm, tvml, cfg, torch.tensor(thres), blk_t))
+        mode, lane(x6_moved), lane(p_l), lane(mask), tvm, tvml, cfg,
+        torch.tensor([thres]), blk_t))
 
 
 def _old_composition(mode, x6, p_l, mask, vm, vml, cfg, thres, cached=None):
     """factors' association as it stood before the rescue was fused: two
     `associate` calls, the second on the compacted failures, merged after
-    each map's post-processing.  Returns (targets, omega, valid) for the
-    plane mode, (c, u, valid) for the line mode."""
+    each map's post-processing.  Inputs of one lane, with its lane axis.
+    Returns the lane's (proj, omega, valid) for the plane mode, (c, u,
+    valid) for the line mode."""
     pw = tfac._world_points(x6, p_l, torch.eye(3), torch.zeros(3))
-    M = pw.shape[0]
+    M = pw.shape[-2]
     sr = cfg.solver.plane_scatter_ratio if mode == assoc.PLANE else 0.0
 
     def one(vmi, mcfg, pwq, maskq, cac=None):
@@ -270,21 +276,21 @@ def _old_composition(mode, x6, p_l, mask, vm, vml, cfg, thres, cached=None):
         if mode == assoc.LINE:
             return pwq + r.mu, r.vec, r.valid
         dist = -torch.sum(r.vec * r.mu, dim=-1)
-        return pwq - dist[:, None] * r.vec, r.vec, r.valid
+        return pwq - dist[..., None] * r.vec, r.vec, r.valid
 
     p, v, valid = one(vm, cfg.map, pw, mask, cached)
     Mr = tfac._rescue_cap(M, cfg.solver.local_rescue_frac)
     if Mr >= M:
         p2, v2, valid2 = one(vml, cfg.local_map, pw, mask)
-        use2 = (~valid & valid2)[:, None]
-        return (torch.where(use2, p2, p), torch.where(use2, v2, v),
-                valid | valid2)
+        use2 = (~valid & valid2)[..., None]
+        return (torch.where(use2, p2, p)[0], torch.where(use2, v2, v)[0],
+                (valid | valid2)[0])
     sel = assoc._compact_indices(mask & ~valid, Mr)
     p2, v2, valid2 = one(vml, cfg.local_map, assoc._take_fill(pw, sel),
                          sel < M)
     ok = torch.where(valid2, sel, torch.full_like(sel, M))
-    return (assoc._set_drop(p, ok, p2), assoc._set_drop(v, ok, v2),
-            assoc._set_drop(valid, ok, torch.ones_like(valid2)))
+    return (assoc._set_drop(p, ok, p2)[0], assoc._set_drop(v, ok, v2)[0],
+            assoc._set_drop(valid, ok, torch.ones_like(valid2))[0])
 
 
 def _assert_same_targets(mode, tt, old):
@@ -322,9 +328,10 @@ def test_stage_cuts_agree_with_plain_version(mode):
     """Every stage's plain cut is a cut of the same computation, and the
     dispatcher on CPU tensors is the plain version."""
     cells, _, pw, mask = _queries(0, (0.9, 0.5, 0.05))
-    vm = voxelmap.VoxelMap(torch.from_numpy(cells))
-    pw_t, mask_t = torch.from_numpy(pw), torch.from_numpy(mask)
-    args = (vm, pw_t, mask_t, CFG.map, K, mode, torch.tensor(1.0), 0.01)
+    # one lane, with its lane axis
+    vm = voxelmap.VoxelMap(torch.from_numpy(cells)[None])
+    pw_t, mask_t = torch.from_numpy(pw)[None], torch.from_numpy(mask)[None]
+    args = (vm, pw_t, mask_t, CFG.map, K, mode, torch.tensor([1.0]), 0.01)
     r, blocks = assoc.associate_reference(*args)
     calls = assoc.CALLS
     r2, blocks2 = assoc.associate(*args, want_blocks=True)
@@ -336,8 +343,8 @@ def test_stage_cuts_agree_with_plain_version(mode):
 
     cuts = {s: assoc.run_stage(s, *args) for s in range(len(
         assoc.STAGE_NAMES))}
-    slot = voxelmap.stencil_addresses(pw_t, CFG.map).slot.long()
-    assert torch.equal(cuts[assoc.GATHER]["rows"], vm.cells[slot])
+    slot = voxelmap.stencil_addresses(pw_t[0], CFG.map).slot.long()
+    assert torch.equal(cuts[assoc.GATHER]["rows"][0], vm.cells[0][slot])
     for s in (assoc.SELECT, assoc.MOMENTS, assoc.OUT, assoc.NEED):
         torch.testing.assert_close(cuts[s]["t_k"], r.t_k, rtol=0, atol=0)
         torch.testing.assert_close(cuts[s]["n"], r.n, rtol=0, atol=0)
@@ -382,11 +389,12 @@ def test_rescue_pair_plain_forms_agree(mode, rescue_frac):
                     else (5, (0.3, -0.4, 0.0)))
     cells, cells_l, pw, mask = _queries(seed, origin)
     M = pw.shape[0]
-    vm = voxelmap.VoxelMap(torch.from_numpy(cells))
-    vml = voxelmap.VoxelMap(torch.from_numpy(cells_l))
+    # one lane, with its lane axis
+    vm = voxelmap.VoxelMap(torch.from_numpy(cells)[None])
+    vml = voxelmap.VoxelMap(torch.from_numpy(cells_l)[None])
     sr = CFG.solver.plane_scatter_ratio if mode == assoc.PLANE else 0.0
-    args = (vm, vml, torch.from_numpy(pw), torch.from_numpy(mask), CFG.map,
-            CFG.local_map, K, mode, torch.tensor(1.0), sr)
+    args = (vm, vml, torch.from_numpy(pw)[None], torch.from_numpy(mask)[None],
+            CFG.map, CFG.local_map, K, mode, torch.tensor([1.0]), sr)
     # a cap that binds (half the failures), or every failure tried
     n_fail = int(assoc.run_rescue(*args, M)["need"].sum())
     cap = n_fail // 2 if rescue_frac < 1.0 else M

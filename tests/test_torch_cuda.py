@@ -135,7 +135,8 @@ def test_kernel_at_flagship_row_count():
 
 def _scene(dev, n_pts=4000, M=512, seed=3, mcfg=MCFG):
     """A map of two noisy planes and a line (K1 inserts) and M queries
-    near them, 5 % masked."""
+    near them, 5 % masked: one lane, with its lane axis (K2's one input
+    form)."""
     rng = np.random.default_rng(seed)
     u = rng.uniform(-1.2, 1.2, (n_pts, 2))
     noise = rng.normal(0, 0.01, (n_pts, 3))
@@ -150,9 +151,9 @@ def _scene(dev, n_pts=4000, M=512, seed=3, mcfg=MCFG):
     map_insert.insert_batched(cells, p, ones, mcfg)
     q = pts[rng.choice(len(pts), M)] + rng.normal(0, 0.05, (M, 3))
     mask = rng.random(M) > 0.05
-    return (voxelmap.VoxelMap(cells[0]),
-            torch.from_numpy(q.astype(np.float32)).to(dev),
-            torch.from_numpy(mask).to(dev))
+    return (voxelmap.VoxelMap(cells),
+            torch.from_numpy(q.astype(np.float32)).to(dev)[None],
+            torch.from_numpy(mask).to(dev)[None])
 
 
 @pytest.mark.cuda
@@ -162,7 +163,7 @@ def test_assoc_stages_match_plain_version_on_card(mode, bf16):
     dev = _device()
     vm, pw, mask = _scene(dev)
     mcfg = dataclasses.replace(MCFG, dense_bf16=bf16)
-    thres = torch.tensor(1.0, device=dev)
+    thres = torch.tensor([1.0], device=dev)
     args = (vm, pw, mask, mcfg, 5, mode, thres, 0.01)
     _, blocks = assoc.associate_reference(*args)
     moved = pw + 0.02
@@ -183,7 +184,8 @@ def test_assoc_stages_match_plain_version_on_card(mode, bf16):
 def test_assoc_launches_and_blocks_on_card():
     dev = _device()
     vm, pw, mask = _scene(dev)
-    args = (vm, pw, mask, MCFG, 5, assoc.PLANE, 1.0, 0.01)
+    args = (vm, pw, mask, MCFG, 5, assoc.PLANE,
+            torch.tensor([1.0], device=dev), 0.01)
     l0, c0 = assoc.LAUNCHES, assoc.CALLS
     r, blk = assoc.associate(*args, want_blocks=True)
     r_ref, blk_ref = assoc.associate_reference(*args)
@@ -205,14 +207,14 @@ def test_assoc_cuda_tensor_without_kernel_raises(monkeypatch):
 
     monkeypatch.setattr(cuda_build, "_LOADED", {})
     monkeypatch.setattr(cuda_build, "build", no_build)
-    cells = torch.zeros(tuple(voxelmap.empty_map(MCFG).cells.shape),
+    cells = torch.zeros((1,) + tuple(voxelmap.empty_map(MCFG).cells.shape),
                         device=dev)
-    pw = torch.zeros((8, 3), device=dev)
-    mask = torch.ones((8,), dtype=torch.bool, device=dev)
+    pw = torch.zeros((1, 8, 3), device=dev)
+    mask = torch.ones((1, 8), dtype=torch.bool, device=dev)
     launches = assoc.LAUNCHES
     with pytest.raises(RuntimeError, match="nvcc"):
         assoc.associate(voxelmap.VoxelMap(cells), pw, mask, MCFG, 5,
-                        assoc.LINE, 1.0)
+                        assoc.LINE, torch.tensor([1.0], device=dev))
     assert assoc.LAUNCHES == launches
 
 
@@ -237,9 +239,10 @@ def test_assoc_addresses_bit_equal_on_card():
     `voxelmap.stencil_addresses`' bit for bit, and so are the rows."""
     dev = _device()
     vm, _, _ = _scene(dev)
-    q = torch.from_numpy(_boundary_queries(MCFG)).to(dev)
-    mask = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
-    args = (vm, q, mask, MCFG, 5, assoc.PLANE, 1.0)
+    q = torch.from_numpy(_boundary_queries(MCFG)).to(dev)[None]
+    mask = torch.ones(q.shape[:2], dtype=torch.bool, device=dev)
+    args = (vm, q, mask, MCFG, 5, assoc.PLANE,
+            torch.tensor([1.0], device=dev))
     got = assoc.run_stage(assoc.GATHER, *args)
     ref = assoc.stage_reference(assoc.GATHER, *args)
     torch.cuda.synchronize()
@@ -261,15 +264,15 @@ def test_fused_rescue_matches_plain_version_on_card(mode, full):
     # the persistent map loses every third superrow, so many queries fail
     # there; the local map holds the same scene on a finer grid
     cells = vm.cells.clone()
-    cells[::3] = 0.0
+    cells[:, ::3] = 0.0
     vm = voxelmap.VoxelMap(cells)
     lcfg = dataclasses.replace(MCFG, voxel_size=0.2)
     vml, _, _ = _scene(dev, mcfg=lcfg)
-    thres = torch.tensor(1.0, device=dev)
+    thres = torch.tensor([1.0], device=dev)
     args = (vm, vml, pw, mask, MCFG, lcfg, 5, mode, thres, 0.01)
-    n_fail = int(assoc.run_rescue(*args, pw.shape[0])["need"].sum())
+    n_fail = int(assoc.run_rescue(*args, pw.shape[1])["need"].sum())
     assert n_fail > 10
-    cap = pw.shape[0] if full else n_fail // 2
+    cap = pw.shape[1] if full else n_fail // 2
     _, blocks = assoc.associate_reference(vm, pw, mask, MCFG, 5, mode, thres,
                                           0.01)
     for cached, q in ((None, pw), (blocks, pw + 0.02)):
@@ -298,14 +301,14 @@ def test_nonfeature_association_launches_no_rescue_on_card():
 
     vm, pw, mask = _scene(dev)
     cfg = LIOConfig().replace(map=MCFG)
-    x6 = torch.zeros(6, device=dev)
+    x6 = torch.zeros((1, 6), device=dev)
     eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-    thres = torch.tensor(1.0, device=dev)
+    thres = torch.tensor([1.0], device=dev)
     counts = lambda: (assoc.LAUNCHES, assoc.RESCUE_LAUNCHES, assoc.CALLS,
                       assoc.LOCAL_CALLS)
     c0 = counts()
     pt, omega, valid, _ = factors.associate_planes(
-        x6, pw, mask, vm, eye, zero, cfg, thres, torch.zeros((), device=dev),
+        x6, pw, mask, vm, eye, zero, cfg, thres, torch.zeros(1, device=dev),
         vm_local=None, with_blocks=True)
     torch.cuda.synchronize()
     assert tuple(b - a for a, b in zip(c0, counts())) == (1, 0, 1, 0)
@@ -313,7 +316,7 @@ def test_nonfeature_association_launches_no_rescue_on_card():
     sr = cfg.solver.plane_scatter_ratio
     r, _ = assoc.associate_with_rescue(vm, None, pw, mask, MCFG, None,
                                        MCFG.knn, assoc.PLANE, thres, sr,
-                                       pw.shape[0])
+                                       pw.shape[1])
     ref = assoc.stage_reference(assoc.OUT, vm, pw, mask, MCFG, MCFG.knn,
                                 assoc.PLANE, thres, sr)
     torch.cuda.synchronize()
@@ -321,7 +324,7 @@ def test_nonfeature_association_launches_no_rescue_on_card():
     assert torch.equal(r.valid, valid) and torch.equal(r.vec, omega)
     assert int(valid.sum()) > 50
     # zero tangent weight: only the normal row of the sqrt-information
-    assert float(pt.sqrt_info[:, 1:].abs().max()) == 0.0
+    assert float(pt.sqrt_info[:, :, 1:].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
@@ -448,7 +451,7 @@ def test_kernel_at_each_pack_on_card(pack, which):
 def _check_k2(vm, pw, mask, mcfg, mode):
     """Every stage fresh and cached against the plain cuts; returns the
     rows the GATHER stage dropped."""
-    thres = torch.tensor(1.0, device=pw.device)
+    thres = torch.tensor([1.0], device=pw.device)
     args = (vm, pw, mask, mcfg, 5, mode, thres, 0.01)
     _, blocks = assoc.associate_reference(*args)
     dropped = 0
@@ -499,8 +502,8 @@ def test_assoc_dedup_on_card(pack, capacity):
     if capacity == 1:   # half the queries spread over the torus
         rng = np.random.default_rng(9)
         far = rng.uniform(-1, 1, (256, 3)) * np.array([12.0, 12.0, 3.0])
-        pw = torch.cat([pw[:256], torch.from_numpy(far.astype(np.float32))
-                        .to(dev)])
+        pw = torch.cat([pw[:, :256], torch.from_numpy(far.astype(np.float32))
+                        .to(dev)[None]], dim=1)
     dropped = _check_k2(vm, pw, mask, mcfg, assoc.PLANE)
     assert (dropped > 0) == (capacity == 1), dropped
     # the default window keeps its own instance under dedup
@@ -510,7 +513,8 @@ def test_assoc_dedup_on_card(pack, capacity):
 
     before = dict(assoc.INSTANCE_LAUNCHES)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        assoc.associate(vm, pw, mask, mcfg, 5, assoc.PLANE, 1.0, 0.01)
+        assoc.associate(vm, pw, mask, mcfg, 5, assoc.PLANE,
+                        torch.tensor([1.0], device=dev), 0.01)
         torch.cuda.synchronize()
     assert assoc.INSTANCE_LAUNCHES[inst] == before[inst] + 1
     names = [e.key for e in prof.key_averages() if "assoc_kernel" in e.key]
@@ -532,15 +536,15 @@ def test_fused_rescue_with_dedup_on_card(full):
     mcfg = _geom((2, 2, 2), dedup_gather=True, dedup_capacity=1)
     vm, pw, mask = _scene(dev, mcfg=mcfg)
     cells = vm.cells.clone()
-    cells[::3] = 0.0
+    cells[:, ::3] = 0.0
     vm = voxelmap.VoxelMap(cells)
     lcfg = _geom((1, 1, 1), voxel_size=0.2, dedup_gather=True,
                  dedup_capacity=8)
     vml, _, _ = _scene(dev, mcfg=lcfg)
-    thres = torch.tensor(1.0, device=dev)
+    thres = torch.tensor([1.0], device=dev)
     args = (vm, vml, pw, mask, mcfg, lcfg, 5, assoc.PLANE, thres, 0.01)
-    n_fail = int(assoc.run_rescue(*args, pw.shape[0])["need"].sum())
-    cap = pw.shape[0] if full else n_fail // 2
+    n_fail = int(assoc.run_rescue(*args, pw.shape[1])["need"].sum())
+    cap = pw.shape[1] if full else n_fail // 2
     got = assoc.run_rescue(*args, cap)
     refs = assoc.rescue_stage_reference(*args, None, cap, got["need"])
     torch.cuda.synchronize()
@@ -642,3 +646,97 @@ def test_split_over_card_and_cpu_replays_at_once_on_card(monkeypatch):
             assert ka == kb
             torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
                                        msg=ka)
+
+
+# --------------------------------------------------------------------------
+# K2 with a lane axis: one launch serves a batch's lanes
+# --------------------------------------------------------------------------
+
+LANE_GEOMS = {
+    "default": {},
+    "dedup default": dict(dedup_gather=True, dedup_capacity=2),
+    "regs4": dict(pack=(1, 1, 1)),
+    "regs8": dict(pack=(2, 2, 2), stencil=(2, 2, 1)),
+    "regs16": dict(pack=(4, 4, 4)),
+    "staged": dict(pack=(4, 4, 2), stencil=(3, 3, 2)),
+}
+
+
+def _lane_geom(name):
+    kw = dict(LANE_GEOMS[name])
+    pack, stencil = kw.pop("pack", None), kw.pop("stencil", (1, 1, 1))
+    mcfg = MCFG if pack is None else _geom(pack, stencil)
+    return dataclasses.replace(mcfg, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [assoc.PLANE, assoc.LINE])
+@pytest.mark.parametrize("geom", list(LANE_GEOMS))
+def test_assoc_lane_axis_on_card(geom, mode):
+    """Three lanes (their own maps, queries and distance gates) in one K2
+    launch a stage, at every instance: each stage, fresh and cached,
+    against the plain version with the same lane axis (`assoc.compare`'s
+    bounds) and bit for bit against one launch a lane alone; the rescue
+    pair likewise (`assoc.compare_rescue`), with its cap binding."""
+    dev = _device()
+    mcfg = _lane_geom(geom)
+    inst = {"dedup default": "default"}.get(geom, geom)
+    assert assoc.instance(mcfg) == inst
+    B, k = 3, 5
+    scenes = [_scene(dev, seed=11 + b, mcfg=mcfg) for b in range(B)]
+    locs = [_scene(dev, n_pts=1500, seed=21 + b, mcfg=mcfg)[0]
+            for b in range(B)]
+    vm = voxelmap.VoxelMap(torch.cat([s[0].cells for s in scenes]))
+    vml = voxelmap.VoxelMap(torch.cat([m.cells for m in locs]))
+    pw = torch.cat([s[1] for s in scenes])
+    mask = torch.cat([s[2] for s in scenes])
+    thres = torch.tensor([1.0, 25.0, 0.05], device=dev)
+    sr = 0.01 if mode == assoc.PLANE else 0.0
+    _, blocks = assoc.associate_reference(vm, pw, mask, mcfg, k, mode, thres,
+                                          sr)
+    moved = pw + 3e-3
+    for stage in range(len(assoc.STAGE_NAMES)):
+        for cached, q in ((None, pw), (blocks, moved)):
+            if stage == assoc.GATHER and cached is not None:
+                continue
+            before = assoc.INSTANCE_LAUNCHES[inst]
+            got = assoc.run_stage(stage, vm, q, mask, mcfg, k, mode, thres,
+                                  sr, cached)
+            assert assoc.INSTANCE_LAUNCHES[inst] == before + 1
+            ref = assoc.stage_reference(stage, vm, q, mask, mcfg, k, mode,
+                                        thres, sr, cached)
+            torch.cuda.synchronize()
+            assoc.compare(stage, got, ref, mask, mode)
+            for b in range(B):
+                lane = slice(b, b + 1)
+                c1 = None if cached is None else assoc.StackBlocks(
+                    *(a[lane] for a in cached))
+                one = assoc.run_stage(stage,
+                                      voxelmap.VoxelMap(vm.cells[lane]),
+                                      q[lane], mask[lane], mcfg, k, mode,
+                                      thres[lane], sr, c1)
+                for name, v in one.items():
+                    assert torch.equal(got[name][lane], v), (
+                        assoc.STAGE_NAMES[stage], name, b)
+    M = pw.shape[1]
+    for cap in (64, M):
+        before = assoc.LAUNCHES
+        got = assoc.run_rescue(vm, vml, pw, mask, mcfg, mcfg, k, mode, thres,
+                               sr, cap)
+        assert assoc.LAUNCHES == before + 2
+        refs = assoc.rescue_stage_reference(vm, vml, pw, mask, mcfg, mcfg, k,
+                                            mode, thres, sr, None, cap,
+                                            got["need"])
+        torch.cuda.synchronize()
+        assoc.compare_rescue(got, refs, mask, mode, cap)
+        for b in range(B):
+            lane = slice(b, b + 1)
+            one = assoc.run_rescue(voxelmap.VoxelMap(vm.cells[lane]),
+                                   voxelmap.VoxelMap(vml.cells[lane]),
+                                   pw[lane], mask[lane], mcfg, mcfg, k, mode,
+                                   thres[lane], sr, cap)
+            for name, v in one.items():
+                assert torch.equal(got[name][lane], v), ("rescue", cap, name,
+                                                         b)
+        if cap < M:
+            assert bool((got["need"].sum(dim=1) > cap).any()), "cap binds"

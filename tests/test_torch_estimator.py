@@ -69,6 +69,15 @@ def _t(tree):
     return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
 
 
+def _lane(tree):
+    """The port's estimator takes a lane axis: a batch of one."""
+    return tree_map(lambda a: a[None], tree)
+
+
+def _unlane(tree):
+    return tree_map(lambda a: a[0], tree)
+
+
 def _close(got, want, rel=REL, name=""):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     np.testing.assert_allclose(got, want,
@@ -86,9 +95,11 @@ def _window():
     init_inputs = []
     orig = tp._try_init
 
-    def spy(state, cfg):
-        init_inputs.append(_np(state))
-        return orig(state, cfg)
+    def spy(state, cfg, attempt):
+        # every step runs the init branch; the attempt flags its lanes
+        if bool(attempt[0]):
+            init_inputs.append(_np(_unlane(state)))
+        return orig(state, cfg, attempt)
 
     tp._try_init = spy
     try:
@@ -136,9 +147,11 @@ def _to_jax_container(tree):
 
 
 def _port_est_args(a):
-    out = {k: _t(v) for k, v in a.items()}
+    """The estimate's inputs for the port, each with a lane axis of 1."""
+    out = {k: _lane(_t(v)) for k, v in a.items()}
     for k in ("vm_corner", "vm_surf", "vm_local_corner", "vm_local_surf"):
-        out[k] = tp.voxelmap.VoxelMap(torch.from_numpy(np.array(a[k].cells)))
+        out[k] = tp.voxelmap.VoxelMap(
+            torch.from_numpy(np.array(a[k].cells))[None])
     return out
 
 
@@ -184,22 +197,25 @@ def test_build_reduced_matches_jax(slot):
                 ja["vm_local_corner"], ja["vm_local_surf"])
     rj, blkj = fj(jnp.asarray(x6), _frame(ja["stacks"], slot),
                   *common_j[:2], *common_j[2:], None)
-    pfs = _frame(pa["stacks"], slot)
+    pfs = type(pa["stacks"])(*(None if v is None else v[:, slot]
+                               for v in pa["stacks"]))
     common_t = dict(vm_local_corner=pa["vm_local_corner"],
                     vm_local_surf=pa["vm_local_surf"])
     rt, blkt = tred.build_reduced(
-        torch.from_numpy(x6), pfs, pa["vm_corner"], pa["vm_surf"], pa["Rbl"],
-        pa["tbl"], CFG, torch.tensor(thres), torch.tensor(wt),
-        torch.tensor(hub), pa["frame_valid"][slot], **common_t)
+        torch.from_numpy(x6)[None], pfs, pa["vm_corner"], pa["vm_surf"],
+        pa["Rbl"], pa["tbl"], CFG, torch.tensor([thres]), torch.tensor([wt]),
+        torch.tensor([hub]), pa["frame_valid"][:, slot], **common_t)
+    rt = _unlane(rt)
     assert int(rt.n_plane) > 50
     _assert_rf(rt, rj)
     rj2, _ = fj(jnp.asarray(x6_moved), _frame(ja["stacks"], slot),
                 *common_j[:2], *common_j[2:], blkj)
     rt2, _ = tred.build_reduced(
-        torch.from_numpy(x6_moved), pfs, pa["vm_corner"], pa["vm_surf"],
-        pa["Rbl"], pa["tbl"], CFG, torch.tensor(thres), torch.tensor(wt),
-        torch.tensor(hub), pa["frame_valid"][slot], cached=blkt, **common_t)
-    _assert_rf(rt2, rj2)
+        torch.from_numpy(x6_moved)[None], pfs, pa["vm_corner"],
+        pa["vm_surf"], pa["Rbl"], pa["tbl"], CFG, torch.tensor([thres]),
+        torch.tensor([wt]), torch.tensor([hub]), pa["frame_valid"][:, slot],
+        cached=blkt, **common_t)
+    _assert_rf(_unlane(rt2), rj2)
     # eval_reduced at a moved pose
     x6m = torch.from_numpy(x6_moved)
     for a_, b_ in zip(tred.eval_reduced(x6m, rt),
@@ -214,7 +230,7 @@ def _solve_inputs():
     # both solvers from here on)
     rfs = a["cached_rfs"]
     st = tp.state_from_numpy(snaps[10]["state"], device="cpu")
-    res = test_.estimate(**_port_est_args(a), cfg=CFG)
+    res = _unlane(test_.estimate(**_port_est_args(a), cfg=CFG))
     return a, _np(res.rfs), rfs, st
 
 
@@ -228,15 +244,17 @@ def test_lm_solve_matches_jax():
         jnp.asarray(args[0]), _to_jax_container(rfs), _jnp(args[2]),
         jnp.asarray(args[3]), _to_jax_container(args[4]),
         jnp.asarray(args[5]), jnp.asarray(args[6]))
-    rt = tsol.lm_solve(*(_t(v) for v in args), CFG, cap)
+    caps = torch.tensor([cap], dtype=torch.int32)
+    rt = _unlane(tsol.lm_solve(*(_lane(_t(v)) for v in args), CFG, caps,
+                               cap))
     x, xj = rt.x.numpy(), np.asarray(rj.x)
     np.testing.assert_allclose(x[:, 0:6], xj[:, 0:6], atol=POSE_ATOL)
     np.testing.assert_allclose(x[:, 6:15], xj[:, 6:15], atol=1e-4)
     assert bool(rt.converged) == bool(rj.converged)
     assert np.abs(x - a["x0"]).max() > 1e-4      # the solve moved the window
     # skip: a no-op that reports converged
-    rs = tsol.lm_solve(*(_t(v) for v in args), CFG, cap,
-                       skip=torch.tensor(True))
+    rs = _unlane(tsol.lm_solve(*(_lane(_t(v)) for v in args), CFG, caps,
+                               cap, skip=torch.tensor([True])))
     assert torch.equal(rs.x, torch.from_numpy(a["x0"])) and bool(rs.converged)
 
 
@@ -253,7 +271,7 @@ def test_marginalize_matches_jax():
              _to_jax_container(args[3]), jnp.asarray(args[4]))
     pe = jsol.marginalize(*jargs, JCFG)
     pj = jax.jit(lambda *z: jsol.marginalize(*z, JCFG))(*jargs)
-    pt = tsol.marginalize(*(_t(v) for v in args), CFG)
+    pt = _unlane(tsol.marginalize(*(_lane(_t(v)) for v in args), CFG))
     assert bool(pt.valid)
     np.testing.assert_array_equal(pt.x0.numpy(), np.asarray(pe.x0))
     He, ge = _info(pe)
@@ -287,7 +305,7 @@ def test_estimate_matches_jax(t):
         "x0", "stacks", "cached_rfs", "vm_corner", "vm_surf", "preint",
         "pair_valid", "prior", "frame_valid", "gravity", "Rbl", "tbl",
         "full_window", "refresh_slot", "vm_local_corner", "vm_local_surf")))
-    rt = test_.estimate(**_port_est_args(a), cfg=CFG)
+    rt = _unlane(test_.estimate(**_port_est_args(a), cfg=CFG))
     x, xj = rt.x.numpy(), np.asarray(rj.x)
     np.testing.assert_allclose(x[:, 0:6], xj[:, 0:6], atol=POSE_ATOL)
     np.testing.assert_allclose(x[:, 6:15], xj[:, 6:15], atol=1e-4)
@@ -325,8 +343,8 @@ def test_initialize_and_refine_gravity_match_jax():
               velocity_bound=CFG.failsafe.init_velocity_bound)
     rj = jinit.initialize(*(_jnp(v) if not isinstance(v, float) else v
                             for v in args), **kw)
-    rt = tinit.initialize(*(_t(v) if not isinstance(v, float) else v
-                            for v in args), **kw)
+    rt = _unlane(tinit.initialize(*(_lane(_t(v)) if not isinstance(v, float)
+                                    else v for v in args), **kw))
     assert bool(rt.ok) and bool(rj.ok)
     for name in ("gravity", "v", "bg", "ba"):
         np.testing.assert_allclose(getattr(rt, name).numpy(),
@@ -337,7 +355,8 @@ def test_initialize_and_refine_gravity_match_jax():
     args = (post.x, post.preint, post.pair_valid, post.gravity)
     gj, vj = jax.jit(lambda x, p, pv, g: jinit.refine_gravity(
         x, p, pv, g, JCFG.imu.gnorm))(*(_jnp(v) for v in args))
-    gt, vt = tinit.refine_gravity(*(_t(v) for v in args), CFG.imu.gnorm)
+    gt, vt = _unlane(tinit.refine_gravity(*(_lane(_t(v)) for v in args),
+                                          CFG.imu.gnorm))
     assert int(post.pair_valid.sum()) >= 2
     np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=1e-4)
     np.testing.assert_allclose(vt.numpy(), np.asarray(vj), atol=1e-4)

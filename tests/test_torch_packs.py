@@ -70,6 +70,7 @@ from mmloam_tpu.ops import voxelmap as jvx  # noqa: E402
 from mmloam_tpu_torch.config import tiny_config  # noqa: E402
 from mmloam_tpu_torch.estimator import factors as tfac  # noqa: E402
 from mmloam_tpu_torch.ops import assoc, map_insert, voxelmap  # noqa: E402
+from mmloam_tpu_torch.tree import tree_map  # noqa: E402
 
 SUM_ATOL = 1e-5
 ATOL = 1e-5
@@ -368,14 +369,15 @@ def _sign_close(got, want, atol):
 
 def _clear(mode, fits):
     """Queries whose serving fit (persistent map, else local map) has an
-    eigenvalue gap above `assoc.GAP_MIN` of its largest eigenvalue."""
+    eigenvalue gap above `assoc.GAP_MIN` of its largest eigenvalue (fits
+    of one lane, with its lane axis)."""
     out = []
     for f in fits:
-        ev = _np(f["evals"])
+        ev = _np(f["evals"][0])
         gap = ev[:, 2] - ev[:, 1] if mode == assoc.LINE \
             else ev[:, 1] - ev[:, 0]
         out.append(gap > assoc.GAP_MIN * np.abs(ev).max(axis=1))
-    return np.where(_np(fits[0]["valid"]), out[0], out[1])
+    return np.where(_np(fits[0]["valid"][0]), out[0], out[1])
 
 
 def _assert_targets(mode, tt_, tj, least, clear):
@@ -409,20 +411,23 @@ def _associate_both(mode, scene, jax_assoc, rescue_frac, least, jit=True):
         jcfg.solver, local_rescue_frac=rescue_frac))
     p_l = np.where(np.isfinite(pw), pw, 0.0).astype(np.float32)
     thres = np.float32(1.0)
-    tvm, tvml = (voxelmap.VoxelMap(torch.from_numpy(c))
-                 for c in (cells, cells_l))
+    # the port's association takes a lane axis: one lane here
+    lane = lambda a: torch.from_numpy(a)[None]
+    tvm, tvml = (voxelmap.VoxelMap(lane(c)) for c in (cells, cells_l))
     jvm, jvml = (jvx.VoxelMap(jnp.asarray(c)) for c in (cells, cells_l))
 
     def port(x6, cached):
-        args = (torch.from_numpy(x6), torch.from_numpy(p_l),
-                torch.from_numpy(mask), tvm, torch.eye(3), torch.zeros(3),
-                cfg, torch.tensor(thres))
+        """The targets of the one lane, and the blocks with their lane
+        axis (the cached entry's input)."""
+        args = (lane(x6), lane(p_l), lane(mask), tvm, torch.eye(3),
+                torch.zeros(3), cfg, torch.tensor([thres]))
         if mode == assoc.LINE:
-            return tfac.associate_lines(*args, vm_local=tvml, cached=cached,
-                                        with_blocks=True)
+            lt, blk = tfac.associate_lines(*args, vm_local=tvml,
+                                           cached=cached, with_blocks=True)
+            return tree_map(lambda a: a[0], lt), blk
         pt, omega, valid, blk = tfac.associate_planes(
             *args, 0.5, vm_local=tvml, cached=cached, with_blocks=True)
-        return (pt, omega, valid), blk
+        return tree_map(lambda a: a[0], (pt, omega, valid)), blk
 
     blk_j = blk_t = None
     for x6 in (np.zeros(6, np.float32), np.full(6, 3e-3, np.float32)):
@@ -430,12 +435,12 @@ def _associate_both(mode, scene, jax_assoc, rescue_frac, least, jit=True):
                                       jnp.asarray(mask), jvm, jvml, thres,
                                       blk_j, jcfg)
         tt_, bt = port(x6, blk_t)
-        pw_t = tfac._world_points(torch.from_numpy(x6), torch.from_numpy(p_l),
-                                  torch.eye(3), torch.zeros(3))
+        pw_t = tfac._world_points(lane(x6), lane(p_l), torch.eye(3),
+                                  torch.zeros(3))
         sr = cfg.solver.plane_scatter_ratio if mode == assoc.PLANE else 0.0
         fits = assoc.rescue_stage_reference(
-            tvm, tvml, pw_t, torch.from_numpy(mask), cfg.map, cfg.local_map,
-            K, mode, torch.tensor(thres), sr, blk_t,
+            tvm, tvml, pw_t, lane(mask), cfg.map, cfg.local_map,
+            K, mode, torch.tensor([thres]), sr, blk_t,
             tfac._rescue_cap(pw.shape[0], rescue_frac))
         clear = _clear(mode, fits)
         assert clear[_np(tt_.valid if mode == assoc.LINE else tt_[2])].mean() \
@@ -590,13 +595,14 @@ def test_dedup_rescue_matches_jax(mode, jax_assoc):
     _associate_both(mode, scene, jax_assoc, 0.5, least)
 
     _, _, cells, cells_l, pw, mask = scene
-    vm, vml = (voxelmap.VoxelMap(torch.from_numpy(c))
+    # one lane, with its lane axis
+    vm, vml = (voxelmap.VoxelMap(torch.from_numpy(c)[None])
                for c in (cells, cells_l))
     q = torch.from_numpy(np.where(np.isfinite(pw), pw, 0.0)
-                         .astype(np.float32))
-    m = torch.from_numpy(mask)
+                         .astype(np.float32))[None]
+    m = torch.from_numpy(mask)[None]
     sr = 0.01 if mode == assoc.PLANE else 0.0
-    thres = torch.tensor(1.0)
+    thres = torch.tensor([1.0])
     cap = tfac._rescue_cap(256, 0.5)
     args = (vm, vml, q, m, cfg.map, cfg.local_map, K, mode, thres, sr, cap)
     ref, _ = assoc.associate_with_rescue_reference(*args)

@@ -146,8 +146,9 @@ def test_two_devices_replay_at_once(runs, monkeypatch):
     replay at the same time: each shard waits at a barrier the other
     shard must reach, so shards run in turn would time out.  Outputs and
     final states equal the unsplit run's bit for bit, and the association
-    counters, taken under the workers' threads, add up to an unsplit
-    run's calls."""
+    counters, taken under the workers' threads, add up to two batched
+    runs' calls: each shard's lockstep step makes the calls of one batch,
+    whatever its lanes."""
     st, outs, _, _ = runs
     barrier = threading.Barrier(2, timeout=120)
     lockstep = replay._replay_lockstep
@@ -172,8 +173,8 @@ def test_two_devices_replay_at_once(runs, monkeypatch):
                                    rtol=0, atol=0, equal_nan=True,
                                    msg=name)
     _assert_trees_equal(replay.gather_states(shards), st)
-    assert c1[0] - c0[0] == c2[0] - c1[0] > 0
-    assert c1[1] - c0[1] == c2[1] - c1[1] > 0
+    assert c1[0] - c0[0] == 2 * (c2[0] - c1[0]) > 0
+    assert c1[1] - c0[1] == 2 * (c2[1] - c1[1]) > 0
 
 
 def test_uneven_split_raises():
