@@ -6,8 +6,9 @@ Phases (any failure ends the run with a non-zero exit code):
 
 0. device check: a CUDA device is required; the card's name and power
    limit are printed as nvidia-smi reports them;
-1. build the hand-written CUDA kernels K1 (csrc/map_insert.cu) and K2
-   (csrc/assoc.cu) with nvcc, one process per source, started together;
+1. build the hand-written CUDA kernels K1 (csrc/map_insert.cu), K2
+   (csrc/assoc.cu) and K3 (csrc/eigh.cu) with nvcc, one process per
+   source, started together;
 1b. the kernels one call launches, from torch.profiler traces that are
    complete (they recorded every launch of ours the wrapper's counter
    saw), on a synthetic room at the main path's shapes: one
@@ -35,15 +36,24 @@ Phases (any failure ends the run with a non-zero exit code):
 4. the main path: `replay_batch` at `LIOConfig()` with B=4 lanes and T=16
    scans of 16x1024 VLP-16 + 6x2048 Horizon input (one
    `pipeline.step_core_batch` over all lanes a scan, as every replaying
-   phase runs it), every lane initialized,
+   phase runs it; on the card the first call runs scan 0 eagerly,
+   captures the lockstep scan as a CUDA graph and replays it for the
+   rest, `replay._ScanGraph`), every lane initialized,
    finite poses, ATE < 0.15 m per lane, surf-map occupancy in
-   (500, n_cells/4), K1 launched exactly 4*T times and K2 for every
-   association call and every rescue (assoc.LAUNCHES == assoc.CALLS +
-   assoc.RESCUE_LAUNCHES, RESCUE_LAUNCHES == CALLS > 0), each call and
-   each launch serving all lanes; then a second, timed run for
-   scans/sec; then B=16 x T=8 (bench.py's batch): finite poses, ATE <
-   0.15 m per lane, K1 4*T launches, and as many K2 launches a lockstep
-   scan as at B=4;
+   (500, n_cells/4), K1 launched exactly 4*T times, K3 2*T, and K2 for
+   every association call and every rescue (assoc.LAUNCHES == assoc.CALLS
+   + assoc.RESCUE_LAUNCHES, RESCUE_LAUNCHES == CALLS > 0), each call and
+   each launch serving all lanes (a replay adds the launches the kernel
+   nodes of the captured graph hold, `ops/graph_kernels.py`); the capture
+   seconds and peak device memory;
+   then a second, timed run (the cached graph) for scans/sec; one
+   replayed scan under torch.profiler (`replayed_scan_trace`: K1 4, K2
+   12 and K3 2 launches by kernel name, the kernels a scan, the busy
+   share); then the eager loop (`replay._replay_eager`) on the same
+   inputs, timed, launching our kernels as often as the graph; then B=16
+   x T=8 (bench.py's batch) through the graph: finite poses, ATE < 0.15
+   m per lane, K1 4*T launches, and as many K2 launches a lockstep scan
+   as at B=4, and its eager loop timed;
 5. K2 and each of its stages against the plain version at flagship shapes
    with the main path's lane axis: every lane of phase 4's final state
    (B=4) in one launch, each lane its own maps (built by K1), its own
@@ -133,32 +143,53 @@ Phases (any failure ends the run with a non-zero exit code):
    through its warp-a-position instance, 2*T through the default one) and K2
    counts as phase 4, the persistent map's calls through the 16-a-lane
    instance and every rescue through the staged one;
-13. the lockstep batch against each lane alone: phase 4's inputs, B=4 x
-   T=12, against each lane replayed at B=1: discrete outputs equal, poses
-   within LANES_POSE_ATOL; the last scan of each run is one
-   `step_core_batch` under torch.cuda.set_sync_debug_mode("error") (any
-   sync raises, boolean-mask indexing and nonzero included) with the
-   marginalization's named eigh syncs (`solver.NAMED_SYNCS`) alone
-   allowed; its K2 launches, the replay's K2 launches a scan and the
-   named syncs the same at B=1 as at B=4.
+13. the lockstep batch against each lane alone and against the eager
+   loop: phase 4's inputs, B=4 x T=12, through the graph, against the
+   eager loop on the same inputs and against each lane replayed at B=1:
+   discrete outputs equal, poses within LANES_POSE_ATOL (whether the
+   graph is bit-equal to the eager loop is logged); the last scan of each
+   run is the scan a graph captures, `step_core_batch` and
+   `apply_inserts_batched`, op by op under
+   torch.cuda.set_sync_debug_mode("error") (any sync raises, boolean-mask
+   indexing and nonzero included); its
+   K2 launches and the replay's K2 launches a scan the same at B=1 as at
+   B=4;
+14. K3 against its plain version (`ops.eigh.jacobi_reference`, the same
+   rotations in float64: eigenvalues within n u ||A||, vectors up to sign
+   within n u ||A|| / gap, u = 2^-24) and torch.linalg.eigh (within
+   8 n u ||A||) on the 15 x 15 Amm and A* the marginalization handed it
+   in the last scan of phase 4's B=4 eager run, and on seeded stress
+   matrices at B=64 and at B=16, the batch of phase 4's wide run
+   (condition numbers to 1e7, clustered, repeated, rank-deficient,
+   indefinite, a non-finite lane, which must come back NaN); times on
+   the B=4 Amm: device (a CUDA graph of 100 launches), launch incl.
+   host, the plain version, torch.linalg.eigh and
+   torch._linalg_eigh, and the bound (bytes and float64 operations, the
+   sweeps this data needs).
 
 Phases 4, 10 and 12 count the launches of each kernel instance
 (`map_insert.INSTANCE_LAUNCHES`, `assoc.INSTANCE_LAUNCHES`, set to 0
 just before the replay and read just after); each checks that its maps
-ran the instances their geometry picks.
+ran the instances their geometry picks.  On the card a replay's launches
+are counted from the kernel nodes of its captured graph, by name
+(`ops/graph_kernels.py`), held at capture against the launches the
+wrappers issued; phase 4 also holds one replayed scan's trace against
+them, by instance.
 
-Before the last line come a JSON object with a row for each kernel
-instance (K1's default, warp-a-position and group instances, K2's
-default, 4-, 8- and 16-a-lane and staged ones): its launches in the replay phases that run
-it, its error and times on its phase 2, 5 or 9 case ("ms" is the launch
-incl. host, "device_ms" the kernel's own; a K2 case is one launch over
-phase 4's four lanes, "bound_ms" that launch's work), and the card's
-name and power
+Every phase starts with the graphs of the last freed
+(`replay.clear_graphs`).  Before the last line come a JSON object with a
+row for each kernel instance (K1's default, warp-a-position and group
+instances, K2's default, 4-, 8- and 16-a-lane and staged ones, K3): its
+launches in the replay phases that run it, its error and times on its
+phase 2, 5, 9 or 14 case ("ms" is the launch incl. host, "device_ms"
+the kernel's own; a K2 or K3 case is one launch over phase 4's four
+lanes, "bound_ms" that launch's work), and the card's name and power
 limit; the last line is
 {"ok": true, "device": {...}}.  Every number also goes to
 chip_smoke_out/chip_smoke.json.
 """
 
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -181,7 +212,7 @@ FAITHFUL_ATE_MAX = 0.5
 # the K2 case whose time stands in the kernels line, and whose stages are
 # timed one by one against their plain cuts
 K2_TIMED_CASE = "surf persistent fresh bf16=1 scatter=0.01"
-KERNEL_SOURCES = ("map_insert.cu", "assoc.cu")
+KERNEL_SOURCES = ("map_insert.cu", "assoc.cu", "eigh.cu")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -569,11 +600,12 @@ def _ate(pose_p, t, gt_R, gt_p):
 
 
 def _reset_counts():
-    """Every launch and call counter of K1 and K2 to 0."""
-    from mmloam_tpu_torch.ops import assoc, map_insert
+    """Every launch and call counter of K1, K2 and K3 to 0."""
+    from mmloam_tpu_torch.ops import assoc, eigh, map_insert
 
     map_insert.reset_counts()
     assoc.reset_counts()
+    eigh.reset_counts()
 
 
 def _instance_counts():
@@ -672,10 +704,115 @@ def fresh_states(cfg, B, dev):
                                 for _ in range(B)])
 
 
+def eager_run(states, scans, cfg):
+    """`replay._replay_eager` (the lockstep loop op by op, no graph) with
+    the Amm and A* that `solver.marginalize` hands K3 in the last scan:
+    (final state, outputs, [Amm (B, 15, 15), A* (B, 15, 15)])."""
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.ops import eigh
+
+    seen = []
+    solve = eigh.eigh
+
+    def spy(As):
+        seen[:] = (seen + [As.clone()])[-2:]
+        return solve(As)
+
+    eigh.eigh = spy
+    try:
+        st, outs = replay._replay_eager(states, scans, cfg)
+    finally:
+        eigh.eigh = solve
+    return st, outs, seen
+
+
+def _counts():
+    from mmloam_tpu_torch.ops import assoc, eigh, map_insert
+
+    return dict(k1=map_insert.LAUNCHES, k2=assoc.LAUNCHES,
+                k2_calls=assoc.CALLS, k3=eigh.LAUNCHES)
+
+
+def replayed_scan_trace(scan, tries=3):
+    """One replay of the cached lockstep-scan graph (the only one cached)
+    under torch.profiler: its kernels by name, ours keyed by kernel,
+    instance and rescue (`graph_kernels.launch_key`) and held against the
+    launches the graph's kernel nodes hold (`_ScanGraph.launches`, what
+    the counters add a replay), and the device busy share over the
+    replay's wall (a synchronize and a host clock around it: the scan's
+    copy in and the graph launch).  Traces again up to `tries` times
+    when a trace lacks some of our launches, then raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.ops import graph_kernels
+
+    (runner,) = replay._GRAPHS.values()
+    want = dict(runner.launches)
+    for _ in range(tries):
+        runner.run(scan)                        # untraced warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.run(scan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = {e.key: (int(e.count), _self_device_us(e))
+                   for e in prof.key_averages()
+                   if "CUDA" in str(getattr(e, "device_type", ""))
+                   and _self_device_us(e) > 0}
+        traced = collections.Counter()
+        for name, (c, _) in kernels.items():
+            key = graph_kernels.launch_key(name)
+            if key is not None:
+                traced[key] += c
+        if dict(traced) == want:
+            break
+    else:
+        raise AssertionError(f"no trace of a replayed scan matches its "
+                             f"graph: it recorded {dict(traced)}, the "
+                             f"graph's kernel nodes {want}")
+    ours = {k: sum(n for key, n in want.items() if key[0] == k)
+            for k in ("k1", "k2", "k3")}
+    if (ours["k1"], ours["k3"]) != (4, 2):
+        raise AssertionError(f"a replayed scan launched {ours}")
+    busy_us = sum(us for _, us in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    return dict(kernels_per_scan=sum(c for c, _ in kernels.values()),
+                ours=ours,
+                by_instance={"/".join(map(str, k)): n
+                             for k, n in sorted(want.items())},
+                wall_s=wall, busy_s=busy_us / 1e6,
+                busy_share=busy_us / 1e6 / wall, kinds=len(kernels),
+                top=[dict(name=k[:120], launches=c, us=us)
+                     for k, (c, us) in top])
+
+
+def _graph_launches():
+    """The launches of our kernels a replay of each cached graph issues,
+    read from its kernel nodes, by kernel, instance and rescue."""
+    from mmloam_tpu_torch import replay
+
+    return [{"/".join(map(str, k)): n
+             for k, n in sorted(r.launches.items())}
+            for r in replay._GRAPHS.values()]
+
+
+def _capture_seconds():
+    """Capture plus instantiation of the cached lockstep-scan graphs."""
+    from mmloam_tpu_torch import replay
+
+    return [r.capture_s for r in replay._GRAPHS.values()]
+
+
 def check_flagship(dev):
+    """Phase 4 (see the module docstring): the graph's first run (scan 0
+    eagerly, the capture, replays), its timed cached run, one replayed
+    scan under the profiler, then the eager loop on the same inputs."""
     from mmloam_tpu_torch import replay
     from mmloam_tpu_torch.config import LIOConfig
-    from mmloam_tpu_torch.ops import assoc, map_insert, voxelmap
+    from mmloam_tpu_torch.ops import map_insert, voxelmap
 
     cfg = LIOConfig()
     B, T = FLAGSHIP_B, FLAGSHIP_T
@@ -683,13 +820,17 @@ def check_flagship(dev):
     states = fresh_states(cfg, B, dev)
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts()
     t0 = time.perf_counter()
     st, outs = replay.replay_batch(states, scans, cfg)
     torch.cuda.synchronize()
     first_secs = time.perf_counter() - t0
+    peak_first = torch.cuda.max_memory_allocated(dev)
+    capture_s = _capture_seconds()
     launches = map_insert.LAUNCHES
     k2_launches = _check_k2_counts("replay_batch")
+    graph_counts = _counts()
     instances = _instance_counts()
     if (instances["k1"]["default"] != launches
             or instances["k2"]["default"] != k2_launches):
@@ -717,32 +858,81 @@ def check_flagship(dev):
             raise AssertionError(f"lane {b} surf occupancy {occ}")
     if not np.isfinite(pose).all():
         raise AssertionError("non-finite poses")
-    if launches != 4 * T:
-        raise AssertionError(f"K1 launched {launches} times, want {4 * T}")
-    log(f"  replay_batch B={B} T={T}: K1 launches {launches}, first run "
-        f"{first_secs:.1f} s")
+    if launches != 4 * T or graph_counts["k3"] != 2 * T:
+        raise AssertionError(f"K1 launched {launches} times, K3 "
+                             f"{graph_counts['k3']}: want {4 * T}, {2 * T}")
+    log(f"  replay_batch B={B} T={T}: K1 launches {launches}, K3 "
+        f"{graph_counts['k3']}, first run {first_secs:.1f} s (capture and "
+        f"instantiation {capture_s[0]:.2f} s), peak device memory "
+        f"{peak_first / 2 ** 30:.3f} GiB")
 
     lanes = _final_lanes(st)
     st = outs = states = None
     states = fresh_states(cfg, B, dev)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     replay.replay_batch(states, scans, cfg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    peak_graph = torch.cuda.max_memory_allocated(dev)
     rate = B * T / secs
-    log(f"  timed run: {secs:.2f} s, {rate:.3f} scans/sec")
-    states = scans = None
+    trace = replayed_scan_trace(tree_first(scans))
+    log(f"  timed run (cached graph): {secs:.2f} s, {rate:.3f} scans/sec, "
+        f"peak device memory {peak_graph / 2 ** 30:.3f} GiB; one replayed "
+        f"scan: {trace['kernels_per_scan']} kernels ({trace['kinds']} "
+        f"kinds; ours {trace['ours']}, by instance as its graph's kernel "
+        f"nodes hold them: {trace['by_instance']}), busy "
+        f"{trace['busy_s'] * 1e3:.2f} "
+        f"ms of {trace['wall_s'] * 1e3:.2f} ms ({trace['busy_share']:.1%})")
+    if trace["ours"]["k2"] * T != k2_launches:
+        raise AssertionError(f"a replayed scan launched K2 "
+                             f"{trace['ours']['k2']} times, the run "
+                             f"{k2_launches / T:g} a scan")
+
+    replay.clear_graphs()
+    torch.cuda.empty_cache()
+    states = fresh_states(cfg, B, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, eager_outs, marg = eager_run(states, scans, cfg)
+    torch.cuda.synchronize()
+    eager_secs = time.perf_counter() - t0
+    peak_eager = torch.cuda.max_memory_allocated(dev)
+    log(f"  eager loop (no graph), same inputs: {eager_secs:.2f} s, "
+        f"{B * T / eager_secs:.3f} scans/sec, peak device memory "
+        f"{peak_eager / 2 ** 30:.3f} GiB; launches {_counts()} (graph "
+        f"run: {graph_counts})")
+    if _counts() != graph_counts:
+        raise AssertionError("the eager loop and the graph launched our "
+                             "kernels a different number of times")
+    states = scans = eager_outs = None
     wide = check_wide_batch(dev, cfg, k2_launches / T)
     return dict(B=B, T=T, launches=launches, k2_launches=k2_launches,
-                instances=instances, first_secs=first_secs, timed_secs=secs,
-                scans_per_sec=rate, lanes=per_lane, wide=wide), lanes
+                k3_launches=graph_counts["k3"], instances=instances,
+                first_secs=first_secs, capture_s=capture_s,
+                timed_secs=secs, scans_per_sec=rate,
+                eager_secs=eager_secs, eager_scans_per_sec=B * T / eager_secs,
+                peak_bytes=dict(first=peak_first, graph=peak_graph,
+                                eager=peak_eager),
+                replayed_scan=trace, lanes=per_lane,
+                wide=wide), lanes, marg
+
+
+def tree_first(scans):
+    """Scan 0 of a stacked ScanInput (T, ...)."""
+    from mmloam_tpu_torch.tree import tree_map
+
+    return tree_map(lambda a: a[0], scans)
 
 
 def check_wide_batch(dev, cfg, k2_per_scan):
     """Phase 4's B=16 x T=8 run: finite poses, ATE < ATE_MAX per lane, K1
     4*T launches, K2 counts as above and as many K2 launches a lockstep
-    scan as at B=4 (`k2_per_scan`): one launch serves every lane."""
+    scan as at B=4 (`k2_per_scan`): one launch serves every lane.  Then
+    the eager loop on the same inputs (its scans/sec)."""
     from mmloam_tpu_torch import replay
     from mmloam_tpu_torch.ops import assoc, map_insert
 
@@ -756,26 +946,37 @@ def check_wide_batch(dev, cfg, k2_per_scan):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     k2 = _check_k2_counts(f"replay_batch B={B}")
+    k1 = map_insert.LAUNCHES
     pose = outs.pose_p.cpu().numpy()
     ts = outs.t.cpu().numpy()
     ates = [_ate(pose[:, b], ts[:, b], *gts[b]) for b in range(B)]
     log(f"  replay_batch B={B} T={T}: {secs:.2f} s, {B * T / secs:.3f} "
-        f"scans/sec, K1 {map_insert.LAUNCHES} launches, K2 {k2 / T:g} a "
-        f"scan (B={FLAGSHIP_B}: {k2_per_scan:g}), worst lane ATE "
-        f"{max(ates):.4f} m")
+        f"scans/sec (the first call: scan 0 eager, the capture "
+        f"{_capture_seconds()[0]:.2f} s), K1 {k1} "
+        f"launches, K2 {k2 / T:g} a scan (B={FLAGSHIP_B}: "
+        f"{k2_per_scan:g}), worst lane ATE {max(ates):.4f} m")
     if not np.isfinite(pose).all():
         raise AssertionError(f"B={B}: non-finite poses")
     if not max(ates) < ATE_MAX:
         raise AssertionError(f"B={B}: a lane's ATE {max(ates)} >= {ATE_MAX}")
-    if map_insert.LAUNCHES != 4 * T:
-        raise AssertionError(f"B={B}: K1 launched {map_insert.LAUNCHES} "
-                             f"times, want {4 * T}")
+    if k1 != 4 * T:
+        raise AssertionError(f"B={B}: K1 launched {k1} times, want {4 * T}")
     if k2 / T != k2_per_scan:
         raise AssertionError(f"B={B}: {k2 / T} K2 launches a scan, "
                              f"{k2_per_scan} at B={FLAGSHIP_B}")
+    st = outs = None
+    replay.clear_graphs()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    replay._replay_eager(fresh_states(cfg, B, dev), scans, cfg)
+    torch.cuda.synchronize()
+    eager_secs = time.perf_counter() - t0
+    log(f"  eager loop B={B} T={T}: {eager_secs:.2f} s, "
+        f"{B * T / eager_secs:.3f} scans/sec")
     return dict(B=B, T=T, secs=secs, scans_per_sec=B * T / secs,
-                k2_per_scan=k2 / T, k1_launches=map_insert.LAUNCHES,
-                ates=ates)
+                eager_secs=eager_secs,
+                eager_scans_per_sec=B * T / eager_secs,
+                k2_per_scan=k2 / T, k1_launches=k1, ates=ates)
 
 
 def _final_lanes(st):
@@ -806,32 +1007,30 @@ def lane_thres(cfg, B, dev):
 # --------------------------------------------------------------------------
 
 def _step_checked(st, sc, cfg):
-    """One `step_core_batch` under torch.cuda.set_sync_debug_mode("error")
-    (a sync raises, boolean-mask indexing and nonzero included; the
-    marginalization's eigh is the named exception, counted in
-    solver.NAMED_SYNCS), then the map inserts.  Returns (state, out, K2
-    launches of the step, named syncs of the step)."""
+    """One lockstep scan as the CUDA graph captures it, op by op:
+    `step_core_batch`, then `apply_inserts_batched`, under
+    torch.cuda.set_sync_debug_mode("error") (a sync raises, boolean-mask
+    indexing and nonzero included).  Returns (state, out, K2 launches of
+    the scan)."""
     from mmloam_tpu_torch import pipeline
-    from mmloam_tpu_torch.estimator import solver
     from mmloam_tpu_torch.ops import assoc
 
     torch.cuda.synchronize()
-    k2, named = assoc.LAUNCHES, solver.NAMED_SYNCS
+    k2 = assoc.LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
         st, out, pend = pipeline.step_core_batch(st, sc, cfg)
+        st = pipeline.apply_inserts_batched(st, pend, cfg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    k2, named = assoc.LAUNCHES - k2, solver.NAMED_SYNCS - named
-    st = pipeline.apply_inserts_batched(st, pend, cfg)
     torch.cuda.synchronize()
-    return st, out, k2, named
+    return st, out, assoc.LAUNCHES - k2
 
 
 def _lanes_run(cfg, states, scans, T):
-    """replay_batch over scans 0 .. T-2, the last scan `_step_checked`.
-    Returns (outputs (T, B, ...), K2 launches of the replay, of the
-    checked step, named syncs of the checked step)."""
+    """replay_batch (the graph) over scans 0 .. T-2, the last scan
+    `_step_checked`.  Returns (outputs (T, B, ...), K2 launches of the
+    replay, of the checked scan)."""
     from mmloam_tpu_torch import replay
     from mmloam_tpu_torch.ops import assoc
     from mmloam_tpu_torch.tree import tree_map
@@ -840,56 +1039,223 @@ def _lanes_run(cfg, states, scans, T):
     st, outs = replay.replay_batch(states, tree_map(lambda a: a[:T - 1],
                                                     scans), cfg)
     k2_replay = assoc.LAUNCHES
-    st, out, k2_step, named = _step_checked(
-        st, tree_map(lambda a: a[T - 1], scans), cfg)
+    st, out, k2_step = _step_checked(st, tree_map(lambda a: a[T - 1], scans),
+                                     cfg)
     outs = tree_map(lambda a, b: torch.cat([a, b[None]]), outs, out)
-    return outs, k2_replay, k2_step, named
+    return outs, k2_replay, k2_step
+
+
+LANES_DISCRETE = ("inited", "fail", "degenerate", "n_corner", "n_surf",
+                  "n_assoc_line", "n_assoc_plane", "fast_rotation",
+                  "hori_merged")
+
+
+def _runs_agree(got, want, b, b_want):
+    """(discrete outputs that differ, max |pose_p| difference, max |pose_q|
+    difference) of lane b of `got` against lane b_want of `want`."""
+    diff = [f for f in LANES_DISCRETE
+            if not torch.equal(getattr(got, f)[:, b],
+                               getattr(want, f)[:, b_want])]
+    err = float((got.pose_p[:, b] - want.pose_p[:, b_want]).abs().max())
+    errq = float((got.pose_q[:, b] - want.pose_q[:, b_want]).abs().max())
+    return diff, err, errq
 
 
 def check_lanes(dev):
     """Phase 13 (see the module docstring)."""
+    from mmloam_tpu_torch import replay
     from mmloam_tpu_torch.config import LIOConfig
     from mmloam_tpu_torch.tree import tree_map
 
     cfg = LIOConfig()
     B, T = FLAGSHIP_B, LANES_T
     scans, gts = flagship_inputs(cfg, B, T, 7, dev)
-    outs, k2_replay, k2_step, named = _lanes_run(
-        cfg, fresh_states(cfg, B, dev), scans, T)
+    outs, k2_replay, k2_step = _lanes_run(cfg, fresh_states(cfg, B, dev),
+                                          scans, T)
     log(f"  B={B}: {k2_replay} K2 launches over {T - 1} scans, the checked "
-        f"scan {k2_step} launches and {named} named syncs, no other sync")
+        f"scan (the step and the map inserts) {k2_step} launches, no sync")
     res = dict(B=B, T=T, k2_per_scan=k2_replay / (T - 1),
-               k2_checked_scan=k2_step, named_syncs=named, lanes=[])
+               k2_checked_scan=k2_step, lanes=[])
     if not outs.inited[-1].all():
         raise AssertionError("phase 13: a lane never initialized")
-    discrete = ("inited", "fail", "degenerate", "n_corner", "n_surf",
-                "n_assoc_line", "n_assoc_plane", "fast_rotation",
-                "hori_merged")
+    replay.clear_graphs()
+    _, eager, _ = eager_run(fresh_states(cfg, B, dev), scans, cfg)
+    errs = [_runs_agree(outs, eager, b, b) for b in range(B)]
+    diff = sorted({f for d, _, _ in errs for f in d})
+    err = max(e for _, e, _ in errs)
+    errq = max(e for _, _, e in errs)
+    bit = all(torch.equal(getattr(outs, f), getattr(eager, f))
+              for f in outs._fields if getattr(outs, f) is not None)
+    log(f"  graph against the eager loop: discrete outputs "
+        f"{'equal' if not diff else 'differ: ' + ', '.join(diff)}, max "
+        f"|pose_p| {err:.3g} m, |pose_q| {errq:.3g}, "
+        f"{'bit-equal' if bit else 'not bit-equal'}")
+    res["graph_vs_eager"] = dict(pose_err=err, quat_err=errq,
+                                 bit_equal=bit)
+    if diff or not (err <= LANES_POSE_ATOL and errq <= LANES_POSE_ATOL):
+        raise AssertionError(f"phase 13: the graph is off the eager loop: "
+                             f"{diff}, {err}, {errq}")
     for b in range(B):
-        o1, k2_1, k2s_1, named_1 = _lanes_run(
+        o1, k2_1, k2s_1 = _lanes_run(
             cfg, fresh_states(cfg, 1, dev),
             tree_map(lambda a: a[:, b:b + 1], scans), T)
-        diff = [f for f in discrete
-                if not torch.equal(getattr(outs, f)[:, b],
-                                   getattr(o1, f)[:, 0])]
-        err = float((outs.pose_p[:, b] - o1.pose_p[:, 0]).abs().max())
-        errq = float((outs.pose_q[:, b] - o1.pose_q[:, 0]).abs().max())
+        diff, err, errq = _runs_agree(outs, o1, b, 0)
         log(f"  lane {b} alone: discrete outputs "
             f"{'equal' if not diff else 'differ: ' + ', '.join(diff)}, "
             f"max |pose_p - batch| {err:.3g} m, |pose_q| {errq:.3g}; K2 "
-            f"{k2_1} over {T - 1} scans, {k2s_1} in the checked scan, "
-            f"{named_1} named syncs")
+            f"{k2_1} over {T - 1} scans, {k2s_1} in the checked scan")
         res["lanes"].append(dict(pose_err=err, quat_err=errq,
-                                 k2_replay=k2_1, k2_step=k2s_1,
-                                 named_syncs=named_1))
+                                 k2_replay=k2_1, k2_step=k2s_1))
         if diff:
             raise AssertionError(f"phase 13 lane {b}: {diff} differ")
         if not (err <= LANES_POSE_ATOL and errq <= LANES_POSE_ATOL):
             raise AssertionError(f"phase 13 lane {b}: pose off the batch's "
                                  f"by {err} / {errq} > {LANES_POSE_ATOL}")
-        if (k2_1, k2s_1, named_1) != (k2_replay, k2_step, named):
-            raise AssertionError(f"phase 13 lane {b}: K2 launches or named "
-                                 f"syncs per scan depend on the lanes")
+        if (k2_1, k2s_1) != (k2_replay, k2_step):
+            raise AssertionError(f"phase 13 lane {b}: K2 launches per scan "
+                                 f"depend on the lanes")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 14: K3 against its plain versions
+# --------------------------------------------------------------------------
+
+# One NVIDIA H100 SXM's float64 rate outside the tensor cores (NVIDIA's
+# data sheet): K3 rotates in float64
+F64_FLOPS = 34e12
+EIGH_TIMED_CASE = "flagship Amm"
+
+
+def eigh_work(A, sweeps):
+    """Bytes and float64 operations of K3 on A (B, n, n) with the sweeps
+    each matrix needs (`jacobi_reference`'s count on the same data): the
+    matrices read once, eigenvalues and vectors written once; a sweep's
+    n(n-1)/2 rotations at 18n + 12 operations each (the rotation, the two
+    rows and two columns of A, two columns of V) and an off(A) check of
+    2n^2 per sweep and one more."""
+    B, n = A.shape[0], A.shape[-1]
+    nbytes = 4 * B * (2 * n * n + n)
+    s = sweeps.to(torch.float64)
+    ops = float((s * (n * (n - 1) / 2) * (18 * n + 12)
+                 + (s + 1) * 2 * n * n).sum())
+    return nbytes, ops
+
+
+def eigh_stress(dev, n=15, B=64, seed=11):
+    """Seeded symmetric matrices: PSD at condition numbers 1 to 1e7,
+    clustered and repeated spectra, rank-deficient and indefinite ones,
+    and one non-finite lane."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(B):
+        Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        kind = b % 5
+        if kind == 0:
+            ev = np.logspace(0, 7 * b / (B - 1), n)
+        elif kind == 1:
+            ev = 1.0 + 1e-6 * rng.normal(size=n)
+        elif kind == 2:
+            ev = np.repeat([1.0, 2.0, 3.0], n // 3 + 1)[:n]
+        elif kind == 3:
+            ev = np.concatenate([np.zeros(n // 3),
+                                 rng.uniform(1, 10, n - n // 3)])
+        else:
+            ev = rng.normal(size=n) * 10.0 ** rng.uniform(-3, 6)
+        out.append((Q * ev) @ Q.T)
+    A = np.stack(out)
+    A = (0.5 * (A + np.swapaxes(A, -1, -2))).astype(np.float32)
+    A[B // 2, 3, 1] = np.nan
+    return torch.from_numpy(A).to(dev)
+
+
+def eigh_errors(w, V, w_ref, V_ref):
+    """Over the finite lanes: (max |w - w_ref| over n u ||A||, the largest
+    eigenvector error up to sign over its bound n u ||A|| / gap where the
+    gap is at least 1e-3 ||A||, max |w - w_ref|), u = 2^-24."""
+    n = w.shape[-1]
+    ok = torch.isfinite(w_ref).all(dim=-1)
+    w, V, w_ref, V_ref = (a[ok].double() for a in (w, V, w_ref, V_ref))
+    nrm = w_ref.abs().amax(dim=-1).clamp(min=1e-30)
+    unit = n * 2.0 ** -24 * nrm
+    ev = float(((w - w_ref).abs().amax(dim=-1) / unit).max())
+    gap = (w_ref[:, :, None] - w_ref[:, None, :]).abs()
+    gap = gap + torch.diag_embed(torch.full_like(w_ref, float("inf")))
+    gap = gap.amin(dim=-1)
+    sign = torch.where((V * V_ref).sum(dim=-2) >= 0, 1.0, -1.0)
+    verr = (V * sign[:, None, :] - V_ref).abs().amax(dim=-2)
+    use = gap >= 1e-3 * nrm[:, None]
+    vec = float(torch.where(use, verr * gap / unit[:, None],
+                            torch.zeros_like(verr)).max())
+    return ev, vec, float((w - w_ref).abs().max())
+
+
+def check_eigh(dev, marg):
+    """Phase 14: K3 against its plain version (`jacobi_reference`, the
+    same rotations: within 1 n u ||A||) and torch.linalg.eigh (an f32
+    solver: within 8 n u ||A||) on the Amm and A* the marginalization
+    handed it in phase 4's last scan (B=4), and on seeded stress
+    matrices at B=64 and at the wide run's B=16; a non-finite lane NaN.
+    Times on the B=4 Amm (one launch, as the main path makes it): device
+    (a CUDA graph of 100 launches), launch incl. host, the plain version,
+    torch.linalg.eigh and torch._linalg_eigh (CUDA events around the
+    call), and the bound."""
+    from mmloam_tpu_torch.ops import eigh
+
+    cases = {"flagship Amm": marg[0], "flagship A*": marg[1],
+             "stress": eigh_stress(dev),
+             f"stress B={WIDE_B}": eigh_stress(dev, B=WIDE_B, seed=12)}
+    res, worst = {}, 0.0
+    for name, A in cases.items():
+        A = A.contiguous()
+        w, V = eigh.eigh(A)
+        torch.cuda.synchronize()
+        wr, Vr, info = eigh.jacobi_reference(A, info=True)
+        ok = torch.isfinite(A).flatten(-2).all(dim=-1)
+        nan_ok = bool(torch.isnan(w[~ok]).all() and torch.isnan(V[~ok]).all())
+        wl, Vl = torch.linalg.eigh(A[ok])
+        plain = eigh_errors(w, V, wr, Vr)
+        lib = eigh_errors(w[ok], V[ok], wl, Vl)
+        r = dict(B=int(A.shape[0]), sweeps=info["sweeps"].tolist(),
+                 plain_eval=plain[0], plain_vec=plain[1],
+                 max_abs_err=plain[2], library_eval=lib[0],
+                 library_vec=lib[1], library_abs_err=lib[2],
+                 bit_equal=torch.equal(w[ok], wr[ok])
+                 and torch.equal(V[ok], Vr[ok]))
+        log(f"  {name} (B={r['B']}, sweeps {min(r['sweeps'])}-"
+            f"{max(r['sweeps'])}): against the plain version eigenvalues "
+            f"{plain[0]:.3g} n u ||A||, vectors {plain[1]:.3g} of their "
+            f"bound, {'bit-equal' if r['bit_equal'] else 'not bit-equal'}; "
+            f"against torch.linalg.eigh {lib[0]:.3g} n u ||A||, vectors "
+            f"{lib[1]:.3g}" + ("" if bool(ok.all()) else
+                               f"; non-finite lane NaN: {nan_ok}"))
+        if not (plain[0] <= 1.0 and plain[1] <= 1.0 and lib[0] <= 8.0
+                and lib[1] <= 8.0 and nan_ok):
+            raise AssertionError(f"phase 14 {name}: K3 outside its bounds")
+        if not name.startswith("stress"):
+            worst = max(worst, plain[2])
+        res[name] = r
+    A = cases[EIGH_TIMED_CASE].contiguous()
+    _, _, info = eigh.jacobi_reference(A, info=True)
+    nbytes, ops = eigh_work(A, info["sweeps"])
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F64_FLOPS * 1e3
+    timing = dict(
+        B=int(A.shape[0]), max_abs_err=worst,
+        device_ms=graph_ms(lambda: eigh.eigh(A)),
+        ms=cuda_ms(lambda: eigh.eigh(A)),
+        plain_ms=cuda_ms(lambda: eigh.jacobi_reference(A), reps=5),
+        library_ms=cuda_ms(lambda: torch.linalg.eigh(A)),
+        private_library_ms=cuda_ms(lambda: torch._linalg_eigh(A)),
+        bytes=nbytes, f64_ops=ops, bound_ms=max(tb, to),
+        bound_by="bytes" if tb >= to else "operations")
+    log(f"  {EIGH_TIMED_CASE} (B={timing['B']}, one launch): device "
+        f"{timing['device_ms'] * 1e3:.2f} us (graph of 100), launch incl. "
+        f"host {timing['ms'] * 1e3:.1f} us, plain {timing['plain_ms']:.2f} "
+        f"ms, torch.linalg.eigh {timing['library_ms'] * 1e3:.1f} us, "
+        f"torch._linalg_eigh {timing['private_library_ms'] * 1e3:.1f} us, "
+        f"bound {timing['bound_ms'] * 1e3:.4f} us ({timing['bound_by']}: "
+        f"{nbytes} B, {ops:.3g} float64 operations)")
+    res["timing"] = timing
     return res
 
 
@@ -1939,7 +2305,9 @@ def check_pack_replay(dev, flag):
     k1 = map_insert.LAUNCHES
     k2 = _check_k2_counts("pack/dedup replay")
     instances = _instance_counts()
-    log(f"  launches by instance: {instances}")
+    graph = _graph_launches()
+    log(f"  launches by instance: {instances}; a replay's, from its "
+        f"graph's kernel nodes: {graph}")
     i1, i2 = instances["k1"], instances["k2"]
     if not (i1["rows"] == i1["groups"] == k1 // 2 and i2["regs8"] > 0
             and i2["regs4"] > 0 and i2["regs8"] + i2["regs4"] == k2):
@@ -1967,8 +2335,8 @@ def check_pack_replay(dev, flag):
     if any(s.vm_surf.cells.shape[-1] != 32 for s in shards):
         raise AssertionError("the persistent map is not at pack (2,2,2)")
     return dict(B=PACK_B, T=PACK_T, shards=len(mesh), secs=secs,
-                k1_launches=k1, k2_launches=k2, instances=instances, ate=ate,
-                phase4_ate=ref)
+                k1_launches=k1, k2_launches=k2, instances=instances,
+                graph_launches=graph, ate=ate, phase4_ate=ref)
 
 
 # --------------------------------------------------------------------------
@@ -2012,6 +2380,7 @@ def check_wide_replay(dev, flag):
     k1 = map_insert.LAUNCHES
     k2 = _check_k2_counts("wide replay")
     instances = _instance_counts()
+    graph = _graph_launches()
     pose = outs.pose_p.cpu().numpy()
     inited = outs.inited.cpu().numpy()
     ts = outs.t.cpu().numpy()
@@ -2021,7 +2390,8 @@ def check_wide_replay(dev, flag):
         f"{k1}, ATE " + ", ".join(f"{a:.4f}" for a in ate) + " m (phase "
         f"4's lanes, default maps, T={FLAGSHIP_T}: "
         + ", ".join(f"{a:.4f}" for a in ref) + f" m), inited "
-        f"{inited[-1].tolist()}; launches by instance {instances}")
+        f"{inited[-1].tolist()}; launches by instance {instances}; a "
+        f"replay's, from its graph's kernel nodes: {graph}")
     if k1 != 4 * PACK_T:
         raise AssertionError(f"K1 launched {k1} times, want {4 * PACK_T}")
     from mmloam_tpu_torch.ops import assoc
@@ -2037,7 +2407,8 @@ def check_wide_replay(dev, flag):
     if st.vm_surf.cells.shape[-1] != 4 * 64:
         raise AssertionError("the persistent map is not at pack (4,4,4)")
     return dict(B=PACK_B, T=PACK_T, secs=secs, k1_launches=k1,
-                k2_launches=k2, instances=instances, ate=ate, phase4_ate=ref)
+                k2_launches=k2, instances=instances, graph_launches=graph,
+                ate=ate, phase4_ate=ref)
 
 
 # --------------------------------------------------------------------------
@@ -2246,6 +2617,25 @@ def kernel_rows(k1_err, k2_err, k1_timing, k2_timing, packs, paths):
     return rows
 
 
+def eigh_row(flag, eig):
+    """K3's row of the kernels line: its launches in phase 4's graph run,
+    its error and times from phase 14 (one launch over phase 4's four
+    lanes' Amm)."""
+    t = eig["timing"]
+    if flag["k3_launches"] == 0:
+        raise AssertionError("eigh launched no time in phase 4")
+    return {"name": "eigh", "route": "cuda",
+            "source": "mmloam_tpu_torch/csrc/eigh.cu",
+            "replaces": "mmloam_tpu/estimator/solver.py:368",
+            "instance": "default", "launches": flag["k3_launches"],
+            "paths": ["phase 4"], "max_abs_err": t["max_abs_err"],
+            "case": EIGH_TIMED_CASE, "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "private_library_ms": t["private_library_ms"], "lanes": t["B"]}
+
+
 def main():
     if sys.argv[1:2] == ["--unsplit"] and len(sys.argv) == 3:
         return unsplit_child(sys.argv[2])
@@ -2256,6 +2646,10 @@ def main():
     t_start = time.perf_counter()
 
     def phase(msg):
+        # each replaying phase captures its own graphs: free the last
+        # phase's (replay.clear_graphs) before the next starts
+        replay.clear_graphs()
+        torch.cuda.empty_cache()
         log(f"{msg} [at {time.perf_counter() - t_start:.0f} s]")
 
     dev = torch.device("cuda", 0)
@@ -2264,11 +2658,12 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    from mmloam_tpu_torch import cuda_build
-    from mmloam_tpu_torch.ops import assoc, map_insert
+    from mmloam_tpu_torch import cuda_build, replay
+    from mmloam_tpu_torch.ops import assoc, eigh, map_insert
 
-    binds = {"map_insert.cu": map_insert._bind, "assoc.cu": assoc._bind}
-    phase("phase 1: build K1 and K2")
+    binds = {"map_insert.cu": map_insert._bind, "assoc.cu": assoc._bind,
+             "eigh.cu": eigh._bind}
+    phase("phase 1: build K1, K2 and K3")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
         futs = {src: ex.submit(cuda_build.build, src)
@@ -2277,7 +2672,7 @@ def main():
             log(f"  built {fut.result()}")
     for src in KERNEL_SOURCES:
         cuda_build.load(src, binds[src])
-    log(f"  both built in {time.perf_counter() - t0:.1f} s")
+    log(f"  all built in {time.perf_counter() - t0:.1f} s")
 
     phase("phase 1b: the kernels of one association and one insert")
     traces = check_traces(dev)
@@ -2289,7 +2684,7 @@ def main():
     check_hall_golden(dev)
 
     phase("phase 4: flagship replay_batch")
-    flag, lanes = check_flagship(dev)
+    flag, lanes, marg = check_flagship(dev)
 
     phase("phase 5: K2 against its plain version at flagship shapes, every "
           "lane of phase 4 in one launch")
@@ -2327,22 +2722,26 @@ def main():
           "replay_batch at full width")
     wide = check_wide_replay(dev, flag)
 
-    phase("phase 13: the lockstep batch against each lane alone; a scan "
-          "under torch.cuda.set_sync_debug_mode('error')")
+    phase("phase 13: the lockstep batch against each lane alone and the "
+          "eager loop; a scan under torch.cuda.set_sync_debug_mode('error')")
     lanes = check_lanes(dev)
+
+    phase("phase 14: K3 against its plain versions")
+    eig = check_eigh(dev, marg)
 
     phase("all phases passed")
     kernels = {"kernels": kernel_rows(
         max_err, k2_err, k1_timing, k2_timing, packs,
         {"phase 4": flag["instances"], "phase 10": pack_replay["instances"],
-         "phase 12": wide["instances"]})}
+         "phase 12": wide["instances"]}) + [eigh_row(flag, eig)]}
     os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chip_smoke_out", "chip_smoke.json"),
               "w") as f:
         json.dump(dict(card=card, traces=traces, k1=k1_timing, k2=k2_timing,
                        flagship=flag, faithful=faithful, recorded=recorded,
                        modes=modes, packs=packs, pack_replay=pack_replay,
-                       split=split, wide=wide, lanes=lanes), f, indent=1)
+                       split=split, wide=wide, lanes=lanes, eigh=eig), f,
+                  indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ for one or more checkouts of the repository on one card, in turns.
         [--out kernel_ab.json]
 
 Each `--tree` is the root of a checkout (an unpacked `git archive` of an
-earlier commit, or `.`).  Each runs in a process of its own, in the order
+earlier commit, or `.`), with `@eager` after it for that tree's eager loop
+(`replay._replay_eager`) in place of its CUDA graph.  Each runs in a
+process of its own, in the order
 given, that imports that tree's `mmloam_tpu_torch` and this tree's
 `chip_smoke.py` helpers, and measures:
 
@@ -17,13 +19,19 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   where the tree has it, and `map_insert.insert_batched`;
 - then on the flagship `replay_batch` (LIOConfig(), B=4 x T=16 unless
   `--batch`/`--scans` say otherwise, inputs as chip_smoke.py phase 4
-  builds them): each lane's ATE (the warm-up run), replay scans/sec (a
-  warm-up run, then `--timed` timed runs, two by default; host clock
-  around work that ends in a synchronize), K1's and K2's launches per
-  lockstep scan (the counters over the first timed run), and, over the
-  last two scans of a further run under torch.profiler, the device busy
-  share (kernel device time over the profiled wall, and over the
-  unprofiled wall of the timed runs) and the host syncs per lockstep scan
+  builds them; on a tree with the CUDA graph, through the graph, and a
+  `--tree TREE@eager` child runs that tree's eager loop,
+  `replay._replay_eager`, instead): each lane's ATE (the warm-up run,
+  which on a graph tree also captures: its capture seconds), replay
+  scans/sec (then `--timed` timed runs, two by default; host clock
+  around work that ends in a synchronize), the peak device memory over
+  the timed runs, K1's and K2's launches per lockstep scan (the counters
+  over the first timed run), on a graph tree one replayed scan under
+  torch.profiler (`chip_smoke.replayed_scan_trace`: kernels, ours by
+  name, busy share), and, over the last two scans of a further run under
+  torch.profiler, the kernels per lockstep scan, the device busy share
+  (kernel device time over the profiled wall, and over the unprofiled
+  wall of the timed runs) and the host syncs per lockstep scan
   (`aten::_local_scalar_dense` events, and those under
   `aten::_linalg_eigh`, the named ones);
 - K2 on lane 0's maps (surf M=2048 fresh with blocks, surf from cached
@@ -35,8 +43,9 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   from this run's inputs); one `associate_planes` / `associate_lines`
   call and `associate_with_rescue` alone, synchronised host clock;
 - where the tree has the batched step, the breakdown of a B x T=12
-  replay (B the replay's lanes) after a warm-up: a synchronize and a host
-  clock around each layer (`BREAKDOWN`);
+  replay (B the replay's lanes) after a warm-up, on the eager loop (a
+  layer inside a graph has no host time of its own): a synchronize and a
+  host clock around each layer (`BREAKDOWN`);
 - K2's lane axis, where the tree has one: one fresh launch (surf, M=2048
   a lane, with blocks) over 4 and 16 lanes (the replay's lanes repeated),
   beside one launch on lane 0 alone;
@@ -56,7 +65,8 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   recorded with the error.
 
 `--only-k1` times K1's cases alone (no census, replay or K2);
-`--replay-only` the replay rows, K2's lane axis and the breakdown alone
+`--replay-only` the replay rows alone, and the breakdown in a child whose
+replay is the eager loop (`@eager`, or a tree without the graph)
 (a B=16 x T=8 call takes about 80 s a run on the parent tree:
 `--replay-only --batch 16 --scans 8 --timed 1`; one sequence alone, as
 `replay.replay` runs it: `--replay-only --batch 1`).
@@ -197,16 +207,51 @@ def _syncs(prof):
     return n, named
 
 
-def _replay(cs, cfg, dev, B=4, T=16, timed=2):
+def _runner(eager):
+    """The tree's replay: `replay_batch` (through the CUDA graph on a tree
+    that has one), or with `eager` the loop op by op (`_replay_eager`;
+    `replay_batch` on a tree without a graph, which is that loop)."""
+    from mmloam_tpu_torch import replay
+
+    if eager:
+        return getattr(replay, "_replay_eager", replay.replay_batch)
+    return replay.replay_batch
+
+
+def _reset_counts():
+    """Every kernel counter the tree has (K1, K2, and K3 where it has
+    one) to 0."""
+    import importlib
+
+    for name in ("map_insert", "assoc", "eigh"):
+        try:
+            mod = importlib.import_module("mmloam_tpu_torch.ops." + name)
+        except ImportError:
+            continue
+        mod.reset_counts()
+
+
+def _clear_graphs():
+    from mmloam_tpu_torch import replay
+
+    if hasattr(replay, "clear_graphs"):
+        replay.clear_graphs()
+
+
+def _replay(cs, cfg, dev, B=4, T=16, timed=2, eager=False):
     import torch
 
     from mmloam_tpu_torch import replay
     from mmloam_tpu_torch.estimator import factors
     from mmloam_tpu_torch.ops import assoc, map_insert
 
+    run = _runner(eager)
+    graphs = getattr(replay, "_GRAPHS", {})
+    loop = "eager" if eager or not hasattr(replay, "_GRAPHS") else "graph"
     scans, gts = cs.flagship_inputs(cfg, B, T, 7, dev)
-    st, outs = replay.replay_batch(cs.fresh_states(cfg, B, dev), scans, cfg)
+    st, outs = run(cs.fresh_states(cfg, B, dev), scans, cfg)
     torch.cuda.synchronize()
+    capture_s = [r.capture_s for r in graphs.values()]
     pose, ts = outs.pose_p.cpu().numpy(), outs.t.cpu().numpy()
     ate = [cs._ate(pose[:, b], ts[:, b], *gts[b]) for b in range(B)]
     lane0 = _lane0(cs, st)
@@ -220,40 +265,51 @@ def _replay(cs, cfg, dev, B=4, T=16, timed=2):
                    st.stacks.surf_mask[:, W - 1].contiguous())
     st = None
     secs, launches = [], None
+    torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(timed):
         states = cs.fresh_states(cfg, B, dev)
         torch.cuda.synchronize()
-        cs._reset_counts()
+        _reset_counts()
         t0 = time.perf_counter()
-        replay.replay_batch(states, scans, cfg)
+        run(states, scans, cfg)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         if launches is None:
             launches = dict(k1_per_scan=map_insert.LAUNCHES / T,
                             k2_per_scan=assoc.LAUNCHES / T,
                             k2_calls_per_scan=assoc.CALLS / T)
+    peak = torch.cuda.max_memory_allocated(dev)
+    states = None
+    replayed = (cs.replayed_scan_trace(cs.tree_first(scans))
+                if loop == "graph" else None)
     cut = lambda lo, hi: type(scans)(*(None if a is None else a[lo:hi]
                                        for a in scans))
-    st, _ = replay.replay_batch(cs.fresh_states(cfg, B, dev), cut(0, T - 2),
-                                cfg)
+    st, _ = run(cs.fresh_states(cfg, B, dev), cut(0, T - 2), cfg)
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        replay.replay_batch(st, cut(T - 2, T), cfg)
+        run(st, cut(T - 2, T), cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = sum(cs._self_device_us(e) for e in prof.key_averages()
-                 if "CUDA" in str(getattr(e, "device_type", "")))
+    dev_events = [e for e in prof.key_averages()
+                  if "CUDA" in str(getattr(e, "device_type", ""))
+                  and cs._self_device_us(e) > 0]
+    dev_us = sum(cs._self_device_us(e) for e in dev_events)
     syncs, named = _syncs(prof)
     lane_scans = B * 2
     per_scan_unprof = min(secs) / (B * T)
+    st = None
+    _clear_graphs()
     return lane0, main_insert, dict(
-        B=B, T=T, ate=ate, timed_secs=secs,
-        scans_per_sec=[B * T / s for s in secs],
+        B=B, T=T, loop=loop,
+        ate=ate, timed_secs=secs,
+        scans_per_sec=[B * T / s for s in secs], capture_s=capture_s,
+        peak_bytes_timed=peak, replayed_scan=replayed,
         busy_window=f"scans {T - 2}-{T - 1}",
+        kernels_per_lockstep_scan=sum(e.count for e in dev_events) / 2,
         device_ms_per_lane_scan=dev_us / 1e3 / lane_scans,
         device_ms_per_lockstep_scan=dev_us / 1e3 / 2,
         busy_share_profiled=dev_us / 1e6 / wall,
@@ -362,9 +418,10 @@ BREAKDOWN = (
 
 def _breakdown(cs, cfg, dev, B=4, T=12):
     """Where a replay's wall goes (trees with `pipeline.step_core_batch`):
-    after a warm-up run, `replay_batch` B x T with a synchronize and a host
-    clock around each layer of BREAKDOWN (seconds and calls; a layer's
-    time includes the layers it calls)."""
+    after a warm-up run, the eager loop (`_runner(eager=True)`: a layer
+    inside a CUDA graph has no host time of its own) B x T with a
+    synchronize and a host clock around each layer of BREAKDOWN (seconds
+    and calls; a layer's time includes the layers it calls)."""
     import importlib
 
     import torch
@@ -373,8 +430,9 @@ def _breakdown(cs, cfg, dev, B=4, T=12):
 
     if not hasattr(pipeline, "step_core_batch"):
         return None
+    loop = _runner(eager=True)
     scans, _ = cs.flagship_inputs(cfg, B, T, 7, dev)
-    replay.replay_batch(cs.fresh_states(cfg, B, dev), scans, cfg)
+    loop(cs.fresh_states(cfg, B, dev), scans, cfg)
     mods = {n: importlib.import_module(p + n) for p, n in (
         ("mmloam_tpu_torch.", "pipeline"), ("mmloam_tpu_torch.ops.",
                                             "features"),
@@ -405,7 +463,7 @@ def _breakdown(cs, cfg, dev, B=4, T=12):
         states = cs.fresh_states(cfg, B, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        replay.replay_batch(states, scans, cfg)
+        loop(states, scans, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -588,6 +646,7 @@ def _general(cs, lane0, cfg, dev):
 
 def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
           timed=2):
+    tree, eager = tree.removesuffix("@eager"), tree.endswith("@eager")
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -599,7 +658,8 @@ def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
     cs = _smoke()
     dev = torch.device("cuda", 0)
     cfg = LIOConfig()
-    res = dict(tree=tree, package=os.path.dirname(mmloam_tpu_torch.__file__),
+    res = dict(tree=tree, eager=eager,
+               package=os.path.dirname(mmloam_tpu_torch.__file__),
                card=cs.card_line(), torch=torch.__version__)
     if only_k1:
         res["k1"] = _k1(cs, cfg, dev, None)
@@ -607,16 +667,16 @@ def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
         print(json.dumps(res), flush=True)
         return
     if replay_only:
-        _, main_insert, res["replay"] = _replay(cs, cfg, dev, batch, scans,
-                                                timed)
-        res["k2_lanes"] = _k2_lanes(cs, cfg, dev, main_insert)
-        res["breakdown"] = _breakdown(cs, cfg, dev, batch)
+        _, _, res["replay"] = _replay(cs, cfg, dev, batch, scans, timed,
+                                      eager)
+        if res["replay"]["loop"] == "eager":
+            res["breakdown"] = _breakdown(cs, cfg, dev, batch)
         print(json.dumps(res), flush=True)
         return
     res["census"], inp = _census(cs, cfg, dev)
     inp = None
     lane0, main_insert, res["replay"] = _replay(cs, cfg, dev, batch, scans,
-                                                timed)
+                                                timed, eager)
     res["k2"], res["assoc_calls"] = _k2(cs, lane0, cfg, dev)
     res["k2_lanes"] = _k2_lanes(cs, cfg, dev, main_insert)
     res["breakdown"] = _breakdown(cs, cfg, dev, batch)

@@ -13,20 +13,12 @@ alone.
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import torch
 
+from ..ops import eigh
 from . import factors, reduced
-
-# device reads the step makes on purpose (PERF.md names them): the error
-# check of `torch.linalg.eigh`, the one eigen-solver torch has, reads its
-# info flags on the host.  `marginalize` makes two a call, one call per
-# lockstep scan for all lanes.  Counted where they happen; a caller under
-# torch.cuda.set_sync_debug_mode sees every other sync.
-NAMED_SYNCS = 0
-_SYNC_LOCK = threading.Lock()
 
 
 class Prior(NamedTuple):
@@ -246,27 +238,17 @@ def lm_solve(x0, rfs, preint, pair_valid, prior, frame_valid,
 
 
 def _eigh(A):
-    """torch.linalg.eigh of symmetric A (..., n, n), fed identity where a
+    """Eigen-decomposition of symmetric A (..., n, n), fed identity where a
     lane's A is not finite (its result is NaN there, as the reference's
     eigh of such a matrix): an eigen-solver that fails to converge raises
     in torch, and the lanes the caller's select drops may hold anything.
-    Its error check reads the device: a named sync (NAMED_SYNCS), allowed
-    under torch.cuda.set_sync_debug_mode."""
-    global NAMED_SYNCS
+    `ops.eigh.eigh` solves: the kernel K3 on the card, which reads nothing
+    back on the host (torch.linalg.eigh reads its error flags there);
+    torch.linalg.eigh on the CPU."""
     ok = torch.isfinite(A).all(dim=-1).all(dim=-1)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     As = torch.where(ok[..., None, None], A, eye.expand(A.shape))
-    mode = torch.cuda.get_sync_debug_mode() if A.is_cuda else 0
-    with _SYNC_LOCK:
-        if A.is_cuda:
-            NAMED_SYNCS += 1
-        if mode:
-            torch.cuda.set_sync_debug_mode(0)
-        try:
-            evals, evecs = torch.linalg.eigh(As)
-        finally:
-            if mode:
-                torch.cuda.set_sync_debug_mode(mode)
+    evals, evecs = eigh.eigh(As)
     nan = float("nan")
     return (torch.where(ok[..., None], evals, nan),
             torch.where(ok[..., None, None], evecs, nan))

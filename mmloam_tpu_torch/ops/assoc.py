@@ -66,7 +66,7 @@ from typing import NamedTuple
 import torch
 
 from .. import lie
-from . import linalg3, voxelmap
+from . import launch_tape, linalg3, voxelmap
 
 _SOURCE = "assoc.cu"
 PLANE, LINE = 0, 1                 # mode numbers of the archived kernel
@@ -98,15 +98,20 @@ LOCAL_CALLS = 0
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(inst=None, **deltas):
+def _count(inst=None, times=1, **deltas):
     """Add `deltas` to the module's counters (and one launch to instance
-    `inst`'s), atomically."""
+    `inst`'s), `times` over, atomically; while this thread captures a CUDA
+    graph, note the update instead (`launch_tape`)."""
+    launch = (None if inst is None
+              else ("k2", inst, bool(deltas.get("RESCUE_LAUNCHES"))))
+    if launch_tape.note(launch, _count, inst, **deltas):
+        return
     with _COUNT_LOCK:
         g = globals()
         for name, d in deltas.items():
-            g[name] += d
+            g[name] += d * times
         if inst is not None:
-            INSTANCE_LAUNCHES[inst] += 1
+            INSTANCE_LAUNCHES[inst] += times
 
 
 def reset_counts():

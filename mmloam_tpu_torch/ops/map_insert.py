@@ -26,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import voxelmap
+from . import launch_tape, voxelmap
 from .downsample import _seg_scan_sum
 
 _META_MOD = voxelmap._META_MOD
@@ -48,13 +48,17 @@ INSTANCE_LAUNCHES = dict.fromkeys(INSTANCES, 0)
 _COUNT_LOCK = threading.Lock()
 
 
-def _count_launch(inst=None):
-    """Count one launch (of instance `inst`, where given), atomically."""
+def _count_launch(inst=None, times=1):
+    """Count one launch (of instance `inst`, where given), `times` over,
+    atomically; while this thread captures a CUDA graph, note it instead
+    (`launch_tape`)."""
     global LAUNCHES
+    if launch_tape.note(("k1", inst, False), _count_launch, inst):
+        return
     with _COUNT_LOCK:
-        LAUNCHES += 1
+        LAUNCHES += times
         if inst is not None:
-            INSTANCE_LAUNCHES[inst] += 1
+            INSTANCE_LAUNCHES[inst] += times
 
 
 def reset_counts():

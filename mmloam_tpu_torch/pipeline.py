@@ -26,10 +26,12 @@ lane (a lane axis of 1 added and dropped).  The translation rules:
   a done flag per lane; a lane stops at its own cap or convergence and
   keeps its carry, so it gets the iterates it would get alone.
 * Nothing reads the device from the host: no `.item()`, no `bool()`,
-  `int()` or `float()` of a device tensor, no boolean-mask indexing.  The
-  one exception is the error check of `torch.linalg.eigh` in the
-  marginalization (`solver.NAMED_SYNCS`, PERF.md).  Constants are built
-  once (`lie.const`).
+  `int()` or `float()` of a device tensor, no boolean-mask indexing, and
+  no library call that checks its result on the host (the
+  marginalization's eigen-decompositions run through the kernel K3,
+  `ops/eigh.py`).  Constants are built once (`lie.const`).  So a scan
+  can be captured as a CUDA graph and replayed (`replay._ScanGraph`, the
+  counterpart of `jax.jit` over `lax.scan`).
 * A branch a lane does not take must neither fail nor write: eigh is fed
   identity where a lane's matrix is not finite, the factorizations are
   the `_ex` kinds with NaN on failure, and the slot writes of the

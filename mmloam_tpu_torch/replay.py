@@ -10,19 +10,41 @@ lane.  With `mesh`, a list of
 devices, `replay_batch` splits the batch as the reference splits it over a
 1-D mesh (`mmloam_tpu/replay.py:176-224`): each device owns whole
 sequences, and no tensor crosses devices during the replay.
+
+On the card a replay runs as the reference's `jax.jit` over `lax.scan`
+runs it, with no host in the loop: the lockstep scan is captured once as
+a CUDA graph (`_ScanGraph`) and replayed for every scan after.  The first
+call for a (config, lanes, device, shapes) runs scan 0 eagerly (which
+builds the kernels and fills the constant caches), captures the scan, and
+replays it for scans 1 .. T-1.  The graph is cached, one a device
+(`_GRAPHS`): a later call with the same config and shapes copies its
+states into the graph's buffers and replays every scan, and a call with
+others replaces it.  A cached graph holds a copy of the batch's state,
+maps included, and its private memory pool (PERF.md measures the graph's
+peak at 1.24-1.30 times the eager loop's); `clear_graphs`, the
+counterpart of `jax.clear_caches`, frees them.  The step reads no device
+value on the host, so nothing in the loop waits for the card.  The
+kernels' launch counters count each replay's launches from the kernel
+nodes of the captured graph (`ops/graph_kernels.py`).  `_replay_eager`
+is the loop without a graph (the counterpart of `jax.disable_jit`): CPU
+tensors take it, and tests and `kernel_ab.py`'s per-layer breakdown call
+it.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import threading
+import time
+import traceback
 
 import numpy as np
 import torch
 
 from . import lie, pipeline
 from .data import synthetic
-from .ops import voxelmap
+from .ops import graph_kernels, launch_tape, voxelmap
 from .tree import tree_map
 
 
@@ -204,6 +226,12 @@ def replay_batch(states, scans, cfg, mesh=None):
     Without `mesh`: see `_replay_lockstep`; returns (final states,
     StepOutput stacked as (T, B, ...)).
 
+    On the card the replay keeps its CUDA graph, one a device, until a
+    call with another config or shapes replaces it or `clear_graphs`
+    frees it: its copy of the batch's state, maps included, and its
+    memory pool stay allocated meanwhile (PERF.md: 1.24-1.30 times the
+    eager loop's peak).
+
     `mesh` is a sequence of devices (torch.device or names), the
     counterpart of the reference's 1-D mesh over the batch axis: the B
     lanes split into len(mesh) contiguous shards (B must divide evenly, as
@@ -261,8 +289,8 @@ def gather_states(shards, device=None):
                     shards[0], *shards[1:])
 
 
-def _replay_lockstep(states, scans, cfg):
-    """Replay a BATCH of sequences in lockstep on one device.
+def _replay_eager(states, scans, cfg):
+    """Replay a BATCH of sequences in lockstep on one device, op by op.
 
     states: LIOState with a leading batch axis B; scans: ScanInput laid out
     (T, B, ...).  For each scan, ONE `step_core_batch` over all lanes (the
@@ -280,6 +308,184 @@ def _replay_lockstep(states, scans, cfg):
         states = pipeline.apply_inserts_batched(states, pend, cfg)
         outs.append(out)
     return states, _stack_outputs(outs)
+
+
+# the captured lockstep scan of each device (`_ScanGraph.key`: the config,
+# state and scan shapes it was captured for); a call with another key
+# replaces it, and `clear_graphs` frees them.  Torch allows one capture at
+# a time in a process, so the workers of a split replay capture in turn.
+_GRAPHS = {}
+_GRAPHS_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
+
+
+def clear_graphs():
+    """Free every cached lockstep-scan graph with its buffers (the
+    counterpart of `jax.clear_caches`): their memory goes back to torch's
+    caching allocator."""
+    with _GRAPHS_LOCK:
+        _GRAPHS.clear()
+
+
+def _signature(tree):
+    """The structure, shapes and dtypes of a tree, hashable."""
+    return repr(tree_map(lambda a: (tuple(a.shape), a.dtype), tree))
+
+
+def _leaves(tree):
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _assign(dst, src):
+    """Copy tree `src` into the buffers of tree `dst` leaf by leaf (a leaf
+    that is its own buffer is skipped).  A leaf of `src` that shares
+    memory with any buffer of `dst` (a view the step passed on) is cloned
+    first, so no copy reads a buffer another copy has written."""
+    owned = {a.untyped_storage().data_ptr() for a in _leaves(dst)}
+    pairs = []
+
+    def collect(d, s):
+        if s is d:
+            return
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"a state leaf changed from {tuple(d.shape)} "
+                             f"{d.dtype} to {tuple(s.shape)} {s.dtype}")
+        if s.untyped_storage().data_ptr() in owned:
+            s = s.clone()
+        pairs.append((d, s))
+
+    tree_map(collect, dst, src)
+    for d, s in pairs:
+        d.copy_(s)
+
+
+def _capture_site(exc):
+    """The op whose capture failed, as "file:line (code)": the innermost
+    frame of this package in the traceback of the first error of `exc`'s
+    chain (an op that breaks a capture raises; ending the capture then
+    raises again)."""
+    while exc.__context__ is not None:
+        exc = exc.__context__
+    site = "an unknown op"
+    for fr in traceback.extract_tb(exc.__traceback__):
+        if "mmloam_tpu_torch" in fr.filename:
+            site = (f"{fr.filename.split('mmloam_tpu_torch')[-1][1:]}:"
+                    f"{fr.lineno} ({fr.line})")
+    return site
+
+
+class _ScanGraph:
+    """One lockstep scan captured as a CUDA graph on static buffers: on
+    the static state and scan, `step_core_batch`, then
+    `apply_inserts_batched` (the maps in place), then the new state copied
+    into the static state.  `run(scan)` copies a scan in, replays, and
+    returns the static step outputs (overwritten by the next run).
+    Capture raises, naming the op, where the scan cannot be captured.
+
+    Counts: under the capture the kernel wrappers launch nothing and count
+    nothing (`launch_tape`).  `launches`, the launches of our kernels a
+    replay issues, is read from the graph's kernel nodes
+    (`graph_kernels.launches`) and held against the launches the wrappers
+    noted; every run adds it to the counters, and plays the noted call
+    counts."""
+
+    def __init__(self, key, state, scan, cfg):
+        self.key = key
+        self.state = state
+        self.scan = tree_map(lambda a: a.clone(), scan)
+        self.lock = threading.Lock()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        stream = torch.cuda.Stream(state.x.device)
+        tape = []
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            try:
+                with launch_tape.recording(tape), torch.cuda.graph(
+                        self.graph, stream=stream,
+                        capture_error_mode="thread_local"):
+                    new, self.out, pend = pipeline.step_core_batch(
+                        self.state, self.scan, cfg)
+                    new = pipeline.apply_inserts_batched(new, pend, cfg)
+                    _assign(self.state, new)
+            except RuntimeError as e:
+                raise RuntimeError(f"the lockstep scan did not capture at "
+                                   f"{_capture_site(e)}: {e}") from e
+            capture_s = time.perf_counter() - t0
+        raw = self.graph.raw_cuda_graph()
+        self.launches = graph_kernels.launches(raw)
+        if self.launches != launch_tape.launches(tape):
+            unnamed = graph_kernels.kernel_names(raw)[graph_kernels.UNNAMED]
+            raise RuntimeError(
+                f"the captured scan holds the kernel nodes "
+                f"{dict(self.launches)} of ours ({unnamed} kernel nodes "
+                f"unnamed), its wrappers issued "
+                f"{dict(launch_tape.launches(tape))}")
+        self.tape = tape
+        t0 = time.perf_counter()
+        self.graph.instantiate()
+        # capture plus instantiation, the node census left out
+        self.capture_s = capture_s + time.perf_counter() - t0
+
+    def run(self, scan):
+        _assign(self.scan, scan)
+        self.graph.replay()
+        graph_kernels.count(self.launches)
+        launch_tape.play(self.tape)
+        return self.out
+
+
+def _replay_graph(states, scans, cfg):
+    """`_replay_eager` on the card through the cached graph of the
+    lockstep scan (see the module docstring); the caller's `states` are
+    left as they were, and the returned state owns its memory."""
+    dev = states.x.device
+    scans = tree_map(lambda a: torch.as_tensor(a, device=dev), scans)
+    T = scans.pts.shape[0]
+    at = lambda t: tree_map(lambda a: a[t], scans)
+    key = (cfg, _signature(states), _signature(at(0)))
+    with _GRAPHS_LOCK:
+        runner = _GRAPHS.get(dev)
+        if runner is not None and runner.key != key:
+            del _GRAPHS[dev]           # freed before the new capture
+            runner = None
+    first = 0
+    if runner is None:
+        # scan 0 eagerly on the graph's buffers-to-be: it builds every
+        # kernel and constant the capture then finds ready
+        state = tree_map(lambda a: a.clone(), states)
+        new, out0, pend = pipeline.step_core_batch(state, at(0), cfg)
+        _assign(state, pipeline.apply_inserts_batched(new, pend, cfg))
+        runner = _ScanGraph(key, state, at(0), cfg)
+        with _GRAPHS_LOCK:
+            _GRAPHS[dev] = runner
+        first = 1
+    with runner.lock:
+        if first == 0:
+            _assign(runner.state, states)
+            out0 = runner.run(at(0))
+        outs = tree_map(lambda a: torch.empty((T,) + tuple(a.shape),
+                                              dtype=a.dtype, device=dev),
+                        out0)
+        tree_map(lambda o, a: o[0].copy_(a), outs, out0)
+        for t in range(1, T):
+            out = runner.run(at(t))
+            tree_map(lambda o, a: o[t].copy_(a), outs, out)
+        final = tree_map(lambda a: a.clone(), runner.state)
+    return final, outs
+
+
+def _replay_lockstep(states, scans, cfg):
+    """Replay a BATCH of sequences in lockstep on one device: through the
+    cached CUDA graph of the lockstep scan on the card (`_replay_graph`;
+    the caller's states are left as they were), op by op on the CPU
+    (`_replay_eager`: the maps of `states` are updated in place).  states:
+    LIOState with a leading batch axis B; scans: ScanInput laid out (T, B,
+    ...).  Returns (final states, StepOutput stacked as (T, B, ...))."""
+    if states.x.is_cuda:
+        return _replay_graph(states, scans, cfg)
+    return _replay_eager(states, scans, cfg)
 
 
 def ate_rmse(est_q, est_p, gt_R, gt_p):

@@ -18,8 +18,8 @@ lanes, held against each lane run alone.
   not, and under `dedup_gather`.
 * No host sync: `torch.profiler` over one `step_core_batch` finds no
   device read (`aten::_local_scalar_dense`, `aten::item`) but the named
-  ones, one a `torch.linalg.eigh` call (solver.NAMED_SYNCS: its error
-  check), as many at B=3 as at B=1.  Boolean-mask indexing and `nonzero` do not show here; the card
+  ones, one a `torch.linalg.eigh` call (its error check; on the card the
+  kernel K3 solves instead and reads nothing), as many at B=3 as at B=1.  Boolean-mask indexing and `nonzero` do not show here; the card
   checks them (chip_smoke.py phase 13).
 """
 

@@ -28,7 +28,13 @@ device memory), and `dedup_gather` with a capacity that holds every row
 and one that overflows, the rescue pair included; the default window under
 dedup launches K2's default instance.  A split replay over the
 card and the CPU runs two workers at once, each shard equal to its unsplit
-replay, and the kernel counters hold the card's shard alone.
+replay, and the kernel counters hold the card's shard alone.  K3
+(csrc/eigh.cu) is held against its plain version (`jacobi_reference`,
+within n u ||A||) and torch.linalg.eigh (within 8 n u ||A||) at n = 2 to
+32; the replay's CUDA graph against the eager loop on
+tests/test_torch_batch.py's diverging lanes (discrete outputs equal, poses
+within 1e-5, the same launches), and two cached replays in a row with
+other states.
 """
 
 import dataclasses
@@ -740,3 +746,200 @@ def test_assoc_lane_axis_on_card(geom, mode):
                                                          b)
         if cap < M:
             assert bool((got["need"].sum(dim=1) > cap).any()), "cap binds"
+
+
+# --------------------------------------------------------------------------
+# K3 (csrc/eigh.cu) and the lockstep scan as a CUDA graph
+# --------------------------------------------------------------------------
+
+def _eigh_inputs(n, B, seed):
+    """B symmetric n x n matrices: PSD at condition numbers up to 1e7,
+    indefinite ones, and a rank-deficient one."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(B):
+        Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        if b % 3 == 0:
+            ev = np.logspace(0, 7 * b / max(B - 1, 1), n)
+        elif b % 3 == 1:
+            ev = rng.normal(size=n)
+        else:
+            ev = np.concatenate([np.zeros(n // 3), rng.uniform(1, 5,
+                                                               n - n // 3)])
+        out.append((Q * ev) @ Q.T)
+    A = np.stack(out)
+    return (0.5 * (A + np.swapaxes(A, -1, -2))).astype(np.float32)
+
+
+def _eigh_close(w, V, w_ref, V_ref, c):
+    """Eigenvalues within c n u ||A|| of the reference's, eigenvectors up
+    to sign within that over the gap where the gap is 1e-3 ||A|| or more
+    (u = 2^-24)."""
+    n = w.shape[-1]
+    for b in range(w.shape[0]):
+        nrm = max(float(w_ref[b].abs().max()), 1e-30)
+        tol = c * n * 2.0 ** -24 * nrm
+        assert float((w[b] - w_ref[b]).abs().max()) <= tol, b
+        for k in range(n):
+            others = torch.cat([w_ref[b, :k], w_ref[b, k + 1:]])
+            gap = float((others - w_ref[b, k]).abs().min()) if n > 1 \
+                else float("inf")
+            if gap < 1e-3 * nrm:
+                continue
+            v, r = V[b][:, k], V_ref[b][:, k]
+            sign = 1.0 if float(v @ r) >= 0.0 else -1.0
+            assert float((sign * v - r).abs().max()) <= tol / gap, (b, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(15, 4), (15, 16), (2, 3), (3, 5), (16, 7),
+                                 (31, 3), (32, 9)])
+def test_eigh_kernel_matches_plain_versions_on_card(n, B):
+    """K3 against `jacobi_reference` on the card (the same rotations:
+    eigenvalues within n u ||A||, vectors up to sign) and against
+    torch.linalg.eigh (an f32 solver: 8 n u ||A||); a non-finite lane
+    gives NaN and leaves the others as they are alone; one launch."""
+    from mmloam_tpu_torch.ops import eigh
+
+    dev = _device()
+    A = torch.from_numpy(_eigh_inputs(n, B, seed=n + B)).to(dev)
+    n0 = eigh.LAUNCHES
+    w, V = eigh.eigh(A)
+    torch.cuda.synchronize()
+    assert eigh.LAUNCHES - n0 == 1
+    assert w.dtype == V.dtype == torch.float32 and w.is_cuda
+    wr, Vr = eigh.jacobi_reference(A)
+    _eigh_close(w, V, wr, Vr, 1.0)
+    wl, Vl = torch.linalg.eigh(A)
+    _eigh_close(w, V, wl, Vl, 8.0)
+    assert bool((w[:, 1:] >= w[:, :-1]).all())
+    bad = A.clone()
+    bad[B // 2, n - 1, 0] = float("nan")
+    wb, Vb = eigh.eigh(bad)
+    assert bool(torch.isnan(wb[B // 2]).all() and torch.isnan(Vb[B // 2])
+                .all())
+    keep = [b for b in range(B) if b != B // 2]
+    assert torch.equal(wb[keep], w[keep]) and torch.equal(Vb[keep], V[keep])
+
+
+def _graph_lanes(dev):
+    """tests/test_torch_batch.py's diverging B=3 lanes (tiny_config; one
+    initializes late, one starts mid-sequence), on the card."""
+    import test_torch_batch as tb
+
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.tree import tree_map
+
+    states, scans = tb._lanes()
+    to = lambda t: tree_map(lambda a: a.to(dev), t)
+    return tb.CFG, (lambda: to(replay.stack_states(tb._fresh(states)))), \
+        to(replay.stack_sequences(scans))
+
+
+def _counts():
+    from mmloam_tpu_torch.ops import eigh
+
+    return (map_insert.LAUNCHES, assoc.LAUNCHES, assoc.CALLS, eigh.LAUNCHES)
+
+
+def _same_run(got, want, what):
+    """Discrete outputs equal, poses within 1e-5 (chip_smoke's
+    LANES_POSE_ATOL: cuBLAS may pick other algorithms on the capture
+    stream)."""
+    for f in ("inited", "fail", "degenerate", "n_corner", "n_surf",
+              "n_assoc_line", "n_assoc_plane", "fast_rotation",
+              "hori_merged"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), (what, f)
+    for f in ("pose_p", "pose_q"):
+        err = float((getattr(got, f) - getattr(want, f)).abs().max())
+        assert err <= 1e-5, (what, f, err)
+
+
+@pytest.mark.cuda
+def test_graph_replay_matches_eager_loop_on_card():
+    """`replay_batch` on the card captures the lockstep scan and replays
+    it; it agrees with the eager loop on the diverging lanes, issues the
+    same kernel launches (the counters tick per replay), and leaves the
+    caller's states as they were."""
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.tree import tree_map
+
+    dev = _device()
+    replay.clear_graphs()
+    cfg, states, scans = _graph_lanes(dev)
+    T = scans.pts.shape[0]
+    c0 = _counts()
+    _, eager = replay._replay_eager(states(), scans, cfg)
+    torch.cuda.synchronize()
+    c1 = _counts()
+    given = states()
+    before = tree_map(torch.clone, given)
+    final, graph = replay.replay_batch(given, scans, cfg)
+    torch.cuda.synchronize()
+    c2 = _counts()
+    assert len(replay._GRAPHS) == 1
+    _same_run(graph, eager, "graph vs eager")
+    assert tuple(b - a for a, b in zip(c0, c1)) == \
+        tuple(b - a for a, b in zip(c1, c2))
+    assert c2[0] - c1[0] == 4 * T and c2[3] - c1[3] == 2 * T
+    for a, b in zip(replay._leaves(given), replay._leaves(before)):
+        assert torch.equal(a, b)
+    cache = {a.untyped_storage().data_ptr()
+             for r in replay._GRAPHS.values() for a in replay._leaves(r.state)}
+    assert not any(a.untyped_storage().data_ptr() in cache
+                   for a in replay._leaves(final))
+    replay.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_cached_graph_replays_other_states_on_card():
+    """Two cached replays in a row with other states (the lanes in two
+    other orders): each agrees with the eager loop on its own states, and
+    the first call's returned state is untouched by the later ones."""
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.tree import tree_map
+
+    dev = _device()
+    replay.clear_graphs()
+    cfg, states, scans = _graph_lanes(dev)
+    first, _ = replay.replay_batch(states(), scans, cfg)
+    kept = tree_map(torch.clone, first)
+    for perm in ([2, 0, 1], [1, 2, 0]):
+        sts = tree_map(lambda a: a[perm].contiguous(), states())
+        scs = tree_map(lambda a: a[:, perm].contiguous(), scans)
+        _, want = replay._replay_eager(tree_map(torch.clone, sts), scs, cfg)
+        _, got = replay.replay_batch(sts, scs, cfg)
+        torch.cuda.synchronize()
+        assert len(replay._GRAPHS) == 1
+        _same_run(got, want, f"cached graph vs eager, lanes {perm}")
+    for a, b in zip(replay._leaves(first), replay._leaves(kept)):
+        assert torch.equal(a, b)
+    replay.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_new_key_replaces_the_cached_graph_on_card():
+    """A call with other shapes (two lanes of the three) replaces the
+    cached graph and frees it: one graph a device.  The new graph agrees
+    with the eager loop."""
+    import gc
+    import weakref
+
+    from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.tree import tree_map
+
+    dev = _device()
+    replay.clear_graphs()
+    cfg, states, scans = _graph_lanes(dev)
+    replay.replay_batch(states(), scans, cfg)
+    (first,) = replay._GRAPHS.values()
+    gone, first = weakref.ref(first), None
+    sts = tree_map(lambda a: a[:2].contiguous(), states())
+    scs = tree_map(lambda a: a[:, :2].contiguous(), scans)
+    _, want = replay._replay_eager(tree_map(torch.clone, sts), scs, cfg)
+    _, got = replay.replay_batch(sts, scs, cfg)
+    torch.cuda.synchronize()
+    gc.collect()
+    assert len(replay._GRAPHS) == 1 and gone() is None
+    _same_run(got, want, "the new key's graph vs eager")
+    replay.clear_graphs()
