@@ -165,7 +165,8 @@ Phases (any failure ends the run with a non-zero exit code):
    the B=4 Amm: device (a CUDA graph of 100 launches), launch incl.
    host, the plain version, torch.linalg.eigh and
    torch._linalg_eigh, and the bound (bytes and float64 operations, the
-   sweeps this data needs).
+   sweeps this data needs); device time, rounds run and time a round on
+   the B=4 Amm and both stress sets.
 
 Phases 4, 10 and 12 count the launches of each kernel instance
 (`map_insert.INSTANCE_LAUNCHES`, `assoc.INSTANCE_LAUNCHES`, set to 0
@@ -738,7 +739,8 @@ def replayed_scan_trace(scan, tries=3):
     under torch.profiler: its kernels by name, ours keyed by kernel,
     instance and rescue (`graph_kernels.launch_key`) and held against the
     launches the graph's kernel nodes hold (`_ScanGraph.launches`, what
-    the counters add a replay), and the device busy share over the
+    the counters add a replay), our kernels' device µs by kernel, and the
+    device busy share over the
     replay's wall (a synchronize and a host clock around it: the scan's
     copy in and the graph launch).  Traces again up to `tries` times
     when a trace lacks some of our launches, then raises."""
@@ -778,9 +780,14 @@ def replayed_scan_trace(scan, tries=3):
     if (ours["k1"], ours["k3"]) != (4, 2):
         raise AssertionError(f"a replayed scan launched {ours}")
     busy_us = sum(us for _, us in kernels.values())
+    ours_us = collections.Counter()
+    for name, (_, us) in kernels.items():
+        key = graph_kernels.launch_key(name)
+        if key is not None:
+            ours_us[key[0]] += us
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
     return dict(kernels_per_scan=sum(c for c, _ in kernels.values()),
-                ours=ours,
+                ours=ours, ours_us=dict(ours_us),
                 by_instance={"/".join(map(str, k)): n
                              for k, n in sorted(want.items())},
                 wall_s=wall, busy_s=busy_us / 1e6,
@@ -882,8 +889,8 @@ def check_flagship(dev):
         f"peak device memory {peak_graph / 2 ** 30:.3f} GiB; one replayed "
         f"scan: {trace['kernels_per_scan']} kernels ({trace['kinds']} "
         f"kinds; ours {trace['ours']}, by instance as its graph's kernel "
-        f"nodes hold them: {trace['by_instance']}), busy "
-        f"{trace['busy_s'] * 1e3:.2f} "
+        f"nodes hold them: {trace['by_instance']}; their device us "
+        f"{trace['ours_us']}), busy {trace['busy_s'] * 1e3:.2f} "
         f"ms of {trace['wall_s'] * 1e3:.2f} ms ({trace['busy_share']:.1%})")
     if trace["ours"]["k2"] * T != k2_launches:
         raise AssertionError(f"a replayed scan launched K2 "
@@ -1190,6 +1197,23 @@ def eigh_errors(w, V, w_ref, V_ref):
     return ev, vec, float((w - w_ref).abs().max())
 
 
+def eigh_round_time(A):
+    """K3's device time on A (B, n, n) (a CUDA graph of 100 launches), the
+    rounds its slowest matrix runs (`jacobi_reference`'s sweeps times n'
+    - 1, n' = n + n % 2: the blocks run side by side, so the launch lasts
+    as long as its slowest matrix) and the time a round."""
+    from mmloam_tpu_torch.ops import eigh
+
+    A = A.contiguous()
+    n = A.shape[-1]
+    _, _, info = eigh.jacobi_reference(A, info=True)
+    sweeps = int(info["sweeps"].max())
+    rounds = sweeps * (n + n % 2 - 1)
+    us = graph_ms(lambda: eigh.eigh(A)) * 1e3
+    return dict(B=int(A.shape[0]), device_us=us, sweeps=sweeps,
+                rounds=rounds, us_per_round=us / max(rounds, 1))
+
+
 def check_eigh(dev, marg):
     """Phase 14: K3 against its plain version (`jacobi_reference`, the
     same rotations: within 1 n u ||A||) and torch.linalg.eigh (an f32
@@ -1235,6 +1259,12 @@ def check_eigh(dev, marg):
         if not name.startswith("stress"):
             worst = max(worst, plain[2])
         res[name] = r
+    res["per_round"] = {name: eigh_round_time(cases[name]) for name in (
+        EIGH_TIMED_CASE, "stress", f"stress B={WIDE_B}")}
+    for name, t in res["per_round"].items():
+        log(f"  {name} (B={t['B']}): device {t['device_us']:.2f} us (graph "
+            f"of 100), {t['rounds']} rounds ({t['sweeps']} sweeps of the "
+            f"slowest matrix), {t['us_per_round']:.3f} us a round")
     A = cases[EIGH_TIMED_CASE].contiguous()
     _, _, info = eigh.jacobi_reference(A, info=True)
     nbytes, ops = eigh_work(A, info["sweeps"])

@@ -1,4 +1,4 @@
-"""Time the port's two kernels, and what the main path pays around them,
+"""Time the port's kernels, and what the main path pays around them,
 for one or more checkouts of the repository on one card, in turns.
 
     python3 kernel_ab.py --tree PARENT --tree . --tree . --tree PARENT \\
@@ -65,6 +65,14 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   recorded with the error.
 
 `--only-k1` times K1's cases alone (no census, replay or K2);
+`--only-k3` times K3 alone, on phase 4's final Amm and A* (B=4, the
+last scan of the eager B=4 x T=16 run, as chip_smoke.check_eigh takes
+them: the first child saves them under chip_smoke_out/, and every later
+child of the call decomposes the same matrices) and on chip_smoke's
+stress sets at B=16 and B=64: device µs (a CUDA graph of 100 launches),
+the slowest matrix's sweeps, rounds and µs a round
+(`chip_smoke.eigh_round_time`), and bit-equality with the tree's
+`jacobi_reference` on the finite lanes;
 `--replay-only` the replay rows alone, and the breakdown in a child whose
 replay is the eager loop (`@eager`, or a tree without the graph)
 (a B=16 x T=8 call takes about 80 s a run on the parent tree:
@@ -644,8 +652,44 @@ def _general(cs, lane0, cfg, dev):
     return out
 
 
+K3_INPUTS = os.path.join(HERE, "chip_smoke_out", "kernel_ab_k3_inputs.pt")
+
+
+def _k3(cs, cfg, dev, inputs=K3_INPUTS):
+    """K3's cases (`--only-k3` in the module docstring)."""
+    import torch
+
+    from mmloam_tpu_torch.ops import eigh
+
+    if os.path.exists(inputs):
+        marg = torch.load(inputs).to(dev)
+    else:
+        scans, _ = cs.flagship_inputs(cfg, cs.FLAGSHIP_B, cs.FLAGSHIP_T, 7,
+                                      dev)
+        _, _, seen = cs.eager_run(cs.fresh_states(cfg, cs.FLAGSHIP_B, dev),
+                                  scans, cfg)
+        marg = torch.stack(seen)
+        os.makedirs(os.path.dirname(inputs), exist_ok=True)
+        torch.save(marg.cpu(), inputs)
+    sets = {"flagship Amm": marg[0], "flagship A*": marg[1],
+            "stress B=16": cs.eigh_stress(dev, B=16, seed=12),
+            "stress B=64": cs.eigh_stress(dev)}
+    out = {}
+    for name, A in sets.items():
+        A = A.contiguous()
+        r = cs.eigh_round_time(A)
+        w, V = eigh.eigh(A)
+        wr, Vr = eigh.jacobi_reference(A)
+        ok = torch.isfinite(A).flatten(-2).all(dim=-1)
+        r["bit_equal"] = (torch.equal(w[ok], wr[ok])
+                          and torch.equal(V[ok], Vr[ok]))
+        r["max_abs_err"] = float((w[ok] - wr[ok]).abs().max())
+        out[name] = r
+    return out
+
+
 def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
-          timed=2):
+          timed=2, only_k3=False):
     tree, eager = tree.removesuffix("@eager"), tree.endswith("@eager")
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -661,6 +705,10 @@ def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
     res = dict(tree=tree, eager=eager,
                package=os.path.dirname(mmloam_tpu_torch.__file__),
                card=cs.card_line(), torch=torch.__version__)
+    if only_k3:
+        res["k3"] = _k3(cs, cfg, dev)
+        print(json.dumps(res), flush=True)
+        return
     if only_k1:
         res["k1"] = _k1(cs, cfg, dev, None)
         res["general"] = _general(cs, None, cfg, dev)
@@ -692,6 +740,9 @@ def main():
     ap.add_argument("--only-k1", action="store_true",
                     help="time K1 alone: its B=16 and B=4 cases and its "
                     "general instances, each beside the others")
+    ap.add_argument("--only-k3", action="store_true",
+                    help="time K3 alone: phase 4's Amm and A* and the "
+                    "stress sets at B=16 and B=64")
     ap.add_argument("--replay-only", action="store_true",
                     help="the replay rows alone")
     ap.add_argument("--batch", type=int, default=4, help="replay lanes")
@@ -701,8 +752,10 @@ def main():
     a = ap.parse_args()
     if a.child:
         child(a.tree[0], a.only_k1, a.replay_only, a.batch, a.scans,
-              a.timed)
+              a.timed, a.only_k3)
         return 0
+    if a.only_k3 and os.path.exists(K3_INPUTS):
+        os.remove(K3_INPUTS)        # this call's first child makes them
     results, rc = [], 0
     for tree in a.tree:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -710,6 +763,7 @@ def main():
                             "--batch", str(a.batch), "--scans", str(a.scans),
                             "--timed", str(a.timed)]
                            + ["--only-k1"] * a.only_k1
+                           + ["--only-k3"] * a.only_k3
                            + ["--replay-only"] * a.replay_only,
                            capture_output=True, text=True, timeout=1800)
         sys.stderr.write(p.stderr[-4000:])

@@ -1,5 +1,5 @@
-"""Batched symmetric eigen-solver (kernel K3): cyclic Jacobi, one warp a
-matrix.
+"""Batched symmetric eigen-solver (kernel K3): cyclic Jacobi, one thread
+block a matrix.
 
 The marginalization (`estimator.solver.marginalize`) takes the eigen-
 decomposition of two 15 x 15 symmetric matrices a lane every lockstep
@@ -11,7 +11,9 @@ tensors (counted in LAUNCHES; raises if the kernel cannot be built or
 launched) and takes `torch.linalg.eigh` on CPU tensors, so the estimator's
 results on the CPU are those of torch's solver.  `jacobi_reference` is the
 plain version of the kernel: its rotations in its order, which the tests
-and chip_smoke.py hold the kernel against.
+and chip_smoke.py hold the kernel against.  `schedule` (a sweep's pairs,
+built from `pairs`) and `lookahead` (where each next pair's entries lie)
+are the tables the kernel is given.
 
 The algorithm, the same in the kernel and `jacobi_reference`, in float64
 (the f32 input converts exactly; results round to f32 at the end): the
@@ -41,14 +43,17 @@ prior's size (tests/test_torch_eigh.py holds the prior); in float64 the
 eigen-decomposition is exact to f32 rounding, and the card's float64
 rate does not bound a kernel of a few hundred dependent steps.
 
-The kernel and the plain version round every operation alike (no fused
-multiply-add: `cuda_build.NVCC_FLAGS` has -fmad=false); they may differ in
-off(A)'s summation order, and so stop a sweep apart when off(A) lands
-within rounding of the threshold.
+The kernel and the plain version on the card round every operation alike
+(no fused multiply-add: `cuda_build.NVCC_FLAGS` has -fmad=false; both take
+correctly rounded float64 square roots, which torch's CPU build need not:
+there the plain version's bits may differ); they may differ in off(A)'s
+summation order, and so stop a sweep apart when off(A) lands within
+rounding of the threshold.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
@@ -57,7 +62,7 @@ from .. import lie
 from . import launch_tape
 
 _SOURCE = "eigh.cu"
-MAX_N = 32                 # one warp a matrix, a lane a row or column
+MAX_N = 32                 # a warp's lanes hold a round's 16 rotations
 MAX_SWEEPS = 15
 TOL = 2.0 ** -46           # off(A) <= TOL ||A||_F (float64) ends the sweeps
 
@@ -103,6 +108,63 @@ def pairs(n):
                 qs.append(q)
         rounds.append((ps, qs))
     return rounds
+
+
+def schedule(n):
+    """The kernel's table of a sweep for an n x n matrix: (n' - 1, n'/2, 2)
+    uint8 (n' = n + n % 2), pair k of round r as (p, q), p < q: round r's
+    pairs of `pairs(n)` in order, after the bye (odd n) as (i, n), i the
+    index the round leaves out."""
+    m = n + n % 2
+    out = []
+    for ps, qs in pairs(n):
+        row = list(zip(ps, qs))
+        if n % 2:
+            (i,) = set(range(n)) - set(ps) - set(qs)
+            row.insert(0, (i, n))
+        out.append(row)
+    return torch.tensor(out, dtype=torch.uint8).reshape(m - 1, m // 2, 2)
+
+
+def lookahead(n):
+    """The kernel's look-ahead records, (n' - 1, n'/2) int64 holding one
+    32-bit word each: for round r and pair j of the next round (round 0
+    after the last), where that pair (p, q) finds its a_pp, a_qq and a_pq
+    in round r's output.  p lies in round r's pair kp = {p0, p1}, p = p0,
+    and q in pair kq = {q0, q1}, q = q0 (`schedule`'s pairs with the
+    sought index first).  Bits 0-4 p0, 5-9 p1, 10-14 q0, 15-19 q1, 20-23
+    kp, 24-27 kq; bit 28: p is kp's second index (its s enters negated),
+    29: likewise q in kq, 30: the next round's pair j is a bye, 31: a_pq
+    is zeroed (kp = kq)."""
+    tab = schedule(n).tolist()
+    rounds, half = len(tab), len(tab[0])
+    out = []
+    for r in range(rounds):
+        slot = {i: (k, pos) for k in range(half)
+                for pos, i in enumerate(tab[r][k])}
+        row = []
+        for p, q in tab[(r + 1) % rounds]:
+            (kp, ap), (kq, aq) = slot[p], slot[q]
+            p0, p1 = tab[r][kp][ap], tab[r][kp][1 - ap]
+            q0, q1 = tab[r][kq][aq], tab[r][kq][1 - aq]
+            row.append(p0 | p1 << 5 | q0 << 10 | q1 << 15 | kp << 20
+                       | kq << 24 | ap << 28 | aq << 29 | (q >= n) << 30
+                       | (kp == kq and ap != aq) << 31)
+        out.append(row)
+    return torch.tensor(out, dtype=torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule_arg(n):
+    """`schedule(n)`'s bytes then `lookahead(n)`'s little-endian words,
+    as a ctypes byte array (kept alive by the cache)."""
+    import ctypes
+    import struct
+
+    words = lookahead(n).flatten().tolist()
+    raw = bytes(schedule(n).flatten().tolist()) + struct.pack(
+        f"<{len(words)}I", *words)
+    return (ctypes.c_uint8 * len(raw)).from_buffer_copy(raw)
 
 
 def _rotation(app, aqq, apq):
@@ -197,7 +259,7 @@ def _bind(lib):
 
     p = ctypes.c_void_p
     lib.eigh_launch.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_double, p]
+                                ctypes.c_int, ctypes.c_double, p, p]
     lib.eigh_launch.restype = ctypes.c_int
 
 
@@ -217,8 +279,11 @@ def eigh(A):
     B = a.shape[0]
     w = torch.empty((B, n), dtype=A.dtype, device=A.device)
     v = torch.empty((B, n, n), dtype=A.dtype, device=A.device)
+    import ctypes
+
     fn = cuda_build.load(_SOURCE, _bind).eigh_launch
-    args = (a.data_ptr(), w.data_ptr(), v.data_ptr(), B, n, MAX_SWEEPS, TOL)
+    args = (a.data_ptr(), w.data_ptr(), v.data_ptr(), B, n, MAX_SWEEPS, TOL,
+            ctypes.addressof(_schedule_arg(n)))
     dev = A.device
     if dev.index is None or dev.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)

@@ -30,8 +30,9 @@ dedup launches K2's default instance.  A split replay over the
 card and the CPU runs two workers at once, each shard equal to its unsplit
 replay, and the kernel counters hold the card's shard alone.  K3
 (csrc/eigh.cu) is held against its plain version (`jacobi_reference`,
-within n u ||A||) and torch.linalg.eigh (within 8 n u ||A||) at n = 2 to
-32; the replay's CUDA graph against the eager loop on
+within n u ||A||; whether it is bit-equal is printed) and torch.linalg.eigh
+(within 8 n u ||A||) at n = 2 to 32, at more matrices than the card has
+SMs, and on stress matrices (0-9 sweeps); the replay's CUDA graph against the eager loop on
 tests/test_torch_batch.py's diverging lanes (discrete outputs equal, poses
 within 1e-5, the same launches), and two cached replays in a row with
 other states.
@@ -771,6 +772,32 @@ def _eigh_inputs(n, B, seed):
     return (0.5 * (A + np.swapaxes(A, -1, -2))).astype(np.float32)
 
 
+def _eigh_stress(n, B, seed):
+    """B symmetric n x n matrices of chip_smoke.eigh_stress's kinds: PSD
+    at condition numbers up to 1e7, clustered and repeated spectra,
+    rank-deficient ones, indefinite ones over nine decades; lane 1 is
+    diagonal (no sweep)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(B):
+        Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        kind = b % 5
+        if kind == 0:
+            ev = np.logspace(0, 7 * b / (B - 1), n)
+        elif kind == 1:
+            ev = 1.0 + 1e-6 * rng.normal(size=n)
+        elif kind == 2:
+            ev = np.repeat([1.0, 2.0, 3.0], n // 3 + 1)[:n]
+        elif kind == 3:
+            ev = np.concatenate([np.zeros(n // 3),
+                                 rng.uniform(1, 10, n - n // 3)])
+        else:
+            ev = rng.normal(size=n) * 10.0 ** rng.uniform(-3, 6)
+        out.append(np.diag(ev) if b == 1 else (Q * ev) @ Q.T)
+    A = np.stack(out)
+    return (0.5 * (A + np.swapaxes(A, -1, -2))).astype(np.float32)
+
+
 def _eigh_close(w, V, w_ref, V_ref, c):
     """Eigenvalues within c n u ||A|| of the reference's, eigenvectors up
     to sign within that over the gap where the gap is 1e-3 ||A|| or more
@@ -792,23 +819,35 @@ def _eigh_close(w, V, w_ref, V_ref, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,B", [(15, 4), (15, 16), (2, 3), (3, 5), (16, 7),
-                                 (31, 3), (32, 9)])
-def test_eigh_kernel_matches_plain_versions_on_card(n, B):
+@pytest.mark.parametrize("n,B,stress", [
+    pytest.param(n, B, False, id=f"{n}-{B}") for n, B in (
+        (15, 4), (15, 16), (2, 3), (3, 5), (16, 7), (31, 3), (32, 9),
+        (15, 200))] + [pytest.param(15, 64, True, id="15-64-stress")])
+def test_eigh_kernel_matches_plain_versions_on_card(n, B, stress):
     """K3 against `jacobi_reference` on the card (the same rotations:
-    eigenvalues within n u ||A||, vectors up to sign) and against
-    torch.linalg.eigh (an f32 solver: 8 n u ||A||); a non-finite lane
-    gives NaN and leaves the others as they are alone; one launch."""
+    eigenvalues within n u ||A||, vectors up to sign; it prints whether
+    they are bit-equal: the two sum off(A) in other orders, so they may
+    stop a sweep apart) and against torch.linalg.eigh (an f32 solver: 8 n
+    u ||A||); a non-finite lane gives NaN and leaves the others as they
+    are alone; one launch, one block a matrix (B=200 is more than the
+    card's SMs)."""
     from mmloam_tpu_torch.ops import eigh
 
     dev = _device()
-    A = torch.from_numpy(_eigh_inputs(n, B, seed=n + B)).to(dev)
+    make = _eigh_stress if stress else _eigh_inputs
+    A = torch.from_numpy(make(n, B, seed=n + B)).to(dev)
     n0 = eigh.LAUNCHES
     w, V = eigh.eigh(A)
     torch.cuda.synchronize()
     assert eigh.LAUNCHES - n0 == 1
     assert w.dtype == V.dtype == torch.float32 and w.is_cuda
-    wr, Vr = eigh.jacobi_reference(A)
+    wr, Vr, info = eigh.jacobi_reference(A, info=True)
+    sweeps = info["sweeps"]
+    print(f"K3 n={n} B={B}: sweeps {int(sweeps.min())}-"
+          f"{int(sweeps.max())}, bit-equal to jacobi_reference: "
+          f"{torch.equal(w, wr) and torch.equal(V, Vr)}")
+    if stress:
+        assert int(sweeps.min()) == 0 and int(sweeps.max()) >= 5
     _eigh_close(w, V, wr, Vr, 1.0)
     wl, Vl = torch.linalg.eigh(A)
     _eigh_close(w, V, wl, Vl, 8.0)

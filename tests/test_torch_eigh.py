@@ -25,6 +25,19 @@ solver's error is O(n u ||A||)):
 * `marginalize` through `jacobi_reference` gives the prior's J^T J and
   J^T r within test_torch_estimator.test_marginalize_matches_jax's own
   bound against JAX.
+
+The kernel's design is held here in its algebra: a NumPy float64
+emulation of its rounds (`_kernel_emulation`: a thread a 2 x 2 block of
+A, rows then columns, A double-buffered, V a 2 x 2 block of columns,
+each pair's rotation computed a round ahead from the entries it needs,
+the pairs from `eigh.schedule` and the entries from `eigh.lookahead`,
+the tables the kernel is given) is bit-equal to `jacobi_reference` at
+n = 2 to 32:
+eigenvalues, eigenvectors and sweeps.  Its stop test sums off(A) as the
+plain version does (the kernel's own sum may stop a sweep apart, as
+ops/eigh.py says), and its square roots are torch's, as the plain
+version's on the CPU (torch's CPU float64 sqrt is not always correctly
+rounded; NumPy's and the card's are).
 """
 
 import functools
@@ -247,3 +260,187 @@ def test_marginalize_through_jacobi_matches_jax(monkeypatch):
         bound = 2.0 * spread + 1e-3 * max(np.abs(want).max(), 1.0)
         assert np.abs(got - want).max() <= bound, (
             np.abs(got - want).max(), spread)
+
+
+def _block_entry(x00, x01, x10, x11, a, b, rK, rL, diag, cK, sK, cL, sL):
+    """Entry (a, b) of 2 x 2 blocks after a round, elementwise: rows by
+    (cK, sK) where rK, then columns by (cL, sL) where rL; 0 off the
+    diagonal where diag (the owners' update in csrc/eigh.cu)."""
+    y0 = np.where(a == 1, x10, x00)
+    y1 = np.where(a == 1, x11, x01)
+    y0, y1 = (np.where(rK, np.where(a == 1, sK * x00 + cK * x10,
+                                    cK * x00 - sK * x10), y0),
+              np.where(rK, np.where(a == 1, sK * x01 + cK * x11,
+                                    cK * x01 - sK * x11), y1))
+    z = np.where(rL, np.where(b == 1, sL * y0 + cL * y1, cL * y0 - sL * y1),
+                 np.where(b == 1, y1, y0))
+    return np.where(diag & (a != b), 0.0, z)
+
+
+def _entry00(x00, x01, x10, x11, cK, sK, cL, sL):
+    """Entry (0, 0) of 2 x 2 blocks after a round, elementwise: rows by
+    (cK, sK), then columns by (cL, sL) (csrc/eigh.cu's entry00; a bye's
+    rotation is (1, 0) and its pad row and column 0)."""
+    y0 = cK * x00 - sK * x10
+    y1 = cK * x01 - sK * x11
+    return cL * y0 - sL * y1
+
+
+def _kernel_emulation(A32):
+    """K3's rounds on one symmetric n x n f32 matrix (its lower triangle),
+    in NumPy float64: (w, V as f32, sweeps).  Each pair's rotation of
+    round r + 1 is computed in round r from round r's A and rotations (the
+    kernel's look-ahead: the three entries it needs, as their blocks'
+    owners compute them, each pair listed with the sought index first and
+    its s negated where that index is the pair's second; a bye as the
+    rotation (1, 0) on a pad row and column of zeros), and must equal the
+    rotation of round r + 1's A.
+    Each 2 x 2 block (k, l) rotates A's entries {p_k, q_k} x {p_l, q_l} by
+    pair k across the rows, then by pair l across the columns (a bye, q =
+    n, is the identity; a diagonal block zeroes a_pq, a_qp), and V's
+    entries {p_l, q_l} x {p_k, q_k} by pair k; the round reads one copy of
+    A and writes another, in which every real entry is written once."""
+    n = A32.shape[-1]
+    m, half = n + n % 2, (n + n % 2) // 2
+    tab = eigh.schedule(n).numpy().astype(np.int64)
+    ahead = eigh.lookahead(n).numpy()
+    low = np.tril(A32).astype(np.float64)
+    A = np.zeros((m, m))
+    A[:n, :n] = low + np.tril(low, -1).T
+    V = np.zeros((m, m))
+    V[:n, :n] = np.eye(n)
+    eye = np.eye(n, dtype=bool)
+    sumsq = lambda M: float(eigh._sumsq(torch.from_numpy(M)[None])[0])
+    thr = eigh.TOL * eigh.TOL * sumsq(A[:n, :n])
+    K, L = np.meshgrid(np.arange(half), np.arange(half), indexing="ij")
+    # square roots as the plain version takes them on the CPU: this
+    # torch's float64 sqrt is not always correctly rounded (the card's is)
+    sqrt = lambda x: torch.sqrt(torch.from_numpy(np.asarray(x))).numpy()
+
+    def rotation(app, aqq, apq, real):
+        with np.errstate(all="ignore"):
+            theta = (aqq - app) / (2.0 * apq)
+            u = 1.0 / (np.abs(theta) + sqrt(theta * theta + 1.0))
+            t = np.where(theta < 0.0, -u, u)
+            c = 1.0 / sqrt(t * t + 1.0)
+            s = t * c
+        zero = (apq == 0.0) | ~real
+        return np.where(zero, 1.0, c), np.where(zero, 0.0, s)
+
+    def direct(r):
+        p, q = tab[r, :, 0], tab[r, :, 1]
+        return rotation(A[p, p], A[q, q], A[p, q], q < n)
+
+    c, s = direct(0)
+    sweeps = 0
+    for _ in range(eigh.MAX_SWEEPS):
+        if sumsq(np.where(eye, 0.0, A[:n, :n])) <= thr:
+            break
+        sweeps += 1
+        for r in range(m - 1):
+            rn = (r + 1) % (m - 1)
+            p, q = tab[r, :, 0], tab[r, :, 1]
+            # the look-ahead: round rn's pair j = (p', q') in round r's
+            # pairs kp = {p0, p1} and kq = {q0, q1}, listed p' and q'
+            # first (s negated where p' or q' is its pair's second), as
+            # `eigh.lookahead` records it for the kernel
+            h = ahead[r]
+            p0, p1, q0, q1 = (h >> b & 31 for b in (0, 5, 10, 15))
+            kp, kq, ap, aq = h >> 20 & 15, h >> 24 & 15, h >> 28 & 1, \
+                h >> 29 & 1
+            assert ((h >> 30 & 1) == (tab[rn, :, 1] >= n)).all()
+            assert (tab[r, kp, ap] == p0).all() and (tab[r, kq, aq] == q0
+                                                     ).all()
+            assert (p0 == tab[rn, :, 0]).all() and (q0 == tab[rn, :, 1]
+                                                    ).all()
+            sp = np.where(ap == 1, -s[kp], s[kp])
+            sq = np.where(aq == 1, -s[kq], s[kq])
+            app = _entry00(A[p0, p0], A[p0, p1], A[p1, p0], A[p1, p1],
+                           c[kp], sp, c[kp], sp)
+            aqq = _entry00(A[q0, q0], A[q0, q1], A[q1, q0], A[q1, q1],
+                           c[kq], sq, c[kq], sq)
+            apq = np.where(h >> 31 & 1, 0.0, _entry00(
+                A[p0, q0], A[p0, q1], A[p1, q0], A[p1, q1], c[kp], sp,
+                c[kq], sq))
+            c_next, s_next = rotation(app, aqq, apq, tab[rn, :, 1] < n)
+            # the round: each block's owner
+            pk, qk, pl, ql = p[K], q[K], p[L], q[L]
+            rk, rl = qk < n, ql < n
+            ck, sk, cl, sl = c[K], s[K], c[L], s[L]
+            x = (A[pk, pl], A[pk, ql], A[qk, pl], A[qk, ql])
+            diag = (K == L) & rk
+            An = np.zeros((m, m))
+            written = []
+            for a, b, rows, cols, use in (
+                    (0, 0, pk, pl, np.ones_like(rk)), (0, 1, pk, ql, rl),
+                    (1, 0, qk, pl, rk), (1, 1, qk, ql, rk & rl)):
+                z = _block_entry(*x, np.full_like(K, a), np.full_like(K, b),
+                                 rk, rl, diag, ck, sk, cl, sl)
+                An[rows[use], cols[use]] = z[use]
+                written += list(zip(rows[use], cols[use]))
+            assert sorted(written) == [(i, j) for i in range(n)
+                                       for j in range(n)], (n, r)
+            v00, v01, v10, v11 = V[pl, pk], V[pl, qk], V[ql, pk], V[ql, qk]
+            for rows, cols, val, use in (
+                    (pl, pk, ck * v00 - sk * v01, rk),
+                    (pl, qk, sk * v00 + ck * v01, rk),
+                    (ql, pk, ck * v10 - sk * v11, rk & rl),
+                    (ql, qk, sk * v10 + ck * v11, rk & rl)):
+                V[rows[use], cols[use]] = val[use]
+            A = An
+            c, s = c_next, s_next
+            cd, sd = direct(rn)
+            assert np.array_equal(c, cd) and np.array_equal(s, sd), (n, r)
+    d = np.diagonal(A)[:n]
+    order = np.argsort(d, kind="stable")
+    return (d[order].astype(np.float32),
+            V[:n, :n][:, order].astype(np.float32), sweeps)
+
+
+def test_schedule_is_the_plain_versions_rounds():
+    """The kernel's table holds `pairs(n)` round by round, a bye (odd n)
+    first as (i, n) with the index the round leaves out: each round pairs
+    every index once, and a sweep every index pair once."""
+    for n in range(1, eigh.MAX_N + 1):
+        m = n + n % 2
+        tab = eigh.schedule(n)
+        assert tab.dtype == torch.uint8 and tuple(tab.shape) == (
+            m - 1, m // 2, 2), n
+        seen = []
+        for r, (ps, qs) in enumerate(eigh.pairs(n)):
+            row = [tuple(pq) for pq in tab[r].tolist()]
+            assert sorted(i for pq in row for i in pq) == list(range(m)), n
+            assert all(p < q <= n for p, q in row), n
+            real = [pq for pq in row if pq[1] < n]
+            assert real == list(zip(ps, qs)), (n, r)
+            assert len(row) - len(real) == n % 2 and (n % 2 == 0
+                                                       or row[0][1] == n)
+            seen += real
+        assert sorted(seen) == [(p, q) for p in range(n)
+                                for q in range(p + 1, n)], n
+
+
+@pytest.mark.parametrize("kind", ["psd cond 1e7", "indefinite",
+                                  "clustered"])
+def test_kernel_rounds_bit_equal_to_reference(kind):
+    """The emulation of K3's rounds against `jacobi_reference`, bit for
+    bit, at n = 2 to 32: eigenvalues, eigenvectors, sweeps."""
+    rng = np.random.default_rng({"psd cond 1e7": 5, "indefinite": 6,
+                                 "clustered": 7}[kind])
+    sweeps = set()
+    for n in range(2, eigh.MAX_N + 1):
+        if kind == "psd cond 1e7":
+            A = _psd(rng, n, 1e7)
+        elif kind == "indefinite":
+            A = rng.normal(size=(n, n)) * 10.0 ** rng.uniform(-3, 6)
+        else:
+            A = _spectrum(rng, 1.0 + 1e-6 * rng.normal(size=n))
+        A = _sym32(A)
+        w, V, s = _kernel_emulation(A)
+        wr, Vr, info = eigh.jacobi_reference(torch.from_numpy(A[None]),
+                                             info=True)
+        assert s == int(info["sweeps"][0]), (kind, n)
+        assert np.array_equal(w, wr[0].numpy()), (kind, n)
+        assert np.array_equal(V, Vr[0].numpy()), (kind, n)
+        sweeps.add(s)
+    assert max(sweeps) >= 5, sweeps
