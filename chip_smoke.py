@@ -7,14 +7,21 @@ Phases (any failure ends the run with a non-zero exit code):
 0. device check: a CUDA device is required; the card's name and power
    limit are printed as nvidia-smi reports them;
 1. build the hand-written CUDA kernels K1 (csrc/map_insert.cu), K2
-   (csrc/assoc.cu) and K3 (csrc/eigh.cu) with nvcc, one process per
-   source, started together;
+   (csrc/assoc.cu) and K3 (csrc/eigh.cu), and the IF-node helper
+   (csrc/branch.cu), with nvcc, one process per source, started
+   together;
 1b. the kernels one call launches, from torch.profiler traces that are
    complete (they recorded every launch of ours the wrapper's counter
    saw), on a synthetic room at the main path's shapes: one
    `associate_with_rescue` (surf, M=2048) launches its two K2 kernels, at
    most one memset and nothing else; one `insert_batched` (B=4, N=2048)
    launches K1 once, besides the addressing, the sort and the gathers;
+1c. CUDA-graph IF nodes (`branch.py`) nest, capture and replay with
+   this card's torch and driver: a small program of one-lane branches
+   (two-way and identity conds, a loop nested in a cond, a cuBLAS
+   product and a sort in bodies) captured once and replayed at all 12
+   combinations of its predicates, bit-equal to op by op, its nodes
+   nested as the program nests them and each node's flag its predicate;
 2. K1 against its plain PyTorch version on the card, at the flagship
    persistent-map (131,072 superrows, B=16, N=2048) and local-map
    (36,864 superrows, N=512) shapes: two consecutive inserts whose second
@@ -28,7 +35,8 @@ Phases (any failure ends the run with a non-zero exit code):
    (CUDA events around the wrapper's launch, median of 20 after warm-up),
    `insert_batched`, the plain version, and the bound (the insert's own
    bytes: points and mask read, touched rows read and written);
-3. the port's `replay` on `tiny_config()` over the 25-scan hall sequence
+3. the port's `replay` (the one-lane step, its graph with IF nodes) on
+   `tiny_config()` over the 25-scan hall sequence
    against tests/golden/hall_25.npz (inited/fail exactly; pose within
    GOLDEN_POSE_ATOL and ATE within GOLDEN_ATE_SLACK of the golden's, the
    bounds tests/test_torch_pipeline.py states and justifies), with every
@@ -168,7 +176,25 @@ Phases (any failure ends the run with a non-zero exit code):
    sweeps this data needs); device time, rounds run and time a round on
    the B=4 Amm and both stress sets.
 
-Phases 4, 10 and 12 count the launches of each kernel instance
+15. the reference's flagship single-sequence drive
+   (tests/test_flagship.py: `LIOConfig()`, seed 7, speed 0.8, z_amp 0.1,
+   40 scans with Horizon) through `replay.replay`, the one-lane step
+   whose graph holds its branches as IF nodes: initialized at the last
+   scan, finite poses, ATE < 0.15 m, surf occupancy in (500,
+   n_cells/4), `n_surf` max > 500; K1 4 a scan, K3 2T (scan 0 runs the
+   lockstep step); a second, cached call (every scan replayed) bit-equal
+   to the first and counting the launches the one-lane loop op by op
+   issues on the same inputs, K2 and K3 a scan from the graph's
+   predicates equal to the loop's own counts a scan, K3 2 a scan with an
+   estimate; the graph bit-equal to the one-lane loop op by op and to the
+   lockstep graph at one lane (every output, the final state and its
+   maps); one replayed post-init scan under the profiler (kernels, ours
+   by name as the bodies that ran hold them, busy share; logged, not
+   held, where the profiler dropped our records this late in the
+   process), capture seconds and IF nodes, scans/sec and peak memory of
+   the cached call.
+
+Phases 4, 10, 12 and 15 count the launches of each kernel instance
 (`map_insert.INSTANCE_LAUNCHES`, `assoc.INSTANCE_LAUNCHES`, set to 0
 just before the replay and read just after); each checks that its maps
 ran the instances their geometry picks.  On the card a replay's launches
@@ -213,7 +239,8 @@ FAITHFUL_ATE_MAX = 0.5
 # the K2 case whose time stands in the kernels line, and whose stages are
 # timed one by one against their plain cuts
 K2_TIMED_CASE = "surf persistent fresh bf16=1 scatter=0.01"
-KERNEL_SOURCES = ("map_insert.cu", "assoc.cu", "eigh.cu")
+KERNEL_SOURCES = ("map_insert.cu", "assoc.cu", "eigh.cu", "branch.cu")
+ONE_LANE_T = 40               # phase 15: tests/test_flagship.py's scans
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -734,23 +761,25 @@ def _counts():
                 k2_calls=assoc.CALLS, k3=eigh.LAUNCHES)
 
 
-def replayed_scan_trace(scan, tries=3):
-    """One replay of the cached lockstep-scan graph (the only one cached)
-    under torch.profiler: its kernels by name, ours keyed by kernel,
-    instance and rescue (`graph_kernels.launch_key`) and held against the
-    launches the graph's kernel nodes hold (`_ScanGraph.launches`, what
-    the counters add a replay), our kernels' device µs by kernel, and the
+def replayed_scan_trace(scan, tries=3, strict=True):
+    """One replay of the cached scan graph (the only one cached) under
+    torch.profiler: its kernels by name, ours keyed by kernel, instance
+    and rescue (`graph_kernels.launch_key`) and held against the launches
+    the graph's kernel nodes hold (`_ScanGraph.launches`, plus those of
+    the IF nodes' bodies that ran: `_replay_launches`), our kernels'
+    device µs by kernel, and the
     device busy share over the
     replay's wall (a synchronize and a host clock around it: the scan's
     copy in and the graph launch).  Traces again up to `tries` times
-    when a trace lacks some of our launches, then raises."""
+    when a trace lacks some of our launches, then raises (with `strict`)
+    or logs it and returns None: the profiler drops our kernels' records
+    late in a process that has run a lot (README "Kernel times")."""
     from torch.profiler import ProfilerActivity, profile
 
     from mmloam_tpu_torch import replay
     from mmloam_tpu_torch.ops import graph_kernels
 
     (runner,) = replay._GRAPHS.values()
-    want = dict(runner.launches)
     for _ in range(tries):
         runner.run(scan)                        # untraced warm-up
         torch.cuda.synchronize()
@@ -760,6 +789,7 @@ def replayed_scan_trace(scan, tries=3):
             runner.run(scan)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        want = _replay_launches(runner)
         kernels = {e.key: (int(e.count), _self_device_us(e))
                    for e in prof.key_averages()
                    if "CUDA" in str(getattr(e, "device_type", ""))
@@ -772,9 +802,12 @@ def replayed_scan_trace(scan, tries=3):
         if dict(traced) == want:
             break
     else:
-        raise AssertionError(f"no trace of a replayed scan matches its "
-                             f"graph: it recorded {dict(traced)}, the "
-                             f"graph's kernel nodes {want}")
+        msg = (f"no trace of a replayed scan matches its graph: it "
+               f"recorded {dict(traced)}, the graph's kernel nodes {want}")
+        if strict:
+            raise AssertionError(msg)
+        log(f"  {msg}; the trace is not used")
+        return None
     ours = {k: sum(n for key, n in want.items() if key[0] == k)
             for k in ("k1", "k2", "k3")}
     if (ours["k1"], ours["k3"]) != (4, 2):
@@ -794,6 +827,18 @@ def replayed_scan_trace(scan, tries=3):
                 busy_share=busy_us / 1e6 / wall, kinds=len(kernels),
                 top=[dict(name=k[:120], launches=c, us=us)
                      for k, (c, us) in top])
+
+
+def _replay_launches(runner):
+    """The launches of our kernels the last replay of `runner` issued:
+    its top level's, plus those of each IF node's body that ran (its flag
+    after the replay)."""
+    want = collections.Counter(runner.launches)
+    if getattr(runner, "flags", None) is not None:
+        for ran, keyed in zip(runner.flags.tolist(), runner.body_launches):
+            if ran:
+                want.update(keyed)
+    return dict(want)
 
 
 def _graph_launches():
@@ -2592,16 +2637,289 @@ def check_split(dev):
                             peak_bytes=int(peak)))
 
 
+# --------------------------------------------------------------------------
+# phases 1c and 15: the one-sequence step, its branches as IF nodes
+# --------------------------------------------------------------------------
+
+def _if_program(dev):
+    """A small program of one-lane branches (`branch.cond` two-way and
+    identity, a `branch.loop` nested in a cond, a cuBLAS product and a
+    sort inside bodies) over x (1, 4) and predicates p, q (1,) bool and
+    a loop bound n (1,) int32: (fn, x, p, q, n)."""
+    from mmloam_tpu_torch import branch
+
+    M = torch.arange(1, 17, dtype=torch.float32, device=dev).reshape(4, 4)
+    x = torch.linspace(-1.0, 1.0, 4, device=dev)[None]
+    p = torch.zeros(1, dtype=torch.bool, device=dev)
+    q = torch.zeros(1, dtype=torch.bool, device=dev)
+    n = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def fn(x, p, q, n):
+        def taken(v):
+            w = branch.cond(q, lambda a: (a @ M.T) / 16.0, None, v + 1.0)
+
+            def step(it, live, c):
+                y, k = c
+                y = torch.sort(y * 1.5 + it, dim=-1, descending=True).values
+                return y, k + live.to(torch.int32)
+            return branch.loop(4, lambda it, c: it < n, step,
+                               (w, torch.zeros_like(n)))
+
+        def other(v):
+            return v - 1.0, torch.full_like(n, -1)
+        return branch.cond(p, taken, other, x)
+    return fn, x, p, q, n
+
+
+def check_if_nodes(dev):
+    """Phase 1c: CUDA-graph IF nodes (csrc/branch.cu) nest, capture and
+    replay with this card's torch and driver: `_if_program` captured once,
+    replayed at every combination of its predicates, bit-equal to the
+    same calls op by op; its IF nodes nest as the program does, and each
+    node's flag after a replay is its predicate there (False inside a
+    body that did not run)."""
+    from mmloam_tpu_torch import branch
+    from mmloam_tpu_torch.ops import graph_kernels
+
+    fn, x, p, q, n = _if_program(dev)
+    cases = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 2, 4)]
+
+    def set_case(a, b, c):
+        p.fill_(bool(a))
+        q.fill_(bool(b))
+        n.fill_(c)
+
+    want = {}
+    for case in cases:
+        set_case(*case)
+        want[case] = tuple(t.clone() for t in fn(x, p, q, n))
+    bodies = branch.Bodies(dev)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    with branch.recording(bodies), torch.cuda.graph(
+            graph, stream=torch.cuda.Stream(dev),
+            capture_error_mode="thread_local"):
+        bodies.flags.zero_()
+        out = fn(x, p, q, n)
+    graph.instantiate()
+    capture_s = time.perf_counter() - t0
+    parents = [None, 0, 0, 0, 0, 0, 0, None]
+    if bodies.parents != parents:
+        raise AssertionError(f"phase 1c: IF nodes nest as {bodies.parents}, "
+                             f"want {parents}")
+    kernels = [sum(graph_kernels.kernel_names(g).values())
+               for g in bodies.graphs]
+    for case in cases:
+        set_case(*case)
+        graph.replay()
+        torch.cuda.synchronize()
+        a, b, c = case
+        flags = [bool(v) for v in bodies.flags[:len(bodies)].tolist()]
+        want_flags = ([bool(a), bool(a and b), bool(a and not b)]
+                      + [bool(a and k < c) for k in range(4)] + [not a])
+        if flags != want_flags:
+            raise AssertionError(f"phase 1c {case}: flags {flags}, want "
+                                 f"{want_flags}")
+        for got, ref in zip(out, want[case]):
+            if not torch.equal(got, ref):
+                raise AssertionError(f"phase 1c {case}: the graph gives "
+                                     f"{got.tolist()}, op by op "
+                                     f"{ref.tolist()}")
+    log(f"  {len(bodies)} IF nodes (nested as {parents}; kernel nodes a "
+        f"body {kernels}) captured and instantiated in {capture_s:.3f} s; "
+        f"{len(cases)} predicate cases bit-equal to op by op")
+    return dict(if_nodes=len(bodies), capture_s=capture_s, cases=len(cases),
+                body_kernel_nodes=kernels)
+
+
+def _run_counts():
+    """Launches and calls since the last `_reset_counts`, with K1's and
+    K2's by instance."""
+    inst = _instance_counts()
+    return dict(_counts(), k1_instances=inst["k1"], k2_instances=inst["k2"])
+
+
+def _per_scan_launches(runner, kernel):
+    """Each scan's launches of `kernel` in the last call of a one-lane
+    graph, from the predicates each replay left (`flag_history`): the
+    top level's, plus each body's where it ran."""
+    top = sum(n for k, n in runner.launches.items() if k[0] == kernel)
+    body = torch.tensor([sum(n for k, n in keyed.items() if k[0] == kernel)
+                         for keyed in runner.body_launches],
+                        dtype=torch.int64)
+    hist = runner.flag_history.cpu().to(torch.int64)
+    return (top + hist @ body).tolist()
+
+
+def check_one_lane(dev):
+    """Phase 15 (see the module docstring): the reference's flagship
+    single-sequence drive through `replay.replay`, its graph against the
+    one-lane loop op by op and the lockstep graph at one lane."""
+    from mmloam_tpu_torch import pipeline, replay
+    from mmloam_tpu_torch.config import LIOConfig
+    from mmloam_tpu_torch.data import synthetic
+    from mmloam_tpu_torch.ops import voxelmap
+    from mmloam_tpu_torch.tree import tree_map
+
+    cfg = LIOConfig()
+    T = ONE_LANE_T
+    np_scans, gt_R, gt_p = replay.make_sequence(
+        synthetic.default_world(), synthetic.Trajectory(speed=0.8, z_amp=0.1),
+        0.0, T, cfg, n_az=cfg.scan.max_pts_per_line, seed=7,
+        range_noise=0.003, dtype=np.float32, with_hori=True,
+        hori_n_az=cfg.scan.hori_max_pts_per_line)
+    scans = pipeline.scan_from_numpy(np_scans, dev)
+    lane = lambda a: a[:, None]
+    init = lambda: pipeline.init_state(cfg, device=dev)
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    final, outs = replay.replay(init(), scans, cfg)
+    torch.cuda.synchronize()
+    first_secs = time.perf_counter() - t0
+    first_counts = _run_counts()
+    _check_k2_counts("replay (one lane)")
+    (runner,) = replay._GRAPHS.values()
+    capture_s = runner.capture_s
+    n_if = len(runner.bodies)
+    if first_counts["k1"] != 4 * T or first_counts["k3"] != 2 * T:
+        raise AssertionError(f"phase 15: K1 {first_counts['k1']}, K3 "
+                             f"{first_counts['k3']}: want {4 * T}, {2 * T}")
+
+    inited = outs.inited.cpu().numpy()
+    pose = outs.pose_p.cpu().numpy()
+    ts = outs.t.cpu().numpy()
+    ate = _ate(pose, ts, gt_R, gt_p)
+    n_cells = cfg.map.dim_x * cfg.map.dim_y * cfg.map.dim_z
+    occ = int((voxelmap.VoxelMap(final.vm_surf.cells).count > 0).sum())
+    n_surf = int(outs.n_surf.max())
+    log(f"  replay: inited at scan {int(np.argmax(inited))}, ATE "
+        f"{ate:.4f} m, surf cells {occ}, n_surf max {n_surf}; first run "
+        f"{first_secs:.1f} s (capture and instantiation {capture_s:.2f} s, "
+        f"{n_if} IF nodes), launches {first_counts}")
+    if not inited[-1]:
+        raise AssertionError("phase 15: never initialized")
+    if not np.isfinite(pose).all():
+        raise AssertionError("phase 15: non-finite poses")
+    if not ate < ATE_MAX:
+        raise AssertionError(f"phase 15: ATE {ate} >= {ATE_MAX}")
+    if not 500 < occ < n_cells // 4:
+        raise AssertionError(f"phase 15: surf occupancy {occ}")
+    if not n_surf > 500:
+        raise AssertionError(f"phase 15: n_surf max {n_surf}")
+
+    # the cached graph: every scan replayed, none read on the host
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    again, outs2 = replay.replay(init(), scans, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    graph_counts = _run_counts()
+    k2_scans = _per_scan_launches(runner, "k2")
+    k3_scans = _per_scan_launches(runner, "k3")
+    hist = runner.flag_history.cpu()
+    ran = hist.sum(dim=1).tolist()
+    # late in the smoke's process the profiler may drop our kernels'
+    # records; the launches through the bodies are held below against
+    # the loop op by op, scan by scan, whatever the trace
+    trace = replayed_scan_trace(tree_map(lambda a: a[T - 1:T], scans),
+                                strict=False)
+    traced = ("no complete trace" if trace is None else
+              f"{trace['kernels_per_scan']} kernels, ours {trace['ours']}, "
+              f"busy {trace['busy_s'] * 1e3:.2f} ms of "
+              f"{trace['wall_s'] * 1e3:.2f} ms ({trace['busy_share']:.1%})")
+    log(f"  timed run (cached graph): {secs:.2f} s, {T / secs:.3f} "
+        f"scans/sec, peak device memory {peak / 2 ** 30:.3f} GiB; IF "
+        f"bodies run a scan {min(ran)}-{max(ran)} of {n_if}; one replayed "
+        f"scan (the last, post-init): {traced}")
+    for f in outs._fields:
+        if not torch.equal(getattr(outs, f), getattr(outs2, f)):
+            raise AssertionError(f"phase 15: the cached graph's {f} differs")
+
+    # the one-lane loop op by op (the host reads each predicate), a scan
+    # at a time for its counts
+    _reset_counts()
+    t0 = time.perf_counter()
+    st = pipeline._lane(init())
+    eager_outs, eager_k2, eager_k3 = [], [], []
+    for t in range(T):
+        before = _counts()
+        st, o = replay._replay_eager(
+            st, tree_map(lambda a: lane(a)[t:t + 1], scans), cfg, one=True)
+        eager_outs.append(o)
+        now = _counts()
+        eager_k2.append(now["k2"] - before["k2"])
+        eager_k3.append(now["k3"] - before["k3"])
+    torch.cuda.synchronize()
+    eager_secs = time.perf_counter() - t0
+    eager_counts = _run_counts()
+    eager = tree_map(lambda *xs: torch.cat(xs)[:, 0], *eager_outs)
+    log(f"  one-lane loop op by op: {eager_secs:.1f} s; K2 a scan "
+        f"{eager_k2}, from the graph's predicates {k2_scans}")
+    if eager_counts != graph_counts:
+        raise AssertionError(f"phase 15: the cached graph launched "
+                             f"{graph_counts}, the loop op by op "
+                             f"{eager_counts}")
+    if k2_scans != eager_k2 or k3_scans != eager_k3:
+        raise AssertionError(f"phase 15: K2/K3 a scan from the predicates "
+                             f"{k2_scans} {k3_scans}, op by op {eager_k2} "
+                             f"{eager_k3}")
+    k3_want = [0] + [2] * (T - 1)       # scan 0 has no map: no estimate
+    if k3_scans != k3_want:
+        raise AssertionError(f"phase 15: K3 a scan {k3_scans}")
+    bit_eager = _bit_equal(outs, eager, final, pipeline._unlane(st))
+
+    # the lockstep graph at one lane, on the same inputs
+    replay.clear_graphs()
+    lock_final, lock_outs = replay.replay_batch(
+        pipeline._lane(init()), tree_map(lane, scans), cfg)
+    torch.cuda.synchronize()
+    bit_lock = _bit_equal(outs, tree_map(lambda a: a[:, 0], lock_outs),
+                          final, pipeline._unlane(lock_final))
+    log(f"  graph against the loop op by op: {bit_eager or 'bit-equal'}; "
+        f"against the lockstep graph at one lane: {bit_lock or 'bit-equal'}")
+    if bit_eager or bit_lock:
+        raise AssertionError(f"phase 15: not bit-equal: {bit_eager} "
+                             f"{bit_lock}")
+    return dict(T=T, ate=ate, surf_cells=occ, n_surf_max=n_surf,
+                inited_at=int(np.argmax(inited)), first_secs=first_secs,
+                capture_s=capture_s, if_nodes=n_if, timed_secs=secs,
+                scans_per_sec=T / secs, eager_secs=eager_secs,
+                peak_bytes=peak, launches=first_counts,
+                instances=dict(k1=first_counts["k1_instances"],
+                               k2=first_counts["k2_instances"]),
+                cached_launches=graph_counts, k2_per_scan=k2_scans,
+                bodies_run_per_scan=ran, replayed_scan=trace)
+
+
+def _bit_equal(outs, outs_ref, final, final_ref):
+    """"" where two runs agree bit for bit in every output and every leaf
+    of the final state (maps included), else what differs."""
+    diff = [f for f in outs._fields if getattr(outs, f) is not None
+            and not torch.equal(getattr(outs, f), getattr(outs_ref, f))]
+    leaves = list(zip(_leaves(final), _leaves(final_ref)))
+    n = sum(not torch.equal(a, b) for a, b in leaves)
+    if n:
+        diff.append(f"{n} of {len(leaves)} state leaves")
+    return ", ".join(diff)
+
+
 # Each kernel instance of the kernels line: (name, kernel, instance, the
 # replay phases whose runs launch it on the path they drive, where its times
 # come from: a K1 case of phase 2 or 9, or a K2 case of phase 5 or 9)
 INSTANCE_ROWS = (
-    ("map_insert_rmw", "k1", "default", ("phase 4",), ("k1", "persistent")),
+    ("map_insert_rmw", "k1", "default", ("phase 4", "phase 15"),
+     ("k1", "persistent")),
     ("map_insert_rows", "k1", "rows", ("phase 10", "phase 12"),
      ("packs_k1", "pack222 persistent")),
     ("map_insert_groups", "k1", "groups", ("phase 10",),
      ("packs_k1", "pack111 persistent")),
-    ("assoc", "k2", "default", ("phase 4",), ("k2", K2_TIMED_CASE)),
+    ("assoc", "k2", "default", ("phase 4", "phase 15"),
+     ("k2", K2_TIMED_CASE)),
     ("assoc_regs4", "k2", "regs4", ("phase 10",),
      ("packs_k2", "pack111 " + K2_TIMED_CASE)),
     ("assoc_regs8", "k2", "regs8", ("phase 10",),
@@ -2647,18 +2965,21 @@ def kernel_rows(k1_err, k2_err, k1_timing, k2_timing, packs, paths):
     return rows
 
 
-def eigh_row(flag, eig):
-    """K3's row of the kernels line: its launches in phase 4's graph run,
-    its error and times from phase 14 (one launch over phase 4's four
-    lanes' Amm)."""
+def eigh_row(flag, eig, one_lane):
+    """K3's row of the kernels line: its launches in phase 4's and phase
+    15's graph runs, its error and times from phase 14 (one launch over
+    phase 4's four lanes' Amm)."""
     t = eig["timing"]
-    if flag["k3_launches"] == 0:
-        raise AssertionError("eigh launched no time in phase 4")
+    for name, n in (("phase 4", flag["k3_launches"]),
+                    ("phase 15", one_lane["launches"]["k3"])):
+        if n == 0:
+            raise AssertionError(f"eigh launched no time in {name}")
     return {"name": "eigh", "route": "cuda",
             "source": "mmloam_tpu_torch/csrc/eigh.cu",
             "replaces": "mmloam_tpu/estimator/solver.py:368",
-            "instance": "default", "launches": flag["k3_launches"],
-            "paths": ["phase 4"], "max_abs_err": t["max_abs_err"],
+            "instance": "default",
+            "launches": flag["k3_launches"] + one_lane["launches"]["k3"],
+            "paths": ["phase 4", "phase 15"], "max_abs_err": t["max_abs_err"],
             "case": EIGH_TIMED_CASE, "ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2688,12 +3009,12 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    from mmloam_tpu_torch import cuda_build, replay
+    from mmloam_tpu_torch import branch, cuda_build, replay
     from mmloam_tpu_torch.ops import assoc, eigh, map_insert
 
     binds = {"map_insert.cu": map_insert._bind, "assoc.cu": assoc._bind,
-             "eigh.cu": eigh._bind}
-    phase("phase 1: build K1, K2 and K3")
+             "eigh.cu": eigh._bind, "branch.cu": branch._bind}
+    phase("phase 1: build K1, K2, K3 and the IF-node helper")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
         futs = {src: ex.submit(cuda_build.build, src)
@@ -2706,6 +3027,9 @@ def main():
 
     phase("phase 1b: the kernels of one association and one insert")
     traces = check_traces(dev)
+
+    phase("phase 1c: nested CUDA-graph IF nodes capture and replay")
+    if_nodes = check_if_nodes(dev)
 
     phase("phase 2: K1 against its plain version")
     max_err, k1_timing = check_map_insert(dev)
@@ -2759,19 +3083,24 @@ def main():
     phase("phase 14: K3 against its plain versions")
     eig = check_eigh(dev, marg)
 
+    phase("phase 15: the flagship single-sequence drive through replay "
+          "(the one-lane step, IF nodes in the graph)")
+    one_lane = check_one_lane(dev)
+
     phase("all phases passed")
     kernels = {"kernels": kernel_rows(
         max_err, k2_err, k1_timing, k2_timing, packs,
         {"phase 4": flag["instances"], "phase 10": pack_replay["instances"],
-         "phase 12": wide["instances"]}) + [eigh_row(flag, eig)]}
+         "phase 12": wide["instances"], "phase 15": one_lane["instances"]}
+    ) + [eigh_row(flag, eig, one_lane)]}
     os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chip_smoke_out", "chip_smoke.json"),
               "w") as f:
         json.dump(dict(card=card, traces=traces, k1=k1_timing, k2=k2_timing,
                        flagship=flag, faithful=faithful, recorded=recorded,
                        modes=modes, packs=packs, pack_replay=pack_replay,
-                       split=split, wide=wide, lanes=lanes, eigh=eig), f,
-                  indent=1)
+                       split=split, wide=wide, lanes=lanes, eigh=eig,
+                       if_nodes=if_nodes, one_lane=one_lane), f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -73,6 +73,11 @@ stress sets at B=16 and B=64: device µs (a CUDA graph of 100 launches),
 the slowest matrix's sweeps, rounds and µs a round
 (`chip_smoke.eigh_round_time`), and bit-equality with the tree's
 `jacobi_reference` on the finite lanes;
+`--replay-only --batch 1 --one` the replay rows of `replay.replay`, one
+sequence as a user with one bag runs it (on a tree before the one-lane
+step, the lockstep replay at one lane; after it, the graph with IF nodes),
+with the kernels and device time a scan over scans 1-2 (before
+initialization) beside those over the last two (after it);
 `--replay-only` the replay rows alone, and the breakdown in a child whose
 replay is the eager loop (`@eager`, or a tree without the graph)
 (a B=16 x T=8 call takes about 80 s a run on the parent tree:
@@ -215,12 +220,21 @@ def _syncs(prof):
     return n, named
 
 
-def _runner(eager):
+def _runner(eager, one=False):
     """The tree's replay: `replay_batch` (through the CUDA graph on a tree
     that has one), or with `eager` the loop op by op (`_replay_eager`;
-    `replay_batch` on a tree without a graph, which is that loop)."""
-    from mmloam_tpu_torch import replay
+    `replay_batch` on a tree without a graph, which is that loop); with
+    `one`, `replay.replay` on lane 0, as one sequence runs (states and
+    scans keep a lane axis of one outside)."""
+    from mmloam_tpu_torch import pipeline, replay
+    from mmloam_tpu_torch.tree import tree_map
 
+    if one:
+        def run(states, scans, cfg):
+            st, outs = replay.replay(pipeline._unlane(states),
+                                     tree_map(lambda a: a[:, 0], scans), cfg)
+            return pipeline._lane(st), tree_map(lambda a: a[:, None], outs)
+        return run
     if eager:
         return getattr(replay, "_replay_eager", replay.replay_batch)
     return replay.replay_batch
@@ -246,14 +260,37 @@ def _clear_graphs():
         replay.clear_graphs()
 
 
-def _replay(cs, cfg, dev, B=4, T=16, timed=2, eager=False):
+def _profile_window(cs, run, st, scans, cfg):
+    """Device time and kernels of a replay of `scans` from `st` under
+    torch.profiler: (kernel device µs, kernels, host syncs, those under
+    eigh, profiled wall seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(st, scans, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.key_averages()
+                  if "CUDA" in str(getattr(e, "device_type", ""))
+                  and cs._self_device_us(e) > 0]
+    dev_us = sum(cs._self_device_us(e) for e in dev_events)
+    syncs, named = _syncs(prof)
+    return dev_us, sum(e.count for e in dev_events), syncs, named, wall
+
+
+def _replay(cs, cfg, dev, B=4, T=16, timed=2, eager=False, one=False):
     import torch
 
     from mmloam_tpu_torch import replay
     from mmloam_tpu_torch.estimator import factors
     from mmloam_tpu_torch.ops import assoc, map_insert
 
-    run = _runner(eager)
+    if one and B != 1:
+        raise SystemExit("kernel_ab: --one replays one sequence (--batch 1)")
+    run = _runner(eager, one)
     graphs = getattr(replay, "_GRAPHS", {})
     loop = "eager" if eager or not hasattr(replay, "_GRAPHS") else "graph"
     scans, gts = cs.flagship_inputs(cfg, B, T, 7, dev)
@@ -292,32 +329,29 @@ def _replay(cs, cfg, dev, B=4, T=16, timed=2, eager=False):
                 if loop == "graph" else None)
     cut = lambda lo, hi: type(scans)(*(None if a is None else a[lo:hi]
                                        for a in scans))
+    # scans 1-2 (before initialization) and T-2 .. T-1 (after it)
+    st, _ = run(cs.fresh_states(cfg, B, dev), cut(0, 1), cfg)
+    torch.cuda.synchronize()
+    pre_us, pre_kernels, _, _, _ = _profile_window(cs, run, st, cut(1, 3),
+                                                   cfg)
     st, _ = run(cs.fresh_states(cfg, B, dev), cut(0, T - 2), cfg)
     torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(st, cut(T - 2, T), cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_events = [e for e in prof.key_averages()
-                  if "CUDA" in str(getattr(e, "device_type", ""))
-                  and cs._self_device_us(e) > 0]
-    dev_us = sum(cs._self_device_us(e) for e in dev_events)
-    syncs, named = _syncs(prof)
+    dev_us, n_kernels, syncs, named, wall = _profile_window(
+        cs, run, st, cut(T - 2, T), cfg)
     lane_scans = B * 2
     per_scan_unprof = min(secs) / (B * T)
     st = None
     _clear_graphs()
     return lane0, main_insert, dict(
-        B=B, T=T, loop=loop,
+        B=B, T=T, loop=loop, one=one,
         ate=ate, timed_secs=secs,
         scans_per_sec=[B * T / s for s in secs], capture_s=capture_s,
         peak_bytes_timed=peak, replayed_scan=replayed,
         busy_window=f"scans {T - 2}-{T - 1}",
-        kernels_per_lockstep_scan=sum(e.count for e in dev_events) / 2,
+        kernels_per_lockstep_scan=n_kernels / 2,
+        pre_init_window="scans 1-2",
+        pre_init_kernels_per_scan=pre_kernels / 2,
+        pre_init_device_ms_per_scan=pre_us / 1e3 / 2,
         device_ms_per_lane_scan=dev_us / 1e3 / lane_scans,
         device_ms_per_lockstep_scan=dev_us / 1e3 / 2,
         busy_share_profiled=dev_us / 1e6 / wall,
@@ -689,7 +723,7 @@ def _k3(cs, cfg, dev, inputs=K3_INPUTS):
 
 
 def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
-          timed=2, only_k3=False):
+          timed=2, only_k3=False, one=False):
     tree, eager = tree.removesuffix("@eager"), tree.endswith("@eager")
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -716,8 +750,8 @@ def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
         return
     if replay_only:
         _, _, res["replay"] = _replay(cs, cfg, dev, batch, scans, timed,
-                                      eager)
-        if res["replay"]["loop"] == "eager":
+                                      eager, one)
+        if res["replay"]["loop"] == "eager" and not one:
             res["breakdown"] = _breakdown(cs, cfg, dev, batch)
         print(json.dumps(res), flush=True)
         return
@@ -748,11 +782,14 @@ def main():
     ap.add_argument("--batch", type=int, default=4, help="replay lanes")
     ap.add_argument("--scans", type=int, default=16, help="replay scans")
     ap.add_argument("--timed", type=int, default=2, help="timed replays")
+    ap.add_argument("--one", action="store_true",
+                    help="with --replay-only --batch 1: replay.replay, one "
+                    "sequence as a user with one bag runs it")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
         child(a.tree[0], a.only_k1, a.replay_only, a.batch, a.scans,
-              a.timed, a.only_k3)
+              a.timed, a.only_k3, a.one)
         return 0
     if a.only_k3 and os.path.exists(K3_INPUTS):
         os.remove(K3_INPUTS)        # this call's first child makes them
@@ -764,7 +801,8 @@ def main():
                             "--timed", str(a.timed)]
                            + ["--only-k1"] * a.only_k1
                            + ["--only-k3"] * a.only_k3
-                           + ["--replay-only"] * a.replay_only,
+                           + ["--replay-only"] * a.replay_only
+                           + ["--one"] * a.one,
                            capture_output=True, text=True, timeout=1800)
         sys.stderr.write(p.stderr[-4000:])
         if p.returncode != 0:

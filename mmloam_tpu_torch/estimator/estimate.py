@@ -11,7 +11,10 @@ stable descending sort per lane, ties to the lowest slot, as
 (a static range with `conv`, `fresh` and `odone` per lane) and the
 marginalization.  The reference's `lax.cond`s run both branches for
 every lane and select per lane: the refresh association runs every
-round, its result taken where `do_refresh`.
+round, its result taken where `do_refresh`.  With `one` (one lane) they
+take one branch (`branch.cond`), as the reference's unbatched estimate
+does; the marginalization stays unconditional, a select, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import branch
 from ..tree import tree_map
 from . import factors, reduced, solver
 
@@ -109,11 +113,13 @@ def _assoc_frame(x, stacks: Stacks, slot, vm_corner, vm_surf, vm_lc, vm_ls,
 def estimate(x0, stacks: Stacks, cached_rfs, vm_corner, vm_surf, preint,
              pair_valid, prior: solver.Prior, frame_valid, gravity, Rbl, tbl,
              cfg, full_window, refresh_slot, do_marginalize=None,
-             vm_local_corner=None, vm_local_surf=None, vm_non=None):
+             vm_local_corner=None, vm_local_surf=None, vm_non=None,
+             one=False):
     """One scan's window optimization of every lane (see the reference):
     x0 (B, W, 15), the window's stacks, factors, preintegration and prior
     (B, W, ...), maps (B, Cs, row), full_window and do_marginalize (B,)
-    bool, refresh_slot (B,) int.  No host read: every branch is a select.
+    bool, refresh_slot (B,) int.  No host read: every branch is a select;
+    with `one` (B == 1) every branch is a `branch.cond` instead.
     """
     s = cfg.solver
     B, W = x0.shape[:2]
@@ -174,7 +180,7 @@ def estimate(x0, stacks: Stacks, cached_rfs, vm_corner, vm_surf, preint,
         return solver.lm_solve(x, rfs, preint, pair_valid, prior,
                                frame_valid, gravity, cfg,
                                lane_cap(cap_full, cap_short),
-                               max(cap_full, cap_short), skip=skip)
+                               max(cap_full, cap_short), skip=skip, one=one)
 
     x = x0
     false = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -195,13 +201,24 @@ def estimate(x0, stacks: Stacks, cached_rfs, vm_corner, vm_surf, preint,
             odone = odone | (full & (dt_rnd < s.converge_trans)
                              & (dr_rnd < conv_rot))
         do_refresh = (~full | refresh_flag) & ~odone
-        # lax.cond(do_refresh, reassociate, frozen): both, then a select
-        rf_n, _ = assoc(x, W - 1, sched[rnd], cached=blkc)
-        rfs_n = _rf_set_slot(rfs, rf_n, W - 1)
-        deg_i, fail_i, sv_i = _localizability_rfs(rfs_n, frame_valid, cfg)
-        rfs, deg, fail, sv = select(do_refresh,
-                                    (rfs_n, deg | deg_i, fail | fail_i, sv_i),
-                                    (rfs, deg, fail, sv))
+
+        def reassociate(frozen, x=x, thres=sched[rnd]):
+            rfs, deg, fail, sv = frozen
+            rf_n, _ = assoc(x, W - 1, thres, cached=blkc)
+            rfs_n = _rf_set_slot(rfs, rf_n, W - 1)
+            deg_i, fail_i, sv_i = _localizability_rfs(rfs_n, frame_valid,
+                                                      cfg)
+            return rfs_n, deg | deg_i, fail | fail_i, sv_i
+
+        # lax.cond(do_refresh, reassociate, frozen): at one lane one
+        # branch, in the lockstep batch both and a select
+        frozen = (rfs, deg, fail, sv)
+        if one:
+            rfs, deg, fail, sv = branch.cond(do_refresh, reassociate, None,
+                                             frozen)
+        else:
+            rfs, deg, fail, sv = select(do_refresh, reassociate(frozen),
+                                        frozen)
         fresh = do_refresh
 
     res = solve(x, s.max_inner_iters_later, s.max_inner_iters,

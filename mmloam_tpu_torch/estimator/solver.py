@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import branch
 from ..ops import eigh
 from . import factors, reduced
 
@@ -168,7 +169,7 @@ class SolveResult(NamedTuple):
 
 
 def lm_solve(x0, rfs, preint, pair_valid, prior, frame_valid,
-             gravity, cfg, caps, static_cap, skip=None):
+             gravity, cfg, caps, static_cap, skip=None, one=False):
     """Deferred-evaluation Levenberg-Marquardt over each lane's window
     with fixed associations (see the reference).
 
@@ -178,9 +179,13 @@ def lm_solve(x0, rfs, preint, pair_valid, prior, frame_valid,
     at its own cap or its own convergence and keeps its carry from then
     on.  `skip` (None or a bool per lane) makes a lane's solve a no-op
     that reports converged with cost 0, as the reference's pre-set done
-    flag and zeroed blocks."""
+    flag and zeroed blocks.  With `one` (one lane, B == 1) the solve runs
+    as the reference's unbatched one: the blocks of a skipped solve are
+    never evaluated, and an iteration runs only while the lane is live
+    (`branch.cond`, `branch.loop`), with the lockstep iteration's ops, so
+    the bits are the lockstep solve's at one lane."""
     dtype, dev = x0.dtype, x0.device
-    B = x0.shape[0]
+    B, W = x0.shape[:2]
     fvf = frame_valid.to(dtype)
 
     def blocks_at(x):
@@ -194,19 +199,31 @@ def lm_solve(x0, rfs, preint, pair_valid, prior, frame_valid,
     def sel(m, a, b):
         return torch.where(m.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
 
-    Hd, Hu, b, cost = blocks_at(x0)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     if skip is not None:
         done = skip.to(torch.bool).expand(B)
-        zero = lambda a: torch.zeros_like(a)
-        Hd, Hu, b, cost = (sel(done, zero(a), a) for a in (Hd, Hu, b, cost))
-    x = x0
+    if skip is not None and one:
+        # lax.cond(skip, zeros, blocks): a skipped solve reads no blocks
+        z = lambda *s: torch.zeros((B,) + s, dtype=dtype, device=dev)
+        Hd, Hu, b, cost = branch.cond(
+            done, lambda _: (z(W, 15, 15), z(W - 1, 15, 15), z(W, 15), z()),
+            lambda _: blocks_at(x0), None)
+    else:
+        Hd, Hu, b, cost = blocks_at(x0)
+        if skip is not None:
+            zero = lambda a: torch.zeros_like(a)
+            Hd, Hu, b, cost = (sel(done, zero(a), a)
+                               for a in (Hd, Hu, b, cost))
     lam = torch.full((B,), 1e-4, dtype=dtype, device=dev)
     radius = torch.full((B,), cfg.solver.init_radius, dtype=dtype,
                         device=dev)
     iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    for it in range(static_cap):
-        live = ~done & (it < caps)
+
+    def live_at(it, carry):
+        return ~carry[-1] & (it < caps)
+
+    def iteration(it, live, carry):
+        x, Hd, Hu, b, cost, lam, radius, iters, done = carry
         dx = _damped_solve(Hd, Hu, b, lam, radius)
         x_try = x + dx * fvf[..., None]
         Hd_t, Hu_t, b_t, new_cost = blocks_at(x_try)
@@ -234,6 +251,15 @@ def lm_solve(x0, rfs, preint, pair_valid, prior, frame_valid,
         conv = conv | (radius_n <= 1e-5)
         iters = iters + live.to(torch.int32)
         done = done | (live & conv)
+        return x, Hd, Hu, b, cost, lam, radius, iters, done
+
+    carry = (x0, Hd, Hu, b, cost, lam, radius, iters, done)
+    if one:
+        carry = branch.loop(static_cap, live_at, iteration, carry)
+    else:
+        for it in range(static_cap):
+            carry = iteration(it, live_at(it, carry), carry)
+    x, cost, iters, done = carry[0], carry[4], carry[7], carry[8]
     return SolveResult(x=x, cost=cost, iters=iters, converged=done)
 
 

@@ -11,6 +11,13 @@ noted (`launches`); the other counters (`assoc.CALLS`,
 `assoc.LOCAL_CALLS`: calls of the dispatchers) it plays from the tape at
 every replay (`play`).  Tapes are kept per thread, so a worker that
 captures does not record another worker's counts.
+
+A capture of the one-lane step puts branches into the bodies of
+conditional nodes (`branch.py`), which a replay runs or not by the data.
+So each note also records the innermost body it was made in (`body`, an
+index of the capture's bodies; None at the top level): the runner holds
+each body's kernel nodes against its own notes, and counts a body's
+launches and plays its updates as many times as its predicate held.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ def note(launch, count, *args, **kwargs):
     tape = getattr(_LOCAL, "tape", None)
     if tape is None:
         return False
-    tape.append((launch, functools.partial(count, *args, **kwargs)))
+    tape.append((launch, functools.partial(count, *args, **kwargs),
+                 getattr(_LOCAL, "body", None)))
     return True
 
 
@@ -45,14 +53,31 @@ def recording(tape):
         _LOCAL.tape = None
 
 
-def launches(tape):
-    """The launches noted on `tape`, by key."""
-    return collections.Counter(k for k, _ in tape if k is not None)
+@contextlib.contextmanager
+def body(index):
+    """Note this thread's counter updates as made in body `index`."""
+    outer = getattr(_LOCAL, "body", None)
+    _LOCAL.body = index
+    try:
+        yield
+    finally:
+        _LOCAL.body = outer
 
 
-def play(tape, times=1):
-    """Apply the counter updates noted on `tape` that are not launches,
-    `times` over."""
-    for launch, count in tape:
-        if launch is None:
-            count(times=times)
+def launches(tape, body=None):
+    """The launches noted on `tape` in `body` (None: at the top level),
+    by key."""
+    return collections.Counter(k for k, _, b in tape
+                               if k is not None and b == body)
+
+
+def play(tape, times=1, runs=None):
+    """Apply the counter updates noted on `tape` that are not launches:
+    those at the top level `times` over, those in body i `runs[i]` over
+    (not at all when `runs` is None)."""
+    for launch, count, b in tape:
+        if launch is not None:
+            continue
+        n = times if b is None else (0 if runs is None else runs[b])
+        if n:
+            count(times=n)

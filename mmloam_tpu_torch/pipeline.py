@@ -9,8 +9,13 @@ deferred map inserts, and the IMU-init bookkeeping.
 `step_core_batch(states, scans, cfg)` is the counterpart of the
 reference's `jax.vmap(step_core)` (mmloam_tpu/replay.py:201-208): every
 field of `states` and `scans` carries a leading lane axis B and every
-function it reaches takes it.  `step_core` and `step` are that step at one
-lane (a lane axis of 1 added and dropped).  The translation rules:
+function it reaches takes it.  `step_core` and `step` are the reference's
+unbatched step (mmloam_tpu/replay.py:159-161): the same code at one lane
+(a lane axis of 1 added and dropped) with `one` set, where each of the
+nine per-lane conditionals below takes one branch (`branch.cond`) and the
+LM runs only the iterations its lane needs (`branch.loop`).  The skipped
+work is what the lockstep selects drop, so its results are the lockstep
+step's at one lane, bit for bit.  The lockstep translation rules:
 
 * `lax.cond` under `vmap` runs both branches for every lane and selects
   per lane (`estimate.select`, `torch.where`): can_estimate
@@ -51,7 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import lie
+from . import branch, lie
 from .estimator import estimate as est
 from .estimator import initializer, reduced, solver
 from .ops import (downsample, features, linalg3, preintegration, undistort,
@@ -643,16 +648,29 @@ def project_degenerate_update(x_opt, x_w, NtN, fail, degenerate_sv):
 
 
 def step(state: LIOState, scan: ScanInput, cfg):
-    """One scan of one sequence through the full LIO stack:
-    `step_core_batch` at one lane, then the scatter map insert."""
+    """One scan of one sequence through the full LIO stack: `step_core`,
+    then the scatter map insert."""
     state, out, pend = step_core(state, scan, cfg)
     return apply_inserts(state, pend, cfg), out
 
 
 def step_core(state: LIOState, scan: ScanInput, cfg):
     """`step` minus the map writes — returns (state, out, PendingInsert):
+    the reference's unbatched step_core, one branch of each conditional
+    (`step_core_one` without its lane axis)."""
+    return _unlane(step_core_one(_lane(state), _lane(scan), cfg))
+
+
+def step_core_one(state: LIOState, scan: ScanInput, cfg):
+    """`step_core` on a lane axis of 1 (state and scan (1, ...)): each
+    per-lane conditional takes one branch (`branch.cond`; op by op the
+    predicate is read on the host, in a captured graph it is an IF node),
+    the LM stops at its lane's end (`branch.loop`).  Bit-equal to
     `step_core_batch` at one lane."""
-    return _unlane(step_core_batch(_lane(state), _lane(scan), cfg))
+    if state.x.shape[0] != 1:
+        raise ValueError(f"step_core_one takes one lane, got "
+                         f"{state.x.shape[0]}")
+    return _step_core(state, scan, cfg, one=True)
 
 
 def step_core_batch(state: LIOState, scan: ScanInput, cfg):
@@ -661,6 +679,12 @@ def step_core_batch(state: LIOState, scan: ScanInput, cfg):
     carry a leading lane axis B; returns (state, StepOutput (B, ...),
     PendingInsert (B, ...)).  Every per-lane branch is a select (see the
     module docstring); nothing here reads the device from the host."""
+    return _step_core(state, scan, cfg, one=False)
+
+
+def _step_core(state: LIOState, scan: ScanInput, cfg, one):
+    """The step of `step_core_batch` (`one` False: every branch, then a
+    select) or of `step_core_one` (`one` True: one branch)."""
     dtype = state.x.dtype
     dev = state.x.device
     W = cfg.solver.window
@@ -678,21 +702,28 @@ def step_core_batch(state: LIOState, scan: ScanInput, cfg):
     full = state.inited & (n_frames == W)
     can_estimate = state.map_has_data
     refresh_slot = state.step_idx % (W - 1)
-    false = torch.zeros((B,), dtype=torch.bool, device=dev)
 
-    res = est.estimate(
-        x_w, stacks_w, pf.rfs_w, state.vm_corner, state.vm_surf,
-        preint_w, pv_w, prior_w, fv_w, state.gravity, state.Rbl,
-        state.tbl, cfg, full_window=full, refresh_slot=refresh_slot,
-        vm_local_corner=state.vm_local_corner,
-        vm_local_surf=state.vm_local_surf, vm_non=state.vm_non)
-    zi = torch.zeros((B,), dtype=torch.int32, device=dev)
-    skipped = est.EstimateResult(
-        x=x_w, degenerate=false, fail=false,
-        sv_min=torch.full((B,), -1.0, dtype=dtype, device=dev),
-        prior=prior_w, rfs=pf.rfs_w, n_line=zi, n_plane=zi,
-        NtN=torch.zeros((B, 3, 3), dtype=dtype, device=dev))
-    res = est.select(can_estimate, res, skipped)
+    def est_branch(_):
+        return est.estimate(
+            x_w, stacks_w, pf.rfs_w, state.vm_corner, state.vm_surf,
+            preint_w, pv_w, prior_w, fv_w, state.gravity, state.Rbl,
+            state.tbl, cfg, full_window=full, refresh_slot=refresh_slot,
+            vm_local_corner=state.vm_local_corner,
+            vm_local_surf=state.vm_local_surf, vm_non=state.vm_non, one=one)
+
+    def skip_branch(_):
+        false = torch.zeros((B,), dtype=torch.bool, device=dev)
+        zi = torch.zeros((B,), dtype=torch.int32, device=dev)
+        return est.EstimateResult(
+            x=x_w, degenerate=false, fail=false,
+            sv_min=torch.full((B,), -1.0, dtype=dtype, device=dev),
+            prior=prior_w, rfs=pf.rfs_w, n_line=zi, n_plane=zi,
+            NtN=torch.zeros((B, 3, 3), dtype=dtype, device=dev))
+
+    if one:
+        res = branch.cond(can_estimate, est_branch, skip_branch, None)
+    else:
+        res = est.select(can_estimate, est_branch(None), skip_branch(None))
     x_sel = project_degenerate_update(res.x, x_w, res.NtN, res.fail,
                                       cfg.solver.degenerate_sv)
     jump = torch.sqrt(torch.sum((x_sel[:, -1, 0:3] - x_w[:, -1, 0:3]) ** 2,
@@ -785,27 +816,43 @@ def step_core_batch(state: LIOState, scan: ScanInput, cfg):
         do_refine = (state.inited & full & can_estimate & (~res.fail)
                      & (new_state.step_idx % cfg.solver.gravity_refine_every
                         == 0))
+
+        def refine(s):
+            g_new, v_new = initializer.refine_gravity(
+                s.x, s.preint, s.pair_valid, s.gravity, cfg.imu.gnorm)
+            lin_J = s.prior.lin_J
+            lin_J = torch.cat([lin_J[..., 0:6],
+                               torch.zeros_like(lin_J[..., 6:9]),
+                               lin_J[..., 9:15]], dim=-1)
+            px0 = s.prior.x0
+            px0 = torch.cat([px0[:, 0:6], v_new[:, 0], px0[:, 9:15]], dim=-1)
+            x = torch.cat([s.x[..., 0:6], v_new, s.x[..., 9:15]], dim=-1)
+            return s._replace(gravity=g_new, x=x,
+                              prior=s.prior._replace(lin_J=lin_J, x0=px0))
+
         s = new_state
-        g_new, v_new = initializer.refine_gravity(
-            s.x, s.preint, s.pair_valid, s.gravity, cfg.imu.gnorm)
-        lin_J = s.prior.lin_J
-        lin_J = torch.cat([lin_J[..., 0:6], torch.zeros_like(lin_J[..., 6:9]),
-                           lin_J[..., 9:15]], dim=-1)
-        px0 = s.prior.x0
-        px0 = torch.cat([px0[:, 0:6], v_new[:, 0], px0[:, 9:15]], dim=-1)
-        x = torch.cat([s.x[..., 0:6], v_new, s.x[..., 9:15]], dim=-1)
-        refined = (g_new, x, s.prior._replace(lin_J=lin_J, x0=px0))
-        g_sel, x_sel, prior_sel = est.select(do_refine, refined,
-                                             (s.gravity, s.x, s.prior))
-        new_state = s._replace(gravity=g_sel, x=x_sel, prior=prior_sel)
+        if one:
+            new_state = branch.cond(do_refine, refine, None, s)
+        else:
+            r = refine(s)
+            g_sel, x_sel, prior_sel = est.select(
+                do_refine, (r.gravity, r.x, r.prior),
+                (s.gravity, s.x, s.prior))
+            new_state = s._replace(gravity=g_sel, x=x_sel, prior=prior_sel)
 
     # modes <= 1 never initialize (init needs the accelerometer); lanes
     # already initialized keep their state
     if cfg.imu_mode > 1:
-        booked = _init_bookkeeping(
-            new_state, scan, q_pub, p_pub,
-            tree_map(lambda a: a[:, -1], stacks_w), cfg)
-        new_state = _select_state(state.inited, new_state, booked)
+        fstack = tree_map(lambda a: a[:, -1], stacks_w)
+
+        def book(s):
+            return _init_bookkeeping(s, scan, q_pub, p_pub, fstack, cfg, one)
+
+        if one:
+            new_state = branch.cond(state.inited, None, book, new_state)
+        else:
+            new_state = _select_state(state.inited, new_state,
+                                      book(new_state))
 
     out = StepOutput(
         pose_q=q_pub, pose_p=p_pub, t=_at(t_w, front_idx),
@@ -824,9 +871,9 @@ _KF_FIELDS = ("kf_x", "kf_t", "kf_stacks", "kf_rfs", "kf_imu", "kf_imu_mask",
 
 
 def _init_bookkeeping(state: LIOState, scan: ScanInput, q_pub, p_pub, fstack,
-                      cfg):
+                      cfg, one=False):
     """Keyframe accumulation + init attempt (unionPoseEstimation :934-985)
-    of every lane, its branches selects."""
+    of every lane, its branches selects (with `one`, one branch each)."""
     dtype = state.x.dtype
     dev = state.x.device
     B, Mi = state.kf_imu.shape[0], state.kf_imu.shape[2]
@@ -835,26 +882,28 @@ def _init_bookkeeping(state: LIOState, scan: ScanInput, q_pub, p_pub, fstack,
     rf_cur = tree_map(lambda a: a[:, -1], state.cached_rfs)
     pose = torch.cat([q_pub, p_pub], dim=-1)
 
-    # lax.cond(phase == 0, open_slot, update_slot)
-    opened = state._replace(
-        kf_x=_roll_push(state.kf_x, pose),
-        kf_t=_roll_push(state.kf_t, scan.t),
-        kf_stacks=tree_map(_roll_push, state.kf_stacks, new_kf_stack),
-        kf_rfs=tree_map(_roll_push, state.kf_rfs, rf_cur),
-        kf_imu=_roll_push(state.kf_imu, torch.zeros_like(state.kf_imu[:, 0])),
-        kf_imu_mask=_roll_push(state.kf_imu_mask,
-                               torch.zeros_like(state.kf_imu_mask[:, 0])),
-        kf_imu_n=_roll_push(state.kf_imu_n,
-                            torch.zeros_like(state.kf_imu_n[:, 0])),
-        kf_count=torch.clamp(state.kf_count + 1, max=N_KF))
-    updated = state._replace(
-        kf_x=_set_last(state.kf_x, pose),
-        kf_t=_set_last(state.kf_t, scan.t),
-        kf_stacks=tree_map(_set_last, state.kf_stacks, new_kf_stack),
-        kf_rfs=tree_map(_set_last, state.kf_rfs, rf_cur))
-    state = state._replace(**dict(zip(_KF_FIELDS, est.select(
-        phase == 0, tuple(getattr(opened, f) for f in _KF_FIELDS),
-        tuple(getattr(updated, f) for f in _KF_FIELDS)))))
+    # lax.cond(phase == 0, open_slot, update_slot) over the keyframe fields
+    def open_slot(s):
+        return (_roll_push(s.kf_x, pose), _roll_push(s.kf_t, scan.t),
+                tree_map(_roll_push, s.kf_stacks, new_kf_stack),
+                tree_map(_roll_push, s.kf_rfs, rf_cur),
+                _roll_push(s.kf_imu, torch.zeros_like(s.kf_imu[:, 0])),
+                _roll_push(s.kf_imu_mask,
+                           torch.zeros_like(s.kf_imu_mask[:, 0])),
+                _roll_push(s.kf_imu_n, torch.zeros_like(s.kf_imu_n[:, 0])),
+                torch.clamp(s.kf_count + 1, max=N_KF))
+
+    def update_slot(s):
+        return (_set_last(s.kf_x, pose), _set_last(s.kf_t, scan.t),
+                tree_map(_set_last, s.kf_stacks, new_kf_stack),
+                tree_map(_set_last, s.kf_rfs, rf_cur),
+                s.kf_imu, s.kf_imu_mask, s.kf_imu_n, s.kf_count)
+
+    if one:
+        kf = branch.cond(phase == 0, open_slot, update_slot, state)
+    else:
+        kf = est.select(phase == 0, open_slot(state), update_slot(state))
+    state = state._replace(**dict(zip(_KF_FIELDS, kf)))
 
     # append this scan's IMU into the newest keyframe buffer; masked or
     # overflowing samples go to a dropped slot (mode="drop")
@@ -885,13 +934,18 @@ def _init_bookkeeping(state: LIOState, scan: ScanInput, q_pub, p_pub, fstack,
     phase_next = (phase + 1) % KF_EVERY
     try_init = (phase_next == 0) & (state.kf_count == N_KF)
     state = state._replace(kf_phase=phase_next)
+    if one:
+        return branch.cond(try_init, lambda s: _try_init(s, cfg, None, True),
+                           None, state)
     return _try_init(state, cfg, try_init)
 
 
-def _try_init(state: LIOState, cfg, attempt):
+def _try_init(state: LIOState, cfg, attempt, one=False):
     """TryMAPInitialization (:425-627) + window seeding on success, for the
     lanes of `attempt` (B,) whose solve passes its gates; every lane runs
-    it, the others keep `state` (lax.cond under vmap)."""
+    it, the others keep `state` (lax.cond under vmap).  With `one` the
+    caller has taken the attempt's branch (`attempt` unused) and the
+    seeding runs only where the solve passed (lax.cond(res.ok, ...))."""
     dtype = state.x.dtype
     dev = state.x.device
     B = state.x.shape[0]
@@ -919,8 +973,6 @@ def _try_init(state: LIOState, cfg, attempt):
                                  bias_bound=cfg.failsafe.init_bias_bound,
                                  velocity_bound=cfg.failsafe.init_velocity_bound)
 
-    s = state
-
     def seed(kf, n=lead, tail=0):
         """zeros in the first n window slots, then kf (B, k, ...), then
         `tail` zero slots."""
@@ -928,43 +980,49 @@ def _try_init(state: LIOState, cfg, attempt):
                                   dtype=kf.dtype, device=dev)
         return torch.cat([z(n), kf] + ([z(tail)] if tail else []), dim=1)
 
-    xs = []
-    for i in range(N_KF):
-        q_l = s.kf_x[:, i, 0:4]
-        p_l = s.kf_x[:, i, 4:7]
-        if i == N_KF - 1:
-            q_b = lie.quat_mul(q_l, lie.matrix_to_quat(Rlb))
-            p_b = p_l + lie.quat_rotate(q_l, tlb)
-        else:
-            q_b, p_b = q_l, p_l
-        xs.append(torch.cat([p_b, lie.log_quat(q_b), res.v[:, i], res.bg,
-                             res.ba], dim=-1))
-    x = seed(torch.stack(xs, dim=1))
-    t = seed(s.kf_t)
-    fv = seed(torch.ones((B, N_KF), dtype=torch.bool, device=dev))
-    stacks = tree_map(lambda a, kf: seed(kf.to(a.dtype)), s.stacks,
-                      s.kf_stacks)
+    def seed_window(s):
+        """`s` with its window seeded from the keyframes and the solve
+        (the reference's on_ok)."""
+        xs = []
+        for i in range(N_KF):
+            q_l = s.kf_x[:, i, 0:4]
+            p_l = s.kf_x[:, i, 4:7]
+            if i == N_KF - 1:
+                q_b = lie.quat_mul(q_l, lie.matrix_to_quat(Rlb))
+                p_b = p_l + lie.quat_rotate(q_l, tlb)
+            else:
+                q_b, p_b = q_l, p_l
+            xs.append(torch.cat([p_b, lie.log_quat(q_b), res.v[:, i], res.bg,
+                                 res.ba], dim=-1))
+        x = seed(torch.stack(xs, dim=1))
+        t = seed(s.kf_t)
+        fv = seed(torch.ones((B, N_KF), dtype=torch.bool, device=dev))
+        stacks = tree_map(lambda a, kf: seed(kf.to(a.dtype)), s.stacks,
+                          s.kf_stacks)
 
-    pr2 = pre_all(res.bg, res.ba)
-    k1 = N_KF - 1
-    rest = dict(dq=pr2.dq[:, 1:], dp=pr2.dp[:, 1:], dv=pr2.dv[:, 1:],
-                jac=pr2.jac[:, 1:],
-                sqrt_info=cfg.imu.lidar_m
-                * preintegration.sqrt_info_from_cov(pr2.cov[:, 1:]),
-                dt=pr2.dtime[:, 1:], bg=res.bg[:, None].expand(B, k1, 3),
-                ba=res.ba[:, None].expand(B, k1, 3))
-    empty = _empty_preint(W, dtype, dev)
-    preint = {k: torch.cat([empty[k][None, :lead + 1].expand(
-        (B, lead + 1) + tuple(empty[k].shape[1:])), rest[k].to(dtype)], dim=1)
-        for k in empty}
-    pv = seed(torch.ones((B, k1), dtype=torch.bool, device=dev), lead + 1)
-    rfs0 = tree_map(lambda a, kf: seed(kf[:, :k1].to(a.dtype), tail=1),
-                    s.cached_rfs, s.kf_rfs)
-    prior0 = tree_map(lambda a: a.expand((B,) + tuple(a.shape)),
-                      solver.empty_prior(dtype, dev))
-    seeded = s._replace(x=x, t=t, frame_valid=fv, stacks=stacks,
-                        preint=preint, pair_valid=pv,
-                        inited=torch.ones((B,), dtype=torch.bool, device=dev),
-                        gravity=res.gravity.to(dtype), prior=prior0,
-                        cached_rfs=rfs0)
-    return _select_state(attempt & res.ok, seeded, s)
+        pr2 = pre_all(res.bg, res.ba)
+        k1 = N_KF - 1
+        rest = dict(dq=pr2.dq[:, 1:], dp=pr2.dp[:, 1:], dv=pr2.dv[:, 1:],
+                    jac=pr2.jac[:, 1:],
+                    sqrt_info=cfg.imu.lidar_m
+                    * preintegration.sqrt_info_from_cov(pr2.cov[:, 1:]),
+                    dt=pr2.dtime[:, 1:], bg=res.bg[:, None].expand(B, k1, 3),
+                    ba=res.ba[:, None].expand(B, k1, 3))
+        empty = _empty_preint(W, dtype, dev)
+        preint = {k: torch.cat([empty[k][None, :lead + 1].expand(
+            (B, lead + 1) + tuple(empty[k].shape[1:])), rest[k].to(dtype)],
+            dim=1) for k in empty}
+        pv = seed(torch.ones((B, k1), dtype=torch.bool, device=dev), lead + 1)
+        rfs0 = tree_map(lambda a, kf: seed(kf[:, :k1].to(a.dtype), tail=1),
+                        s.cached_rfs, s.kf_rfs)
+        prior0 = tree_map(lambda a: a.expand((B,) + tuple(a.shape)),
+                          solver.empty_prior(dtype, dev))
+        inited = torch.ones((B,), dtype=torch.bool, device=dev)
+        return s._replace(x=x, t=t, frame_valid=fv, stacks=stacks,
+                          preint=preint, pair_valid=pv, inited=inited,
+                          gravity=res.gravity.to(dtype), prior=prior0,
+                          cached_rfs=rfs0)
+
+    if one:
+        return branch.cond(res.ok, seed_window, None, state)
+    return _select_state(attempt & res.ok, seed_window(state), state)

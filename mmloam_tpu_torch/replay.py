@@ -5,18 +5,25 @@ mmloam_tpu/replay.py).
 outputs are bit-identical); `replay_batch` steps B sequences in lockstep —
 one `pipeline.step_core_batch` over all lanes per scan, then ONE batched
 map insert per map through the CUDA kernel K1 — exactly the split the TPU
-path makes (`mmloam_tpu/replay.py:190-208`); `replay` is the batch at one
-lane.  With `mesh`, a list of
-devices, `replay_batch` splits the batch as the reference splits it over a
-1-D mesh (`mmloam_tpu/replay.py:176-224`): each device owns whole
-sequences, and no tensor crosses devices during the replay.
+path makes (`mmloam_tpu/replay.py:190-208`).  `replay` steps one
+sequence as the reference's `replay` does (a `lax.scan` over the
+unbatched step, `mmloam_tpu/replay.py:159-161`): `pipeline.step_core_one`,
+where each per-lane conditional takes one branch and the LM stops at its
+lane's end, then the same K1 insert on a lane axis of one.  With `mesh`,
+a list of devices, `replay_batch` splits the batch as the reference
+splits it over a 1-D mesh (`mmloam_tpu/replay.py:176-224`): each device
+owns whole sequences, and no tensor crosses devices during the replay.
 
 On the card a replay runs as the reference's `jax.jit` over `lax.scan`
 runs it, with no host in the loop: the lockstep scan is captured once as
 a CUDA graph (`_ScanGraph`) and replayed for every scan after.  The first
 call for a (config, lanes, device, shapes) runs scan 0 eagerly (which
 builds the kernels and fills the constant caches), captures the scan, and
-replays it for scans 1 .. T-1.  The graph is cached, one a device
+replays it for scans 1 .. T-1.  `replay` captures the one-lane step
+instead, its branches as CUDA-graph IF nodes (`branch.py`), after a scan
+0 run through the lockstep step at one lane (bit-equal, and it runs every
+branch, so every kernel, handle and constant exists before the capture).
+The graph is cached, one a device
 (`_GRAPHS`): a later call with the same config and shapes copies its
 states into the graph's buffers and replays every scan, and a call with
 others replaces it.  A cached graph holds a copy of the batch's state,
@@ -25,7 +32,10 @@ peak at 1.24-1.30 times the eager loop's); `clear_graphs`, the
 counterpart of `jax.clear_caches`, frees them.  The step reads no device
 value on the host, so nothing in the loop waits for the card.  The
 kernels' launch counters count each replay's launches from the kernel
-nodes of the captured graph (`ops/graph_kernels.py`).  `_replay_eager`
+nodes of the captured graph (`ops/graph_kernels.py`); the launches
+inside an IF node's body count as many times as its predicate held, read
+once after the last scan from the predicates each replay left.
+`_replay_eager`
 is the loop without a graph (the counterpart of `jax.disable_jit`): CPU
 tensors take it, and tests and `kernel_ab.py`'s per-layer breakdown call
 it.
@@ -42,7 +52,7 @@ import traceback
 import numpy as np
 import torch
 
-from . import lie, pipeline
+from . import branch, lie, pipeline
 from .data import synthetic
 from .ops import graph_kernels, launch_tape, voxelmap
 from .tree import tree_map
@@ -178,14 +188,18 @@ def _stack_outputs(outs):
 
 
 def replay(state, scans, cfg):
-    """Step one sequence over a stacked ScanInput (T, ...): the lockstep
-    batch at one lane, on copies of the state's maps (the input state is
-    left as it was).  Returns (final state, StepOutput stacked over T)."""
+    """Step one sequence over a stacked ScanInput (T, ...), one branch of
+    each conditional (`pipeline.step_core_one`, then K1's insert), on
+    copies of the state's maps (the input state is left as it was).  On
+    the card through the cached graph of the one-lane scan.  Returns
+    (final state, StepOutput stacked over T), bit-equal to the lockstep
+    replay at one lane."""
     lane = pipeline._lane(state)
     lane = lane._replace(**{f: voxelmap.VoxelMap(
         getattr(lane, f).cells.clone()) for f in pipeline.MAP_FIELDS})
     final, outs = _replay_lockstep(
-        lane, tree_map(lambda a: torch.as_tensor(a)[:, None], scans), cfg)
+        lane, tree_map(lambda a: torch.as_tensor(a)[:, None], scans), cfg,
+        one=True)
     return pipeline._unlane(final), tree_map(lambda a: a[:, 0], outs)
 
 
@@ -289,8 +303,9 @@ def gather_states(shards, device=None):
                     shards[0], *shards[1:])
 
 
-def _replay_eager(states, scans, cfg):
-    """Replay a BATCH of sequences in lockstep on one device, op by op.
+def _replay_eager(states, scans, cfg, one=False):
+    """Replay a BATCH of sequences in lockstep on one device, op by op
+    (with `one`, a batch of one lane through `pipeline.step_core_one`).
 
     states: LIOState with a leading batch axis B; scans: ScanInput laid out
     (T, B, ...).  For each scan, ONE `step_core_batch` over all lanes (the
@@ -301,13 +316,31 @@ def _replay_eager(states, scans, cfg):
     reuse the passed `states`.  Returns (final states, StepOutput stacked
     as (T, B, ...)).
     """
+    step = pipeline.step_core_one if one else pipeline.step_core_batch
     outs = []
     for t in range(scans.pts.shape[0]):
-        states, out, pend = pipeline.step_core_batch(
-            states, tree_map(lambda a: a[t], scans), cfg)
+        states, out, pend = step(states, tree_map(lambda a: a[t], scans),
+                                 cfg)
         states = pipeline.apply_inserts_batched(states, pend, cfg)
+        if one:
+            states = tree_map(_dense, states)
         outs.append(out)
     return states, _stack_outputs(outs)
+
+
+def _dense(a):
+    """`a` laid out densely in row-major order (a copy only where it is
+    not).  The one-lane loop lays its state out so after each scan, as the
+    graph's static buffers hold it: a branch passes its tensors on as it
+    made them (a transposed or broadcast view), which a select would have
+    copied, and on the card the layout of a product's operands picks the
+    cuBLAS kernel and so its rounding in the scans after."""
+    want, n = [], 1
+    for d in reversed(a.shape):
+        want.append(n)
+        n *= d
+    return a if a.stride() == tuple(reversed(want)) else a.clone(
+        memory_format=torch.contiguous_format)
 
 
 # the captured lockstep scan of each device (`_ScanGraph.key`: the config,
@@ -377,56 +410,80 @@ def _capture_site(exc):
 
 
 class _ScanGraph:
-    """One lockstep scan captured as a CUDA graph on static buffers: on
-    the static state and scan, `step_core_batch`, then
-    `apply_inserts_batched` (the maps in place), then the new state copied
-    into the static state.  `run(scan)` copies a scan in, replays, and
-    returns the static step outputs (overwritten by the next run).
-    Capture raises, naming the op, where the scan cannot be captured.
+    """One scan captured as a CUDA graph on static buffers: on the static
+    state and scan, the lockstep step (`pipeline.step_core_batch`) or,
+    with `one`, the one-lane step (`pipeline.step_core_one`, its branches
+    in IF nodes kept by `bodies`), then `apply_inserts_batched` (the maps
+    in place), then the new state copied into the static state.
+    `run(scan)` copies a scan in, replays, and returns the static step
+    outputs (overwritten by the next run); `flags` then holds each IF
+    node's predicate at that replay (None without IF nodes).  Capture
+    raises, naming the op, where the scan cannot be captured.
 
     Counts: under the capture the kernel wrappers launch nothing and count
-    nothing (`launch_tape`).  `launches`, the launches of our kernels a
-    replay issues, is read from the graph's kernel nodes
+    nothing (`launch_tape`).  `launches`, the launches of our kernels
+    at the graph's top level, and `body_launches[i]`, those in body i,
+    are read from the kernel nodes of the graph and of each body graph
     (`graph_kernels.launches`) and held against the launches the wrappers
-    noted; every run adds it to the counters, and plays the noted call
-    counts."""
+    noted there.  Every run adds the top-level launches to the counters
+    and plays the top-level call counts; `count_bodies(runs)` adds each
+    body's, `runs[i]` times.  `flag_history` (T, IF nodes) int32 on the
+    card: each node's predicate at each scan of the last call (None
+    without IF nodes)."""
 
-    def __init__(self, key, state, scan, cfg):
+    flag_history = None
+
+    def __init__(self, key, state, scan, cfg, one=False):
         self.key = key
         self.state = state
         self.scan = tree_map(lambda a: a.clone(), scan)
         self.lock = threading.Lock()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        bodies = branch.Bodies(state.x.device) if one else None
+        step = pipeline.step_core_one if one else pipeline.step_core_batch
+        what = "one-lane" if one else "lockstep"
         stream = torch.cuda.Stream(state.x.device)
         tape = []
         with _CAPTURE_LOCK:
             t0 = time.perf_counter()
             try:
-                with launch_tape.recording(tape), torch.cuda.graph(
-                        self.graph, stream=stream,
-                        capture_error_mode="thread_local"):
-                    new, self.out, pend = pipeline.step_core_batch(
-                        self.state, self.scan, cfg)
+                with launch_tape.recording(tape), \
+                        branch.recording(bodies), torch.cuda.graph(
+                            self.graph, stream=stream,
+                            capture_error_mode="thread_local"):
+                    if one:
+                        bodies.flags.zero_()
+                    new, self.out, pend = step(self.state, self.scan, cfg)
                     new = pipeline.apply_inserts_batched(new, pend, cfg)
                     _assign(self.state, new)
             except RuntimeError as e:
-                raise RuntimeError(f"the lockstep scan did not capture at "
+                raise RuntimeError(f"the {what} scan did not capture at "
                                    f"{_capture_site(e)}: {e}") from e
             capture_s = time.perf_counter() - t0
         raw = self.graph.raw_cuda_graph()
-        self.launches = graph_kernels.launches(raw)
-        if self.launches != launch_tape.launches(tape):
-            unnamed = graph_kernels.kernel_names(raw)[graph_kernels.UNNAMED]
-            raise RuntimeError(
-                f"the captured scan holds the kernel nodes "
-                f"{dict(self.launches)} of ours ({unnamed} kernel nodes "
-                f"unnamed), its wrappers issued "
-                f"{dict(launch_tape.launches(tape))}")
+        graphs = [raw] + ([] if bodies is None else bodies.graphs)
+        found = [graph_kernels.launches(g) for g in graphs]
+        noted = [launch_tape.launches(tape, body=i - 1 if i else None)
+                 for i in range(len(graphs))]
+        for i, (got, want) in enumerate(zip(found, noted)):
+            if got != want:
+                where = f"body {i - 1}" if i else "top level"
+                unnamed = graph_kernels.kernel_names(
+                    graphs[i])[graph_kernels.UNNAMED]
+                raise RuntimeError(
+                    f"the captured scan holds the kernel nodes "
+                    f"{dict(got)} of ours at its {where} ({unnamed} kernel "
+                    f"nodes unnamed), its wrappers issued {dict(want)}")
+        self.launches, self.body_launches = found[0], found[1:]
+        self.flags = None if bodies is None else bodies.flags[:len(bodies)]
         self.tape = tape
         t0 = time.perf_counter()
         self.graph.instantiate()
         # capture plus instantiation, the node census left out
         self.capture_s = capture_s + time.perf_counter() - t0
+        # set last, so the graph and the tensors the capture made go
+        # before the bodies' memory pools when the runner goes
+        self.bodies = bodies
 
     def run(self, scan):
         _assign(self.scan, scan)
@@ -435,16 +492,23 @@ class _ScanGraph:
         launch_tape.play(self.tape)
         return self.out
 
+    def count_bodies(self, runs):
+        """Add the launches and call counts of the IF nodes' bodies over
+        replays in which body i ran `runs[i]` times."""
+        for keyed, n in zip(self.body_launches, runs):
+            graph_kernels.count(keyed, times=n)
+        launch_tape.play(self.tape, times=0, runs=runs)
 
-def _replay_graph(states, scans, cfg):
-    """`_replay_eager` on the card through the cached graph of the
-    lockstep scan (see the module docstring); the caller's `states` are
-    left as they were, and the returned state owns its memory."""
+
+def _replay_graph(states, scans, cfg, one=False):
+    """`_replay_eager` on the card through the cached graph of one scan
+    (see the module docstring); the caller's `states` are left as they
+    were, and the returned state owns its memory."""
     dev = states.x.device
     scans = tree_map(lambda a: torch.as_tensor(a, device=dev), scans)
     T = scans.pts.shape[0]
     at = lambda t: tree_map(lambda a: a[t], scans)
-    key = (cfg, _signature(states), _signature(at(0)))
+    key = (cfg, one, _signature(states), _signature(at(0)))
     with _GRAPHS_LOCK:
         runner = _GRAPHS.get(dev)
         if runner is not None and runner.key != key:
@@ -452,19 +516,26 @@ def _replay_graph(states, scans, cfg):
             runner = None
     first = 0
     if runner is None:
-        # scan 0 eagerly on the graph's buffers-to-be: it builds every
-        # kernel and constant the capture then finds ready
+        # scan 0 through the lockstep step, on the graph's buffers-to-be:
+        # it runs every branch, so every kernel and constant a body may
+        # touch exists before the capture (and its bits are the one-lane
+        # step's)
         state = tree_map(lambda a: a.clone(), states)
         new, out0, pend = pipeline.step_core_batch(state, at(0), cfg)
         _assign(state, pipeline.apply_inserts_batched(new, pend, cfg))
-        runner = _ScanGraph(key, state, at(0), cfg)
+        runner = _ScanGraph(key, state, at(0), cfg, one)
         with _GRAPHS_LOCK:
             _GRAPHS[dev] = runner
         first = 1
     with runner.lock:
+        flags = runner.flags
+        hist = None if flags is None else torch.zeros(
+            (T,) + tuple(flags.shape), dtype=torch.int32, device=dev)
         if first == 0:
             _assign(runner.state, states)
             out0 = runner.run(at(0))
+            if hist is not None:
+                hist[0].copy_(flags)
         outs = tree_map(lambda a: torch.empty((T,) + tuple(a.shape),
                                               dtype=a.dtype, device=dev),
                         out0)
@@ -472,20 +543,27 @@ def _replay_graph(states, scans, cfg):
         for t in range(1, T):
             out = runner.run(at(t))
             tree_map(lambda o, a: o[t].copy_(a), outs, out)
+            if hist is not None:
+                hist[t].copy_(flags)
+        if hist is not None:
+            # the one host read: how often each body ran
+            runner.count_bodies(hist.sum(dim=0).tolist())
+        runner.flag_history = hist
         final = tree_map(lambda a: a.clone(), runner.state)
     return final, outs
 
 
-def _replay_lockstep(states, scans, cfg):
+def _replay_lockstep(states, scans, cfg, one=False):
     """Replay a BATCH of sequences in lockstep on one device: through the
     cached CUDA graph of the lockstep scan on the card (`_replay_graph`;
     the caller's states are left as they were), op by op on the CPU
     (`_replay_eager`: the maps of `states` are updated in place).  states:
     LIOState with a leading batch axis B; scans: ScanInput laid out (T, B,
-    ...).  Returns (final states, StepOutput stacked as (T, B, ...))."""
+    ...).  With `one` (B == 1) through the one-lane step.  Returns (final
+    states, StepOutput stacked as (T, B, ...))."""
     if states.x.is_cuda:
-        return _replay_graph(states, scans, cfg)
-    return _replay_eager(states, scans, cfg)
+        return _replay_graph(states, scans, cfg, one)
+    return _replay_eager(states, scans, cfg, one)
 
 
 def ate_rmse(est_q, est_p, gt_R, gt_p):

@@ -35,7 +35,11 @@ within n u ||A||; whether it is bit-equal is printed) and torch.linalg.eigh
 SMs, and on stress matrices (0-9 sweeps); the replay's CUDA graph against the eager loop on
 tests/test_torch_batch.py's diverging lanes (discrete outputs equal, poses
 within 1e-5, the same launches), and two cached replays in a row with
-other states.
+other states.  The one-sequence step's CUDA-graph IF nodes: a nested
+program of branches against op by op (chip_smoke.py phase 1c), the
+one-lane graph bit-equal to the lockstep graph at one lane and counting
+the launches the one-lane loop issues, and a capture failure that raises
+and caches nothing (in a process of its own).
 """
 
 import dataclasses
@@ -982,3 +986,143 @@ def test_new_key_replaces_the_cached_graph_on_card():
     assert len(replay._GRAPHS) == 1 and gone() is None
     _same_run(got, want, "the new key's graph vs eager")
     replay.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_if_nodes_nest_capture_and_replay_on_card():
+    """chip_smoke.py phase 1c: a program of one-lane branches (two-way
+    and identity conds, a loop nested in a cond, a cuBLAS product and a
+    sort inside bodies) captured once as nested CUDA-graph IF nodes and
+    replayed at every combination of its predicates, bit-equal to the same
+    calls op by op, each node's flag its predicate there."""
+    import chip_smoke
+
+    res = chip_smoke.check_if_nodes(_device())
+    assert res["if_nodes"] == 8 and res["cases"] == 12
+
+
+def _one_lane_hall(dev, T=14):
+    from mmloam_tpu_torch import pipeline, replay
+    from mmloam_tpu_torch.config import tiny_config
+    from mmloam_tpu_torch.data import synthetic
+
+    cfg = tiny_config()
+    scans = replay.make_sequence(
+        synthetic.default_world(), synthetic.Trajectory(speed=0.8, z_amp=0.15),
+        0.0, T, cfg, n_az=360, dtype=np.float32, range_noise=0.003, seed=1,
+        device=dev)[0]
+    return cfg, scans, lambda: pipeline.init_state(cfg, device=dev)
+
+
+@pytest.mark.cuda
+def test_one_lane_graph_is_the_lockstep_graph_on_card():
+    """`replay.replay` captures the one-lane step with IF nodes (its own
+    cache key beside the lockstep graph's) and replays it: bit-equal to
+    `replay_batch` at one lane in every output and the final state, maps
+    included; a cached replay counts the launches the one-lane loop op by
+    op issues on the same inputs, from the bodies that ran."""
+    from mmloam_tpu_torch import pipeline, replay
+    from mmloam_tpu_torch.ops import eigh
+    from mmloam_tpu_torch.tree import tree_map
+
+    dev = _device()
+    replay.clear_graphs()
+    cfg, scans, init = _one_lane_hall(dev)
+    final, outs = replay.replay(init(), scans, cfg)
+    (runner,) = replay._GRAPHS.values()
+    assert runner.key[1] is True and len(runner.bodies) > 0
+    lane = tree_map(lambda a: a[:, None], scans)
+    lfinal, louts = replay.replay_batch(pipeline._lane(init()), lane, cfg)
+    (lrunner,) = replay._GRAPHS.values()
+    assert lrunner.key[1] is False and lrunner.flags is None
+    for f in outs._fields:
+        assert torch.equal(getattr(outs, f), getattr(louts, f)[:, 0]), f
+    for a, b in zip(replay._leaves(final),
+                    replay._leaves(pipeline._unlane(lfinal))):
+        assert torch.equal(a, b)
+    replay.clear_graphs()
+    replay.replay(init(), scans, cfg)            # capture
+    c0 = _counts() + (assoc.RESCUE_LAUNCHES,)
+    again, outs2 = replay.replay(init(), scans, cfg)
+    torch.cuda.synchronize()
+    c1 = _counts() + (assoc.RESCUE_LAUNCHES,)
+    replay._replay_eager(pipeline._lane(init()), lane, cfg, one=True)
+    torch.cuda.synchronize()
+    c2 = _counts() + (assoc.RESCUE_LAUNCHES,)
+    d = tuple(b - a for a, b in zip(c0, c1))
+    assert d == tuple(b - a for a, b in zip(c1, c2))
+    # the cached replay's K2 launches: a call's own and its rescue's
+    assert d[1] == d[2] + d[4] and d[4] == d[2] > 0
+    T = scans.pts.shape[0]
+    assert c1[0] - c0[0] == 4 * T and c1[3] - c0[3] == 2 * (T - 1)
+    for f in outs._fields:
+        assert torch.equal(getattr(outs, f), getattr(outs2, f)), f
+    assert eigh.LAUNCHES > 0
+    replay.clear_graphs()
+
+
+_FAILING_CAPTURE = """
+import numpy as np, torch
+from mmloam_tpu_torch import pipeline, replay
+from mmloam_tpu_torch.config import tiny_config
+from mmloam_tpu_torch.data import synthetic
+from mmloam_tpu_torch.estimator import solver
+cfg = tiny_config()
+dev = torch.device("cuda", 0)
+scans = replay.make_sequence(
+    synthetic.default_world(), synthetic.Trajectory(speed=0.8, z_amp=0.15),
+    0.0, 3, cfg, n_az=360, dtype=np.float32, device=dev)[0]
+damped = solver._damped_solve
+
+def reads_the_device(*a, **k):
+    dx = damped(*a, **k)
+    if torch.cuda.is_current_stream_capturing():
+        float(dx.sum())
+    return dx
+
+solver._damped_solve = reads_the_device
+try:
+    replay.replay(pipeline.init_state(cfg, device=dev), scans, cfg)
+except RuntimeError as e:
+    print("RAISED", str(e).splitlines()[0], "CACHED", len(replay._GRAPHS),
+          flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_one_lane_capture_failure_raises_on_card():
+    """An op that reads the device on the host inside a branch fails the
+    capture: `replay.replay` raises and names it, and no graph is cached
+    (nothing falls back to the lockstep graph).  In a process of its own,
+    ended once it has printed what was raised: after a failed capture
+    torch (2.11) keeps the capture's allocator routing, and the process's
+    teardown of its memory pools aborts or hangs."""
+    import os
+    import queue
+    import subprocess
+    import sys
+    import threading
+
+    _device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.Popen([sys.executable, "-c", _FAILING_CAPTURE], cwd=root,
+                         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                         text=True)
+    lines = queue.Queue()
+
+    def read():
+        for ln in p.stdout:
+            lines.put(ln)
+        lines.put(None)                 # the process ended
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        line = lines.get(timeout=600)
+        while line is not None and not line.startswith("RAISED"):
+            line = lines.get(timeout=600)
+    finally:
+        p.kill()
+        p.wait(timeout=60)
+    assert line is not None, "the failed capture raised nothing"
+    assert "the one-lane scan did not capture at estimator/solver.py" \
+        in line and line.rstrip().endswith("CACHED 0"), line

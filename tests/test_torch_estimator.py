@@ -95,11 +95,13 @@ def _window():
     init_inputs = []
     orig = tp._try_init
 
-    def spy(state, cfg, attempt):
-        # every step runs the init branch; the attempt flags its lanes
-        if bool(attempt[0]):
+    def spy(state, cfg, attempt, one=False):
+        # the one-sequence step (`one`) enters the init branch only at an
+        # attempt; the lockstep step enters it every step, the attempt
+        # flagging its lanes
+        if one or bool(attempt[0]):
             init_inputs.append(_np(_unlane(state)))
-        return orig(state, cfg, attempt)
+        return orig(state, cfg, attempt, one)
 
     tp._try_init = spy
     try:

@@ -159,7 +159,9 @@ def test_cache_keeps_one_graph_a_device(monkeypatch):
     made = []
 
     class Capture:
-        def __init__(self, key, state, scan, cfg):
+        flags = None                    # no IF nodes: the lockstep scan
+
+        def __init__(self, key, state, scan, cfg, one=False):
             self.key, self.state, self.cfg = key, state, cfg
             self.lock = threading.Lock()
             made.append(weakref.ref(self))
