@@ -61,7 +61,13 @@ Phases (any failure ends the run with a non-zero exit code):
    inputs, timed, launching our kernels as often as the graph; then B=16
    x T=8 (bench.py's batch) through the graph: finite poses, ATE < 0.15
    m per lane, K1 4*T launches, and as many K2 launches a lockstep scan
-   as at B=4, and its eager loop timed;
+   as at B=4, and its eager loop timed.  The first run's outputs, final
+   maps and lanes' ATE are held against the reference's golden
+   (tests/golden/flagship_lio.npz, its ``batch`` run: these inputs
+   through the JAX package's `replay_batch` on the CPU) under the bounds
+   `scripts/make_flagship_golden.compare` states (`hold_to_golden`:
+   flags exact, counts, poses, maps and ATE within the floors and twice
+   the reference's own spread at bench.py's input perturbations);
 5. K2 and each of its stages against the plain version at flagship shapes
    with the main path's lane axis: every lane of phase 4's final state
    (B=4) in one launch, each lane its own maps (built by K1), its own
@@ -192,9 +198,15 @@ Phases (any failure ends the run with a non-zero exit code):
    by name as the bodies that ran hold them, busy share; logged, not
    held, where the profiler dropped our records this late in the
    process), capture seconds and IF nodes, scans/sec and peak memory of
-   the cached call.
+   the cached call.  The first call is held against the golden's ``one``
+   run as phase 4's against ``batch``;
+16. the reference's street drive (scripts/street_drive.py: `LIOConfig()`,
+   `street_world`, 500 scans, range noise 0.004) through `replay.replay`
+   on the card: finite poses, K1 4 a scan, K2 counts as phase 4, and every
+   output, the final maps and the ATE held against the golden's
+   ``street`` run as phase 4's against ``batch``.
 
-Phases 4, 10, 12 and 15 count the launches of each kernel instance
+Phases 4, 10, 12, 15 and 16 count the launches of each kernel instance
 (`map_insert.INSTANCE_LAUNCHES`, `assoc.INSTANCE_LAUNCHES`, set to 0
 just before the replay and read just after); each checks that its maps
 ran the instances their geometry picks.  On the card a replay's launches
@@ -241,6 +253,7 @@ FAITHFUL_ATE_MAX = 0.5
 K2_TIMED_CASE = "surf persistent fresh bf16=1 scatter=0.01"
 KERNEL_SOURCES = ("map_insert.cu", "assoc.cu", "eigh.cu", "branch.cu")
 ONE_LANE_T = 40               # phase 15: tests/test_flagship.py's scans
+STREET_T = 500                # phase 16: scripts/street_drive.py's scans
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -627,6 +640,48 @@ def _ate(pose_p, t, gt_R, gt_p):
     return float(np.sqrt(((pose_p - gt_rel[idx]) ** 2).sum(1).mean()))
 
 
+def golden_module():
+    """scripts/make_flagship_golden.py (numpy only at its top level): the
+    flagship golden's runs, digests and bounds."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_flagship_golden",
+        os.path.join(ROOT, "scripts", "make_flagship_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def hold_to_golden(label, run, outs, final, scans, gts, n=None):
+    """Hold a run of the port on the card against the reference's golden
+    run `run` (tests/golden/flagship_lio.npz) under the bounds
+    `make_flagship_golden.compare` states: outputs `outs` over the first
+    `n` scans, the inputs `scans` (tensors), and for a full run the
+    `final` state's maps and the ATE against `gts`.  Logs each field's
+    largest difference beside its bound, the first scan over a bound and
+    the horizon, with the card; raises if a bound is left."""
+    from mmloam_tpu_torch.tree import tree_map
+
+    fg = golden_module()
+    to_np = lambda a: a.detach().cpu().numpy()
+    got = fg.result(outs, final, tree_map(to_np, scans), gts, to_np)
+    bad, seen = fg.compare(fg.load()[run], got, n=n)
+    keys = [k for k in seen if not k.endswith(("_bound", "_first_over",
+                                               "_horizon"))]
+    log(f"  {label} against the reference's golden ({run}, "
+        f"{card_line()}): " + ", ".join(
+            f"{k} {seen[k]:.4g}/{seen[k + '_bound']:.4g}"
+            + (f" (from scan {seen[k + '_first_over']})"
+               if seen[k + "_first_over"] is not None else "")
+            for k in keys)
+        + f"; pose_p horizon {seen['pose_p_horizon']}")
+    if bad:
+        raise AssertionError(f"{label}: the port left the golden's bounds: "
+                             f"{bad}")
+    return seen
+
+
 def _reset_counts():
     """Every launch and call counter of K1, K2 and K3 to 0."""
     from mmloam_tpu_torch.ops import assoc, eigh, map_insert
@@ -910,6 +965,7 @@ def check_flagship(dev):
             raise AssertionError(f"lane {b} surf occupancy {occ}")
     if not np.isfinite(pose).all():
         raise AssertionError("non-finite poses")
+    golden = hold_to_golden("replay_batch", "batch", outs, st, scans, gts)
     if launches != 4 * T or graph_counts["k3"] != 2 * T:
         raise AssertionError(f"K1 launched {launches} times, K3 "
                              f"{graph_counts['k3']}: want {4 * T}, {2 * T}")
@@ -969,7 +1025,7 @@ def check_flagship(dev):
                 eager_secs=eager_secs, eager_scans_per_sec=B * T / eager_secs,
                 peak_bytes=dict(first=peak_first, graph=peak_graph,
                                 eager=peak_eager),
-                replayed_scan=trace, lanes=per_lane,
+                replayed_scan=trace, lanes=per_lane, golden=golden,
                 wide=wide), lanes, marg
 
 
@@ -2809,6 +2865,8 @@ def check_one_lane(dev):
         raise AssertionError(f"phase 15: surf occupancy {occ}")
     if not n_surf > 500:
         raise AssertionError(f"phase 15: n_surf max {n_surf}")
+    golden = hold_to_golden("replay (one lane)", "one", outs, final, scans,
+                            [(gt_R, gt_p)])
 
     # the cached graph: every scan replayed, none read on the host
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2893,7 +2951,51 @@ def check_one_lane(dev):
                 instances=dict(k1=first_counts["k1_instances"],
                                k2=first_counts["k2_instances"]),
                 cached_launches=graph_counts, k2_per_scan=k2_scans,
-                bodies_run_per_scan=ran, replayed_scan=trace)
+                bodies_run_per_scan=ran, replayed_scan=trace, golden=golden)
+
+
+def check_street(dev):
+    """Phase 16 (see the module docstring): the reference's street drive,
+    STREET_T scans through `replay.replay` on the card, against the
+    golden's street run."""
+    from mmloam_tpu_torch import pipeline, replay
+    from mmloam_tpu_torch.config import LIOConfig
+    from mmloam_tpu_torch.data import synthetic
+
+    cfg = LIOConfig()
+    fg = golden_module()
+    t0 = time.perf_counter()
+    np_scans, gts = fg.build("street", replay.make_sequence, synthetic, cfg,
+                             n_scans=STREET_T)
+    scans = pipeline.scan_from_numpy(np_scans, dev)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    final, outs = replay.replay(pipeline.init_state(cfg, device=dev), scans,
+                                cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _run_counts()
+    _check_k2_counts("street drive")
+    pose = outs.pose_p.cpu().numpy()
+    log(f"  street drive: {STREET_T} scans built in {build_s:.1f} s, "
+        f"replayed in {secs:.1f} s ({STREET_T / secs:.2f} scans/sec, scan "
+        f"0 and the capture included), ATE "
+        f"{_ate(pose, outs.t.cpu().numpy(), *gts[0]):.4f} m; launches "
+        f"{counts}")
+    if not np.isfinite(pose).all():
+        raise AssertionError("phase 16: non-finite poses")
+    if counts["k1"] != 4 * STREET_T:
+        raise AssertionError(f"phase 16: K1 {counts['k1']}, want "
+                             f"{4 * STREET_T}")
+    full = STREET_T == fg.RUNS["street"][3]
+    golden = hold_to_golden("street drive", "street", outs,
+                            final if full else None, scans, gts,
+                            n=STREET_T)
+    return dict(T=STREET_T, build_s=build_s, secs=secs, launches=counts,
+                instances=dict(k1=counts["k1_instances"],
+                               k2=counts["k2_instances"]), golden=golden)
 
 
 def _bit_equal(outs, outs_ref, final, final_ref):
@@ -2912,13 +3014,14 @@ def _bit_equal(outs, outs_ref, final, final_ref):
 # replay phases whose runs launch it on the path they drive, where its times
 # come from: a K1 case of phase 2 or 9, or a K2 case of phase 5 or 9)
 INSTANCE_ROWS = (
-    ("map_insert_rmw", "k1", "default", ("phase 4", "phase 15"),
+    ("map_insert_rmw", "k1", "default",
+     ("phase 4", "phase 15", "phase 16"),
      ("k1", "persistent")),
     ("map_insert_rows", "k1", "rows", ("phase 10", "phase 12"),
      ("packs_k1", "pack222 persistent")),
     ("map_insert_groups", "k1", "groups", ("phase 10",),
      ("packs_k1", "pack111 persistent")),
-    ("assoc", "k2", "default", ("phase 4", "phase 15"),
+    ("assoc", "k2", "default", ("phase 4", "phase 15", "phase 16"),
      ("k2", K2_TIMED_CASE)),
     ("assoc_regs4", "k2", "regs4", ("phase 10",),
      ("packs_k2", "pack111 " + K2_TIMED_CASE)),
@@ -2965,21 +3068,23 @@ def kernel_rows(k1_err, k2_err, k1_timing, k2_timing, packs, paths):
     return rows
 
 
-def eigh_row(flag, eig, one_lane):
-    """K3's row of the kernels line: its launches in phase 4's and phase
-    15's graph runs, its error and times from phase 14 (one launch over
-    phase 4's four lanes' Amm)."""
+def eigh_row(flag, eig, one_lane, street):
+    """K3's row of the kernels line: its launches in phase 4's, phase 15's
+    and phase 16's graph runs, its error and times from phase 14 (one
+    launch over phase 4's four lanes' Amm)."""
     t = eig["timing"]
-    for name, n in (("phase 4", flag["k3_launches"]),
-                    ("phase 15", one_lane["launches"]["k3"])):
+    paths = {"phase 4": flag["k3_launches"],
+             "phase 15": one_lane["launches"]["k3"],
+             "phase 16": street["launches"]["k3"]}
+    for name, n in paths.items():
         if n == 0:
             raise AssertionError(f"eigh launched no time in {name}")
     return {"name": "eigh", "route": "cuda",
             "source": "mmloam_tpu_torch/csrc/eigh.cu",
             "replaces": "mmloam_tpu/estimator/solver.py:368",
             "instance": "default",
-            "launches": flag["k3_launches"] + one_lane["launches"]["k3"],
-            "paths": ["phase 4", "phase 15"], "max_abs_err": t["max_abs_err"],
+            "launches": sum(paths.values()),
+            "paths": list(paths), "max_abs_err": t["max_abs_err"],
             "case": EIGH_TIMED_CASE, "ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3087,12 +3192,17 @@ def main():
           "(the one-lane step, IF nodes in the graph)")
     one_lane = check_one_lane(dev)
 
+    phase("phase 16: the reference's street drive through replay against "
+          "the golden")
+    street = check_street(dev)
+
     phase("all phases passed")
     kernels = {"kernels": kernel_rows(
         max_err, k2_err, k1_timing, k2_timing, packs,
         {"phase 4": flag["instances"], "phase 10": pack_replay["instances"],
-         "phase 12": wide["instances"], "phase 15": one_lane["instances"]}
-    ) + [eigh_row(flag, eig, one_lane)]}
+         "phase 12": wide["instances"], "phase 15": one_lane["instances"],
+         "phase 16": street["instances"]}
+    ) + [eigh_row(flag, eig, one_lane, street)]}
     os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chip_smoke_out", "chip_smoke.json"),
               "w") as f:
@@ -3100,7 +3210,8 @@ def main():
                        flagship=flag, faithful=faithful, recorded=recorded,
                        modes=modes, packs=packs, pack_replay=pack_replay,
                        split=split, wide=wide, lanes=lanes, eigh=eig,
-                       if_nodes=if_nodes, one_lane=one_lane), f, indent=1)
+                       if_nodes=if_nodes, one_lane=one_lane, street=street),
+                  f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,10 @@
 // here because the port's torch may not have it.
 //
 // Both functions return 0 or the CUDA error; -1 where `stream` is not
-// capturing.
+// capturing.  An error is returned, not left as the thread's last error
+// too (`fail`): a later launch check (`cudaGetLastError`, as after the
+// handle kernel here) would read it, and a capture after a failed one
+// would fail at its first node.
 
 #include <cuda_runtime.h>
 
@@ -38,6 +41,11 @@ cudaError_t capture_info(cudaStream_t s, cudaStreamCaptureStatus* status,
 #endif
 }
 
+int fail(cudaError_t err) {
+  cudaGetLastError();
+  return err;
+}
+
 }  // namespace
 
 extern "C" int if_node_begin(void* stream, void* body_stream,
@@ -49,17 +57,17 @@ extern "C" int if_node_begin(void* stream, void* body_stream,
   const cudaGraphNode_t* deps = nullptr;
   size_t n = 0;
   cudaError_t err = capture_info(s, &status, &graph, &deps, &n);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return fail(err);
   if (status != cudaStreamCaptureStatusActive) return -1;
   cudaGraphConditionalHandle handle;
   err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return fail(err);
   set_if_kernel<<<1, 1, 0, s>>>(handle, static_cast<const bool*>(pred));
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return fail(err);
   // the node depends on what the stream's capture ends in now: the kernel
   err = capture_info(s, &status, &graph, &deps, &n);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return fail(err);
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
@@ -71,7 +79,7 @@ extern "C" int if_node_begin(void* stream, void* body_stream,
 #else
   err = cudaGraphAddNode(&node, graph, deps, n, &params);
 #endif
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return fail(err);
   // what the stream captures next depends on the node
 #if CUDART_VERSION >= 13000
   err = cudaStreamUpdateCaptureDependencies(
@@ -80,17 +88,19 @@ extern "C" int if_node_begin(void* stream, void* body_stream,
   err = cudaStreamUpdateCaptureDependencies(
       s, &node, 1, cudaStreamSetCaptureDependencies);
 #endif
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return fail(err);
   cudaGraph_t body = params.conditional.phGraph_out[0];
   err = cudaStreamBeginCaptureToGraph(
       static_cast<cudaStream_t>(body_stream), body, nullptr, nullptr, 0,
       cudaStreamCaptureModeThreadLocal);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return fail(err);
   *body_out = reinterpret_cast<unsigned long long>(body);
   return 0;
 }
 
 extern "C" int if_node_end(void* body_stream) {
   cudaGraph_t body;
-  return cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body);
+  cudaError_t err =
+      cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &body);
+  return err == cudaSuccess ? 0 : fail(err);
 }

@@ -135,9 +135,50 @@ def localizability_ntn(NtN, n, cfg):
                                          sv_min)
 
 
+def localizability(normals, valid, cfg):
+    """Min singular value of stacked plane normals (K, 3) over `valid`
+    (K,): `localizability_ntn` over the Gram matrix of the valid ones."""
+    w = normals * valid.to(normals.dtype)[..., None]
+    NtN = w.transpose(-1, -2) @ w
+    return localizability_ntn(NtN, torch.sum(valid, dim=-1), cfg)
+
+
 # --------------------------------------------------------------------------
 # residuals
 # --------------------------------------------------------------------------
+
+def _safe_norm(v, eps=1e-12):
+    """|v| over the last axis with a finite gradient at v = 0: a residual
+    passing exactly through zero would otherwise poison the normal
+    equations with one NaN Jacobian row."""
+    return torch.sqrt(torch.sum(v * v, dim=-1) + eps)
+
+
+def _weight_denominator(pw):
+    """|P|^(1/2) of the world points, floored (ceresfunc.h:433-437)."""
+    return torch.sqrt(torch.clamp(torch.sqrt(torch.sum(pw * pw, dim=-1)),
+                                  min=1e-6))
+
+
+def line_residual(x6, tgt: LineTargets, Rbl, tbl):
+    """Point-to-line residuals (K,) in lidar_m units
+    (Cost_NavState_IMU_Line, ceresfunc.h:415-441): the distance to the
+    line, reweighted by 1 - 0.9 |d| / |P|^(1/2)."""
+    pw = _world_points(x6, tgt.p_l, Rbl, tbl)
+    d = _safe_norm(lie.cross(pw - tgt.c, tgt.u))
+    w = 1.0 - 0.9 * torch.abs(d) / _weight_denominator(pw)
+    return torch.where(tgt.valid, w * d, torch.zeros_like(d))
+
+
+def plane_residual(x6, tgt: PlaneTargets, Rbl, tbl):
+    """Projected-point plane residuals (K, 3) in lidar_m units
+    (Cost_NavState_IMU_Plan_Vec, ceresfunc.h:536-556)."""
+    pw = _world_points(x6, tgt.p_l, Rbl, tbl)
+    r0 = pw - tgt.proj
+    w = 1.0 - 0.9 * _safe_norm(r0) / _weight_denominator(pw)
+    r = _mv(tgt.sqrt_info, w[..., None] * r0)
+    return torch.where(tgt.valid[..., None], r, torch.zeros_like(r))
+
 
 def _imu_terms(xi, xj, meas, gravity):
     Pi, phii, Vi = xi[..., 0:3], xi[..., 3:6], xi[..., 6:9]
@@ -166,6 +207,13 @@ def _imu_terms(xi, xj, meas, gravity):
                 J_r_bg=J_r_bg, J_v_bg=J_v_bg, J_v_ba=J_v_ba, u_p=u_p,
                 u_v=u_v, eps=eps, M=Mrel, rPhi=rPhi, r_raw=r_raw,
                 phii=phii, phij=phij)
+
+
+def imu_residual(xi, xj, meas, gravity):
+    """15-dim preintegration residual (Cost_NavState_PRV_Bias,
+    ceresfunc.h:330-375), left-multiplied by the scaled sqrt-info; the
+    residual `imu_residual_and_jac` returns beside its Jacobian."""
+    return _mv(meas["sqrt_info"], _imu_terms(xi, xj, meas, gravity)["r_raw"])
 
 
 def imu_residual_and_jac(xi, xj, meas, gravity):

@@ -106,6 +106,13 @@ def extract_scan_features(pts, intensity, n_valid, cfg):
     return labels.reshape(tuple(pts.shape[:-3]) + (L, N))
 
 
+def extract_line_features(pts, intensity, n_valid, cfg):
+    """Feature labels for one padded scan line: pts (N, 3), intensity
+    (N,), n_valid () -> int32 labels (N,): 0 none, 1 corner, 2 surf."""
+    n = torch.as_tensor(n_valid, device=pts.device).reshape(1)
+    return _line_labels(pts[None], intensity[None], n, cfg)[0]
+
+
 def _line_labels(pts, intensity, n_valid, cfg):
     """`extract_scan_features` of lines pts (L, N, 3)."""
     f = cfg.feature

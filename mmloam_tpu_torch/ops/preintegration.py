@@ -143,6 +143,64 @@ def preintegrate(acc, gyr, dt, mask, bg, ba, imu_cfg) -> PreintResult:
                         bg, ba)
 
 
+def preintegrate_sequential(acc, gyr, dt, mask, bg, ba,
+                            imu_cfg) -> PreintResult:
+    """The literal sequential transcription of IMUIntegrator.cpp:108-166,
+    a loop over the samples of acc, gyr (..., M, 3), dt, mask (..., M):
+    the ground truth `preintegrate`'s parallel formulation is tested
+    against.  Masked samples leave the accumulators as they were."""
+    dtype, dev = acc.dtype, acc.device
+    noise = _noise_matrix(imu_cfg, dtype, dev)
+    lead = tuple(acc.shape[:-2])
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    dq = lie.const((1.0, 0.0, 0.0, 0.0), dtype, dev).expand(lead + (4,))
+    dp = torch.zeros(lead + (3,), dtype=dtype, device=dev)
+    dv = torch.zeros_like(dp)
+    cov = torch.zeros(lead + (15, 15), dtype=dtype, device=dev)
+    jac = torch.eye(15, dtype=dtype, device=dev).expand(cov.shape)
+    for k in range(acc.shape[-2]):
+        m = mask[..., k]
+        dt_i = torch.where(m, dt[..., k], torch.zeros_like(dt[..., k]))
+        dt_i = dt_i.to(dtype)[..., None]
+        a = acc[..., k, :] * imu_cfg.gnorm - ba
+        w = gyr[..., k, :] - bg
+        dt2 = dt_i * dt_i
+        w_dt = w * dt_i
+        dR = lie.exp_matrix(w_dt)
+        Jr = lie.right_jacobian(w_dt)
+        Rk = lie.quat_to_matrix(dq)
+        Ra_hat = Rk @ lie.hat(a)
+        s, s2 = dt_i[..., None], dt2[..., None]
+
+        A = torch.eye(15, dtype=dtype, device=dev).repeat(lead + (1, 1))
+        A[..., 0:3, 3:6] = -0.5 * Ra_hat * s2
+        A[..., 0:3, 6:9] = eye3 * s
+        A[..., 0:3, 12:15] = -0.5 * Rk * s2
+        A[..., 3:6, 3:6] = dR.transpose(-1, -2)
+        A[..., 3:6, 9:12] = -Jr * s
+        A[..., 6:9, 3:6] = -Ra_hat * s
+        A[..., 6:9, 12:15] = -Rk * s
+        B = torch.zeros(lead + (15, 12), dtype=dtype, device=dev)
+        B[..., 0:3, 3:6] = 0.5 * Rk * s2
+        B[..., 3:6, 0:3] = Jr * s
+        B[..., 6:9, 3:6] = Rk * s
+        B[..., 9:12, 6:9] = eye3 * s
+        B[..., 12:15, 9:12] = eye3 * s
+
+        Ra = lie.mv(Rk, a)
+        keep = m[..., None]
+        jac = torch.where(keep[..., None], A @ jac, jac)
+        cov = torch.where(keep[..., None], A @ cov @ A.transpose(-1, -2)
+                          + B @ noise @ B.transpose(-1, -2), cov)
+        dp = torch.where(keep, dp + dv * dt_i + 0.5 * Ra * dt2, dp)
+        dv = torch.where(keep, dv + Ra * dt_i, dv)
+        dq = torch.where(keep, lie.quat_normalize(
+            lie.quat_mul(dq, lie.exp_quat(w_dt))), dq)
+    dtime = torch.sum(torch.where(mask, dt, torch.zeros_like(dt)),
+                      dim=-1).to(dtype)
+    return PreintResult(dq, dp, dv, cov, jac, dtime, bg, ba)
+
+
 def gyro_integrate(gyr, dt, mask):
     """Orientation-only integration (IMUIntegrator.cpp:90-106), log-depth,
     of gyr (..., M, 3), dt, mask (..., M)."""

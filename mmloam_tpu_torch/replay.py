@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import threading
 import time
 import traceback
@@ -409,6 +410,33 @@ def _capture_site(exc):
     return site
 
 
+def _end_routing(pool, dev):
+    """End the caching allocator's routing of this thread's allocations to
+    a graph's memory `pool` after its capture raised.  Torch ends it in
+    `capture_end` only after `cudaStreamEndCapture` succeeded, so a
+    capture that fails there (an op failed on the capture stream) leaves
+    it in place, and the next teardown of a memory pool aborts
+    (`captures_underway.empty()` in `~MemPool`).  A capture that ended
+    (an error raised in a valid capture, or in an IF node's body) has
+    ended its routing already."""
+    try:
+        torch._C._cuda_endAllocateToPool(dev.index, pool)
+    except RuntimeError:
+        pass
+
+
+def _abandon(graph):
+    """Keep a one-lane graph whose capture failed alive for the life of
+    the process.  Where an op fails inside an IF node's body, the driver
+    frees the body graph with its invalidated capture but the node keeps
+    pointing at it, and destroying the graph then crashes the process
+    (torch 2.11 with the CUDA 12.8 runtime on an H100: "free(): invalid
+    pointer" or a segfault in `CUDAGraph.reset`, or a hang).  So the
+    graph object is never released: a few KB of host memory a failed
+    capture; its tensors' memory pools go."""
+    ctypes.pythonapi.Py_IncRef(ctypes.py_object(graph))
+
+
 class _ScanGraph:
     """One scan captured as a CUDA graph on static buffers: on the static
     state and scan, the lockstep step (`pipeline.step_core_batch`) or,
@@ -443,13 +471,19 @@ class _ScanGraph:
         step = pipeline.step_core_one if one else pipeline.step_core_batch
         what = "one-lane" if one else "lockstep"
         stream = torch.cuda.Stream(state.x.device)
+        # the graph's private pool, named here: a failed capture has none
+        # to ask it for (`_end_routing`)
+        pool = torch.cuda.graph_pool_handle()
         tape = []
         with _CAPTURE_LOCK:
             t0 = time.perf_counter()
+            # the outer stream context gives the caller its stream back
+            # where the capture's own does not end (see _end_routing)
             try:
-                with launch_tape.recording(tape), \
+                with torch.cuda.stream(stream), \
+                        launch_tape.recording(tape), \
                         branch.recording(bodies), torch.cuda.graph(
-                            self.graph, stream=stream,
+                            self.graph, pool=pool, stream=stream,
                             capture_error_mode="thread_local"):
                     if one:
                         bodies.flags.zero_()
@@ -457,6 +491,9 @@ class _ScanGraph:
                     new = pipeline.apply_inserts_batched(new, pend, cfg)
                     _assign(self.state, new)
             except RuntimeError as e:
+                _end_routing(pool, state.x.device)
+                if one:
+                    _abandon(self.graph)
                 raise RuntimeError(f"the {what} scan did not capture at "
                                    f"{_capture_site(e)}: {e}") from e
             capture_s = time.perf_counter() - t0

@@ -79,7 +79,7 @@ def assert_maps(got, want, name, atol=SUM_ATOL):
 
 
 def check_teacher_step(rec, inited, cfg, scale=1.0, stack_rtol=0.0,
-                       map_atol=SUM_ATOL, count_slack=None):
+                       map_atol=SUM_ATOL, count_slack=None, vb_atol=1e-4):
     """The port's step_core (+ apply_inserts) from the reference's pre-step
     state `rec["state"]` against what the reference made of the scan.
     Float bounds are the default step's times `scale`; with `stack_rtol`,
@@ -88,7 +88,9 @@ def check_teacher_step(rec, inited, cfg, scale=1.0, stack_rtol=0.0,
     inserted map sums `map_atol`.  Every stack of the window (corner, surf
     and, under cfg.use_nonfeature, non) and every map is checked.
     `count_slack` ({output name: n}) lets a discrete count differ by at
-    most n, for a step whose allowance the caller states."""
+    most n, for a step whose allowance the caller states.  `vb_atol`
+    bounds the window's velocity and bias columns and the prior's
+    linearization point (times `scale`)."""
     count_slack = count_slack or {}
     sj, (cj_state, cj_out, cj_pend), aj = (rec["state"], rec["core"],
                                            rec["after"])
@@ -122,12 +124,12 @@ def check_teacher_step(rec, inited, cfg, scale=1.0, stack_rtol=0.0,
     # and move with the LM iterates' rounding, so they get 1e-4
     x, xj = np_(s1.x), cj_state.x
     np.testing.assert_allclose(x[:, 0:6], xj[:, 0:6], atol=POSE_ATOL * scale)
-    np.testing.assert_allclose(x[:, 6:15], xj[:, 6:15], atol=1e-4 * scale)
+    np.testing.assert_allclose(x[:, 6:15], xj[:, 6:15], atol=vb_atol * scale)
     np.testing.assert_array_equal(np_(s1.frame_valid), cj_state.frame_valid)
     np.testing.assert_array_equal(np_(s1.inited), cj_state.inited)
     np.testing.assert_array_equal(np_(s1.prior.valid), cj_state.prior.valid)
     np.testing.assert_allclose(np_(s1.prior.x0), cj_state.prior.x0,
-                               atol=1e-4 * scale)
+                               atol=vb_atol * scale)
     np.testing.assert_array_equal(np_(s1.kf_count), cj_state.kf_count)
     np.testing.assert_array_equal(np_(s1.kf_phase), cj_state.kf_phase)
     # lin_J/lin_r come out of an f32 Schur complement whose pseudo-inverse
