@@ -5,10 +5,8 @@ for one or more checkouts of the repository on one card, in turns.
         [--out kernel_ab.json]
 
 Each `--tree` is the root of a checkout (an unpacked `git archive` of an
-earlier commit, or `.`), with `@eager` after it for that tree's eager loop
-(`replay._replay_eager`) in place of its CUDA graph.  Each runs in a
-process of its own, in the order
-given, that imports that tree's `mmloam_tpu_torch` and this tree's
+earlier commit, or `.`).  Each runs in a process of its own, in the
+order given, that imports that tree's `mmloam_tpu_torch` and this tree's
 `chip_smoke.py` helpers, and measures:
 
 - first, while the process has traced nothing, the kernels of one call
@@ -17,23 +15,11 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   synthetic room at the main path's shapes: `factors.associate_planes`
   and `associate_lines` with the local rescue, `assoc.associate_with_rescue`
   where the tree has it, and `map_insert.insert_batched`;
-- then on the flagship `replay_batch` (LIOConfig(), B=4 x T=16 unless
+- then the flagship `replay_batch` (LIOConfig(), B=4 x T=16 unless
   `--batch`/`--scans` say otherwise, inputs as chip_smoke.py phase 4
-  builds them; on a tree with the CUDA graph, through the graph, and a
-  `--tree TREE@eager` child runs that tree's eager loop,
-  `replay._replay_eager`, instead): each lane's ATE (the warm-up run,
-  which on a graph tree also captures: its capture seconds), replay
-  scans/sec (then `--timed` timed runs, two by default; host clock
-  around work that ends in a synchronize), the peak device memory over
-  the timed runs, K1's and K2's launches per lockstep scan (the counters
-  over the first timed run), on a graph tree one replayed scan under
-  torch.profiler (`chip_smoke.replayed_scan_trace`: kernels, ours by
-  name, busy share), and, over the last two scans of a further run under
-  torch.profiler, the kernels per lockstep scan, the device busy share
-  (kernel device time over the profiled wall, and over the unprofiled
-  wall of the timed runs) and the host syncs per lockstep scan
-  (`aten::_local_scalar_dense` events, and those under
-  `aten::_linalg_eigh`, the named ones);
+  builds them) once, for the maps and stacks the cases below take, and
+  each lane's ATE (the replay's time is the benchmark's:
+  `benchmark/run.py`, and by layer `benchmark/layer_split.py`);
 - K2 on lane 0's maps (surf M=2048 fresh with blocks, surf from cached
   blocks, corner M=512 fresh): the kernel's device time (torch.profiler
   self device time over its launches, or a CUDA graph of 100 launches
@@ -42,16 +28,12 @@ given, that imports that tree's `mmloam_tpu_torch` and this tree's
   version (`assoc.associate_reference`) and the bound (chip_smoke.k2_work,
   from this run's inputs); one `associate_planes` / `associate_lines`
   call and `associate_with_rescue` alone, synchronised host clock;
-- where the tree has the batched step, the breakdown of a B x T=12
-  replay (B the replay's lanes) after a warm-up, on the eager loop (a
-  layer inside a graph has no host time of its own): a synchronize and a
-  host clock around each layer (`BREAKDOWN`);
 - K2's lane axis, where the tree has one: one fresh launch (surf, M=2048
   a lane, with blocks) over 4 and 16 lanes (the replay's lanes repeated),
   beside one launch on lane 0 alone;
 - K1 on chip_smoke.py phase 2's accumulate case (second insert) at B=16
   and B=4, N=2048, and on the main path's own insert (each lane's newest
-  surf stack into its persistent surf map after the warm-up run): device
+  surf stack into its persistent surf map after the replay): device
   time, launch incl. host, `insert_batched` per call, the plain
   `insert_batched_reference`, and the bound (chip_smoke.k1_bytes);
 - the kernels' general instances, as chip_smoke.py phase 9 times them:
@@ -72,23 +54,13 @@ child of the call decomposes the same matrices) and on chip_smoke's
 stress sets at B=16 and B=64: device µs (a CUDA graph of 100 launches),
 the slowest matrix's sweeps, rounds and µs a round
 (`chip_smoke.eigh_round_time`), and bit-equality with the tree's
-`jacobi_reference` on the finite lanes;
-`--replay-only --batch 1 --one` the replay rows of `replay.replay`, one
-sequence as a user with one bag runs it (on a tree before the one-lane
-step, the lockstep replay at one lane; after it, the graph with IF nodes),
-with the kernels and device time a scan over scans 1-2 (before
-initialization) beside those over the last two (after it);
-`--replay-only` the replay rows alone, and the breakdown in a child whose
-replay is the eager loop (`@eager`, or a tree without the graph)
-(a B=16 x T=8 call takes about 80 s a run on the parent tree:
-`--replay-only --batch 16 --scans 8 --timed 1`; one sequence alone, as
-`replay.replay` runs it: `--replay-only --batch 1`).
+`jacobi_reference` on the finite lanes.
 
 The kernels' launch functions differ between trees; where a tree has the
 older API (no `map_insert.sort_points`, no `assoc.associate_with_rescue`,
 K2 wrappers without a lane axis: no `assoc._check_lanes`) this script
-takes that tree's (`_up` gives one lane in the form the tree's K2 takes).  Prints one JSON line per tree and writes
-them all to `--out`.
+takes that tree's (`_up` gives one lane in the form the tree's K2 takes).
+Prints one JSON line per tree and writes them all to `--out`.
 """
 
 from __future__ import annotations
@@ -204,55 +176,6 @@ def _census(cs, cfg, dev):
     return out, inp
 
 
-def _syncs(prof):
-    """(host syncs, those under torch.linalg.eigh) in a profile: the
-    `aten::_local_scalar_dense` events, each a device value read on the
-    host."""
-    n = named = 0
-    for e in prof.events():
-        if e.name != "aten::_local_scalar_dense":
-            continue
-        n += 1
-        p = e.cpu_parent
-        while p is not None and "linalg_eigh" not in p.name:
-            p = p.cpu_parent
-        named += p is not None
-    return n, named
-
-
-def _runner(eager, one=False):
-    """The tree's replay: `replay_batch` (through the CUDA graph on a tree
-    that has one), or with `eager` the loop op by op (`_replay_eager`;
-    `replay_batch` on a tree without a graph, which is that loop); with
-    `one`, `replay.replay` on lane 0, as one sequence runs (states and
-    scans keep a lane axis of one outside)."""
-    from mmloam_tpu_torch import pipeline, replay
-    from mmloam_tpu_torch.tree import tree_map
-
-    if one:
-        def run(states, scans, cfg):
-            st, outs = replay.replay(pipeline._unlane(states),
-                                     tree_map(lambda a: a[:, 0], scans), cfg)
-            return pipeline._lane(st), tree_map(lambda a: a[:, None], outs)
-        return run
-    if eager:
-        return getattr(replay, "_replay_eager", replay.replay_batch)
-    return replay.replay_batch
-
-
-def _reset_counts():
-    """Every kernel counter the tree has (K1, K2, and K3 where it has
-    one) to 0."""
-    import importlib
-
-    for name in ("map_insert", "assoc", "eigh"):
-        try:
-            mod = importlib.import_module("mmloam_tpu_torch.ops." + name)
-        except ImportError:
-            continue
-        mod.reset_counts()
-
-
 def _clear_graphs():
     from mmloam_tpu_torch import replay
 
@@ -260,48 +183,22 @@ def _clear_graphs():
         replay.clear_graphs()
 
 
-def _profile_window(cs, run, st, scans, cfg):
-    """Device time and kernels of a replay of `scans` from `st` under
-    torch.profiler: (kernel device µs, kernels, host syncs, those under
-    eigh, profiled wall seconds)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(st, scans, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_events = [e for e in prof.key_averages()
-                  if "CUDA" in str(getattr(e, "device_type", ""))
-                  and cs._self_device_us(e) > 0]
-    dev_us = sum(cs._self_device_us(e) for e in dev_events)
-    syncs, named = _syncs(prof)
-    return dev_us, sum(e.count for e in dev_events), syncs, named, wall
-
-
-def _replay(cs, cfg, dev, B=4, T=16, timed=2, eager=False, one=False):
+def _replay(cs, cfg, dev, B=4, T=16):
+    """The flagship `replay_batch` whose final state the K1 and K2 cases
+    read: lane 0 (`_lane0`), the main path's own insert (each lane's
+    newest surf stack into its persistent surf map) and each lane's
+    ATE."""
     import torch
 
     from mmloam_tpu_torch import replay
     from mmloam_tpu_torch.estimator import factors
-    from mmloam_tpu_torch.ops import assoc, map_insert
 
-    if one and B != 1:
-        raise SystemExit("kernel_ab: --one replays one sequence (--batch 1)")
-    run = _runner(eager, one)
-    graphs = getattr(replay, "_GRAPHS", {})
-    loop = "eager" if eager or not hasattr(replay, "_GRAPHS") else "graph"
     scans, gts = cs.flagship_inputs(cfg, B, T, 7, dev)
-    st, outs = run(cs.fresh_states(cfg, B, dev), scans, cfg)
+    st, outs = replay.replay_batch(cs.fresh_states(cfg, B, dev), scans, cfg)
     torch.cuda.synchronize()
-    capture_s = [r.capture_s for r in graphs.values()]
     pose, ts = outs.pose_p.cpu().numpy(), outs.t.cpu().numpy()
     ate = [cs._ate(pose[:, b], ts[:, b], *gts[b]) for b in range(B)]
     lane0 = _lane0(cs, st)
-    # the main path's own insert: each lane's newest surf stack into its
-    # persistent surf map
     W = cfg.solver.window
     pw = torch.stack([factors._world_points(
         st.x[b, W - 1, :6], st.stacks.surf[b, W - 1], st.Rbl[b], st.tbl[b])
@@ -309,55 +206,8 @@ def _replay(cs, cfg, dev, B=4, T=16, timed=2, eager=False, one=False):
     main_insert = (st.vm_surf.cells.clone(), pw,
                    st.stacks.surf_mask[:, W - 1].contiguous())
     st = None
-    secs, launches = [], None
-    torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(timed):
-        states = cs.fresh_states(cfg, B, dev)
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        run(states, scans, cfg)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        if launches is None:
-            launches = dict(k1_per_scan=map_insert.LAUNCHES / T,
-                            k2_per_scan=assoc.LAUNCHES / T,
-                            k2_calls_per_scan=assoc.CALLS / T)
-    peak = torch.cuda.max_memory_allocated(dev)
-    states = None
-    replayed = (cs.replayed_scan_trace(cs.tree_first(scans))
-                if loop == "graph" else None)
-    cut = lambda lo, hi: type(scans)(*(None if a is None else a[lo:hi]
-                                       for a in scans))
-    # scans 1-2 (before initialization) and T-2 .. T-1 (after it)
-    st, _ = run(cs.fresh_states(cfg, B, dev), cut(0, 1), cfg)
-    torch.cuda.synchronize()
-    pre_us, pre_kernels, _, _, _ = _profile_window(cs, run, st, cut(1, 3),
-                                                   cfg)
-    st, _ = run(cs.fresh_states(cfg, B, dev), cut(0, T - 2), cfg)
-    torch.cuda.synchronize()
-    dev_us, n_kernels, syncs, named, wall = _profile_window(
-        cs, run, st, cut(T - 2, T), cfg)
-    lane_scans = B * 2
-    per_scan_unprof = min(secs) / (B * T)
-    st = None
     _clear_graphs()
-    return lane0, main_insert, dict(
-        B=B, T=T, loop=loop, one=one,
-        ate=ate, timed_secs=secs,
-        scans_per_sec=[B * T / s for s in secs], capture_s=capture_s,
-        peak_bytes_timed=peak, replayed_scan=replayed,
-        busy_window=f"scans {T - 2}-{T - 1}",
-        kernels_per_lockstep_scan=n_kernels / 2,
-        pre_init_window="scans 1-2",
-        pre_init_kernels_per_scan=pre_kernels / 2,
-        pre_init_device_ms_per_scan=pre_us / 1e3 / 2,
-        device_ms_per_lane_scan=dev_us / 1e3 / lane_scans,
-        device_ms_per_lockstep_scan=dev_us / 1e3 / 2,
-        busy_share_profiled=dev_us / 1e6 / wall,
-        busy_share_unprofiled=dev_us / 1e6 / lane_scans / per_scan_unprof,
-        syncs_per_lockstep_scan=syncs / 2,
-        named_syncs_per_lockstep_scan=named / 2, **launches)
+    return lane0, main_insert, dict(B=B, T=T, ate=ate)
 
 
 def _time_k2(cs, dev, vm, pw, mask, mcfg, mode, thres, sr, cached, want):
@@ -445,74 +295,6 @@ def _k2(cs, lane0, cfg, dev):
         calls[f"associate_{'planes' if mode == assoc.PLANE else 'lines'}"] \
             = rec
     return out, calls
-
-
-# the layers the breakdown times (module, function), outermost first
-BREAKDOWN = (
-    ("pipeline", "step_core_batch"), ("pipeline", "prepare_frame_batch"),
-    ("features", "extract_scan_features"), ("preintegration", "preintegrate"),
-    ("undistort", "undistort"), ("pipeline", "_build_stacks"),
-    ("estimate", "estimate"), ("reduced", "build_reduced"),
-    ("solver", "lm_solve"), ("solver", "marginalize"),
-    ("pipeline", "_init_bookkeeping"), ("initializer", "initialize"),
-    ("initializer", "refine_gravity"), ("pipeline", "apply_inserts_batched"))
-
-
-def _breakdown(cs, cfg, dev, B=4, T=12):
-    """Where a replay's wall goes (trees with `pipeline.step_core_batch`):
-    after a warm-up run, the eager loop (`_runner(eager=True)`: a layer
-    inside a CUDA graph has no host time of its own) B x T with a
-    synchronize and a host clock around each layer of BREAKDOWN (seconds
-    and calls; a layer's time includes the layers it calls)."""
-    import importlib
-
-    import torch
-
-    from mmloam_tpu_torch import pipeline, replay
-
-    if not hasattr(pipeline, "step_core_batch"):
-        return None
-    loop = _runner(eager=True)
-    scans, _ = cs.flagship_inputs(cfg, B, T, 7, dev)
-    loop(cs.fresh_states(cfg, B, dev), scans, cfg)
-    mods = {n: importlib.import_module(p + n) for p, n in (
-        ("mmloam_tpu_torch.", "pipeline"), ("mmloam_tpu_torch.ops.",
-                                            "features"),
-        ("mmloam_tpu_torch.ops.", "preintegration"),
-        ("mmloam_tpu_torch.ops.", "undistort"),
-        ("mmloam_tpu_torch.estimator.", "estimate"),
-        ("mmloam_tpu_torch.estimator.", "reduced"),
-        ("mmloam_tpu_torch.estimator.", "solver"),
-        ("mmloam_tpu_torch.estimator.", "initializer"))}
-    acc, saved = {}, []
-
-    def timed(key, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            s, n = acc.get(key, (0.0, 0))
-            acc[key] = (s + time.perf_counter() - t0, n + 1)
-            return out
-        return run
-
-    for m, f in BREAKDOWN:
-        fn = getattr(mods[m], f)
-        saved.append((mods[m], f, fn))
-        setattr(mods[m], f, timed(f"{m}.{f}", fn))
-    try:
-        states = cs.fresh_states(cfg, B, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loop(states, scans, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for mod, f, fn in saved:
-            setattr(mod, f, fn)
-    return dict(B=B, T=T, wall=wall, layers={
-        k: dict(secs=s, calls=n, share=s / wall) for k, (s, n) in acc.items()})
 
 
 def _k2_lanes(cs, cfg, dev, main_insert):
@@ -722,9 +504,7 @@ def _k3(cs, cfg, dev, inputs=K3_INPUTS):
     return out
 
 
-def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
-          timed=2, only_k3=False, one=False):
-    tree, eager = tree.removesuffix("@eager"), tree.endswith("@eager")
+def child(tree, only_k1=False, batch=4, scans=16, only_k3=False):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -736,7 +516,7 @@ def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
     cs = _smoke()
     dev = torch.device("cuda", 0)
     cfg = LIOConfig()
-    res = dict(tree=tree, eager=eager,
+    res = dict(tree=tree,
                package=os.path.dirname(mmloam_tpu_torch.__file__),
                card=cs.card_line(), torch=torch.__version__)
     if only_k3:
@@ -748,20 +528,11 @@ def child(tree, only_k1=False, replay_only=False, batch=4, scans=16,
         res["general"] = _general(cs, None, cfg, dev)
         print(json.dumps(res), flush=True)
         return
-    if replay_only:
-        _, _, res["replay"] = _replay(cs, cfg, dev, batch, scans, timed,
-                                      eager, one)
-        if res["replay"]["loop"] == "eager" and not one:
-            res["breakdown"] = _breakdown(cs, cfg, dev, batch)
-        print(json.dumps(res), flush=True)
-        return
     res["census"], inp = _census(cs, cfg, dev)
     inp = None
-    lane0, main_insert, res["replay"] = _replay(cs, cfg, dev, batch, scans,
-                                                timed, eager)
+    lane0, main_insert, res["replay"] = _replay(cs, cfg, dev, batch, scans)
     res["k2"], res["assoc_calls"] = _k2(cs, lane0, cfg, dev)
     res["k2_lanes"] = _k2_lanes(cs, cfg, dev, main_insert)
-    res["breakdown"] = _breakdown(cs, cfg, dev, batch)
     res["k1"] = _k1(cs, cfg, dev, main_insert)
     res["general"] = _general(cs, lane0, cfg, dev)
     print(json.dumps(res), flush=True)
@@ -777,19 +548,12 @@ def main():
     ap.add_argument("--only-k3", action="store_true",
                     help="time K3 alone: phase 4's Amm and A* and the "
                     "stress sets at B=16 and B=64")
-    ap.add_argument("--replay-only", action="store_true",
-                    help="the replay rows alone")
     ap.add_argument("--batch", type=int, default=4, help="replay lanes")
     ap.add_argument("--scans", type=int, default=16, help="replay scans")
-    ap.add_argument("--timed", type=int, default=2, help="timed replays")
-    ap.add_argument("--one", action="store_true",
-                    help="with --replay-only --batch 1: replay.replay, one "
-                    "sequence as a user with one bag runs it")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.child:
-        child(a.tree[0], a.only_k1, a.replay_only, a.batch, a.scans,
-              a.timed, a.only_k3, a.one)
+        child(a.tree[0], a.only_k1, a.batch, a.scans, a.only_k3)
         return 0
     if a.only_k3 and os.path.exists(K3_INPUTS):
         os.remove(K3_INPUTS)        # this call's first child makes them
@@ -797,12 +561,9 @@ def main():
     for tree in a.tree:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--child", "--tree", tree,
-                            "--batch", str(a.batch), "--scans", str(a.scans),
-                            "--timed", str(a.timed)]
+                            "--batch", str(a.batch), "--scans", str(a.scans)]
                            + ["--only-k1"] * a.only_k1
-                           + ["--only-k3"] * a.only_k3
-                           + ["--replay-only"] * a.replay_only
-                           + ["--one"] * a.one,
+                           + ["--only-k3"] * a.only_k3,
                            capture_output=True, text=True, timeout=1800)
         sys.stderr.write(p.stderr[-4000:])
         if p.returncode != 0:

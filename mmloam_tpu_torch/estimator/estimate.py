@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import branch
+from .. import branch, spans
 from ..tree import tree_map
 from . import factors, reduced, solver
 
@@ -143,9 +143,11 @@ def estimate(x0, stacks: Stacks, cached_rfs, vm_corner, vm_surf, preint,
     vm_n = vm_non if cfg.use_nonfeature else None
 
     def assoc(x, slot, thres, cached=None):
-        return _assoc_frame(x, stacks, slot, vm_corner, vm_surf, vm_lc,
-                            vm_ls, vm_n, Rbl, tbl, cfg, thres, weight_tan,
-                            huber, frame_valid, cached=cached)
+        with spans.layer("association"):
+            return _assoc_frame(x, stacks, slot, vm_corner, vm_surf, vm_lc,
+                                vm_ls, vm_n, Rbl, tbl, cfg, thres,
+                                weight_tan, huber, frame_valid,
+                                cached=cached)
 
     # ---- round 0: newest frame + stalest old slots ----
     rf_new, blkc = assoc(x0, W - 1, sched[0])

@@ -8,7 +8,9 @@ walked through libcuda (`cuGraphGetNodes`,
 (`cuFuncGetName`, libcuda of CUDA 12.3 or later) and keyed as its
 wrapper counts it (`launch_key`).  `count` adds replays' launches to the
 wrappers' counters.  `launch_key` also reads the names the profiler gives
-(demangled), so a trace is checked by the same keys.
+(demangled), so a trace is checked by the same keys.  `chain` gives a
+graph's nodes in the order a replay runs them, where a single-stream
+capture made the graph a chain (`spans.py` lays its layers on them).
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def _libcuda():
             ("cuGraphNodeGetType", [p, ref(ctypes.c_int)]),
             ("cuGraphKernelNodeGetParams_v2", [p, ref(_KernelNodeParams)]),
             ("cuKernelGetFunction", [ref(p), p]),
-            ("cuFuncGetName", [ref(ctypes.c_char_p), p])):
+            ("cuFuncGetName", [ref(ctypes.c_char_p), p]),
+            ("cuGraphGetEdges", [p, p, p, ref(ctypes.c_size_t)])):
         getattr(drv, fn).argtypes = args
         getattr(drv, fn).restype = ctypes.c_int
     return drv
@@ -86,26 +89,82 @@ def kernel_names(graph):
     not name counts as UNNAMED (a kernel of ours among them shows
     as a launch the graph lacks).  A stream capture puts every kernel
     launched on the stream in a node of its own."""
+    return collections.Counter(
+        name for _, kind, name in _walk(_nodes(graph))
+        if kind == _NODE_KERNEL)
+
+
+def _nodes(graph):
+    """The nodes of `graph`, in libcuda's order."""
     drv = _libcuda()
     g, n = ctypes.c_void_p(graph), ctypes.c_size_t(0)
     _check(drv.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
     _check(drv.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    names, out = {}, collections.Counter()
+    return nodes[:n.value]
+
+
+def _walk(nodes):
+    """(node, CUgraphNodeType, function name) of each of `nodes`; the
+    name is None for a node that is not a kernel, UNNAMED for a kernel
+    libcuda does not name."""
+    drv = _libcuda()
+    names, out = {}, []
     kind, params = ctypes.c_int(), _KernelNodeParams()
-    for node in nodes[:n.value]:
+    for node in nodes:
         _check(drv.cuGraphNodeGetType(node, ctypes.byref(kind)),
                "cuGraphNodeGetType")
-        if kind.value != _NODE_KERNEL:
-            continue
-        if drv.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)):
-            out[UNNAMED] += 1
-            continue
-        handle = (params.func, params.kern)
-        if handle not in names:
-            names[handle] = _name(drv, params)
-        out[names[handle]] += 1
+        name = None
+        if kind.value == _NODE_KERNEL:
+            if drv.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)):
+                name = UNNAMED
+            else:
+                handle = (params.func, params.kern)
+                if handle not in names:
+                    names[handle] = _name(drv, params)
+                name = names[handle]
+        out.append((node, kind.value, name))
     return out
+
+
+def chain(graph):
+    """(node, CUgraphNodeType, function name) of every node of `graph` in
+    the order a replay runs them.  A capture on one stream makes a chain:
+    one node without a predecessor, and one edge from each node to the
+    next.  Raises ValueError where the graph is not one (its order is then
+    not the capture's)."""
+    drv = _libcuda()
+    nodes = _nodes(graph)
+    g, n = ctypes.c_void_p(graph), ctypes.c_size_t(0)
+    _check(drv.cuGraphGetEdges(g, None, None, ctypes.byref(n)),
+           "cuGraphGetEdges")
+    src = (ctypes.c_void_p * n.value)()
+    dst = (ctypes.c_void_p * n.value)()
+    if n.value:
+        _check(drv.cuGraphGetEdges(g, src, dst, ctypes.byref(n)),
+               "cuGraphGetEdges")
+    nxt, has_pred = {}, set()
+    for a, b in zip(src[:n.value], dst[:n.value]):
+        if a in nxt or b in has_pred:
+            raise ValueError(f"the graph is not a chain: a node has two "
+                             f"successors or predecessors ({n.value} edges, "
+                             f"{len(nodes)} nodes)")
+        nxt[a] = b
+        has_pred.add(b)
+    roots = [x for x in nodes if x not in has_pred]
+    order = []
+    if nodes:
+        if len(roots) != 1:
+            raise ValueError(f"the graph is not a chain: {len(roots)} nodes "
+                             f"without a predecessor")
+        at = roots[0]
+        while at is not None and len(order) <= len(nodes):
+            order.append(at)
+            at = nxt.get(at)
+        if len(order) != len(nodes):
+            raise ValueError(f"the graph is not a chain: {len(order)} of "
+                             f"{len(nodes)} nodes in one line")
+    return _walk(order)
 
 
 def _name(drv, params):

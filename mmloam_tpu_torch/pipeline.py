@@ -56,7 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import branch, lie
+from . import branch, lie, spans
 from .estimator import estimate as est
 from .estimator import initializer, reduced, solver
 from .ops import (downsample, features, linalg3, preintegration, undistort,
@@ -613,15 +613,16 @@ def apply_inserts_batched(state: LIOState, pend: PendingInsert, cfg):
     IN PLACE.  Semantics == per-lane apply_inserts."""
     from .ops import map_insert
 
-    for field, pts_f, mcfg, gate_f in _insert_targets(cfg):
-        pts = getattr(pend, pts_f)
-        wpts = (torch.einsum("bki,bji->bkj", pts, pend.Rwl)
-                + pend.p[:, None, :])
-        ok = (getattr(pend, pts_f + "_mask")
-              & getattr(pend, gate_f)[:, None]
-              & voxelmap.insert_guard(wpts, pend.p, mcfg))
-        map_insert.insert_batched(getattr(state, field).cells, wpts, ok,
-                                  mcfg)
+    with spans.layer("map_insert"):
+        for field, pts_f, mcfg, gate_f in _insert_targets(cfg):
+            pts = getattr(pend, pts_f)
+            wpts = (torch.einsum("bki,bji->bkj", pts, pend.Rwl)
+                    + pend.p[:, None, :])
+            ok = (getattr(pend, pts_f + "_mask")
+                  & getattr(pend, gate_f)[:, None]
+                  & voxelmap.insert_guard(wpts, pend.p, mcfg))
+            map_insert.insert_batched(getattr(state, field).cells, wpts, ok,
+                                      mcfg)
     return state
 
 
@@ -691,7 +692,8 @@ def _step_core(state: LIOState, scan: ScanInput, cfg, one):
     B = state.x.shape[0]
     lane_sel = lambda m, a, b: torch.where(m[:, None], a, b)
 
-    pf = prepare_frame_batch(state, scan, cfg)
+    with spans.layer("front_end"):
+        pf = prepare_frame_batch(state, scan, cfg)
     x_w, t_w, fv_w = pf.x_w, pf.t_w, pf.fv_w
     stacks_w, preint_w, pv_w, prior_w = (pf.stacks_w, pf.preint_w, pf.pv_w,
                                          pf.prior_w)
@@ -720,10 +722,12 @@ def _step_core(state: LIOState, scan: ScanInput, cfg, one):
             prior=prior_w, rfs=pf.rfs_w, n_line=zi, n_plane=zi,
             NtN=torch.zeros((B, 3, 3), dtype=dtype, device=dev))
 
-    if one:
-        res = branch.cond(can_estimate, est_branch, skip_branch, None)
-    else:
-        res = est.select(can_estimate, est_branch(None), skip_branch(None))
+    with spans.layer("estimator"):
+        if one:
+            res = branch.cond(can_estimate, est_branch, skip_branch, None)
+        else:
+            res = est.select(can_estimate, est_branch(None),
+                             skip_branch(None))
     x_sel = project_degenerate_update(res.x, x_w, res.NtN, res.fail,
                                       cfg.solver.degenerate_sv)
     jump = torch.sqrt(torch.sum((x_sel[:, -1, 0:3] - x_w[:, -1, 0:3]) ** 2,
@@ -831,14 +835,16 @@ def _step_core(state: LIOState, scan: ScanInput, cfg, one):
                               prior=s.prior._replace(lin_J=lin_J, x0=px0))
 
         s = new_state
-        if one:
-            new_state = branch.cond(do_refine, refine, None, s)
-        else:
-            r = refine(s)
-            g_sel, x_sel, prior_sel = est.select(
-                do_refine, (r.gravity, r.x, r.prior),
-                (s.gravity, s.x, s.prior))
-            new_state = s._replace(gravity=g_sel, x=x_sel, prior=prior_sel)
+        with spans.layer("gravity"):
+            if one:
+                new_state = branch.cond(do_refine, refine, None, s)
+            else:
+                r = refine(s)
+                g_sel, x_sel, prior_sel = est.select(
+                    do_refine, (r.gravity, r.x, r.prior),
+                    (s.gravity, s.x, s.prior))
+                new_state = s._replace(gravity=g_sel, x=x_sel,
+                                       prior=prior_sel)
 
     # modes <= 1 never initialize (init needs the accelerometer); lanes
     # already initialized keep their state
@@ -848,11 +854,12 @@ def _step_core(state: LIOState, scan: ScanInput, cfg, one):
         def book(s):
             return _init_bookkeeping(s, scan, q_pub, p_pub, fstack, cfg, one)
 
-        if one:
-            new_state = branch.cond(state.inited, None, book, new_state)
-        else:
-            new_state = _select_state(state.inited, new_state,
-                                      book(new_state))
+        with spans.layer("init"):
+            if one:
+                new_state = branch.cond(state.inited, None, book, new_state)
+            else:
+                new_state = _select_state(state.inited, new_state,
+                                          book(new_state))
 
     out = StepOutput(
         pose_q=q_pub, pose_p=p_pub, t=_at(t_w, front_idx),

@@ -31,14 +31,14 @@ maps included, and its private memory pool (PERF.md measures the graph's
 peak at 1.24-1.30 times the eager loop's); `clear_graphs`, the
 counterpart of `jax.clear_caches`, frees them.  The step reads no device
 value on the host, so nothing in the loop waits for the card.  The
-kernels' launch counters count each replay's launches from the kernel
-nodes of the captured graph (`ops/graph_kernels.py`); the launches
-inside an IF node's body count as many times as its predicate held, read
-once after the last scan from the predicates each replay left.
-`_replay_eager`
-is the loop without a graph (the counterpart of `jax.disable_jit`): CPU
-tensors take it, and tests and `kernel_ab.py`'s per-layer breakdown call
-it.
+kernels' launch counters count a call's replays once, after its last
+scan, from the kernel nodes of the captured graph
+(`ops/graph_kernels.py`); the launches inside an IF node's body count as
+many times as its predicate held, read from the predicates each replay
+left.  `_replay_eager` is the loop without a graph (the counterpart of `jax.disable_jit`): CPU
+tensors take it, and tests call it.  With spans on (`spans.py`) the
+runner keeps the layer of each of its graphs' nodes (`node_layers`) and
+the loop clocks each scan's host work and graph launch.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ import traceback
 import numpy as np
 import torch
 
-from . import branch, lie, pipeline
+from . import branch, lie, pipeline, spans
 from .data import synthetic
 from .ops import graph_kernels, launch_tape, voxelmap
 from .tree import tree_map
@@ -351,6 +351,7 @@ def _dense(a):
 _GRAPHS = {}
 _GRAPHS_LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()
+_UNCLOCKED = contextlib.nullcontext()      # a scan's loop body, spans off
 
 
 def clear_graphs():
@@ -453,13 +454,24 @@ class _ScanGraph:
     at the graph's top level, and `body_launches[i]`, those in body i,
     are read from the kernel nodes of the graph and of each body graph
     (`graph_kernels.launches`) and held against the launches the wrappers
-    noted there.  Every run adds the top-level launches to the counters
-    and plays the top-level call counts; `count_bodies(runs)` adds each
-    body's, `runs[i]` times.  `flag_history` (T, IF nodes) int32 on the
-    card: each node's predicate at each scan of the last call (None
-    without IF nodes)."""
+    noted there.  `count(times, runs)`, once a call, adds the top-level
+    launches and plays the top-level call counts `times` over (the call's
+    replays), and each body's `runs[i]` over.  `flag_history` (T, IF
+    nodes) int32 on the card: each node's predicate at each scan of the
+    last call (None without IF nodes).
+
+    Set-up by part, seconds: `capture_s` (capture plus instantiation),
+    `census_s` (the node census and its check), `instantiate_s`, and
+    `eager_s` (scan 0's eager step before the capture, set by
+    `_replay_graph`).  With spans on at the capture, `node_layers` is
+    `spans.node_layers` of the top-level graph and the bodies (None with
+    spans off, or where it could not be laid: `node_layers_why` says
+    why)."""
 
     flag_history = None
+    eager_s = None
+    node_layers = None
+    node_layers_why = "spans were off at the capture"
 
     def __init__(self, key, state, scan, cfg, one=False):
         self.key = key
@@ -474,7 +486,7 @@ class _ScanGraph:
         # the graph's private pool, named here: a failed capture has none
         # to ask it for (`_end_routing`)
         pool = torch.cuda.graph_pool_handle()
-        tape = []
+        tape, notes, on = [], [], spans.enabled()
         with _CAPTURE_LOCK:
             t0 = time.perf_counter()
             # the outer stream context gives the caller its stream back
@@ -482,6 +494,7 @@ class _ScanGraph:
             try:
                 with torch.cuda.stream(stream), \
                         launch_tape.recording(tape), \
+                        spans.recording(notes), \
                         branch.recording(bodies), torch.cuda.graph(
                             self.graph, pool=pool, stream=stream,
                             capture_error_mode="thread_local"):
@@ -497,6 +510,7 @@ class _ScanGraph:
                 raise RuntimeError(f"the {what} scan did not capture at "
                                    f"{_capture_site(e)}: {e}") from e
             capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         raw = self.graph.raw_cuda_graph()
         graphs = [raw] + ([] if bodies is None else bodies.graphs)
         found = [graph_kernels.launches(g) for g in graphs]
@@ -512,29 +526,43 @@ class _ScanGraph:
                     f"{dict(got)} of ours at its {where} ({unnamed} kernel "
                     f"nodes unnamed), its wrappers issued {dict(want)}")
         self.launches, self.body_launches = found[0], found[1:]
+        self.census_s = time.perf_counter() - t0
+        if on:
+            try:
+                self.node_layers = spans.node_layers(
+                    graphs, [] if bodies is None else bodies.parents, notes)
+                self.node_layers_why = None
+            except ValueError as e:
+                self.node_layers_why = str(e)
         self.flags = None if bodies is None else bodies.flags[:len(bodies)]
         self.tape = tape
         t0 = time.perf_counter()
         self.graph.instantiate()
+        self.instantiate_s = time.perf_counter() - t0
         # capture plus instantiation, the node census left out
-        self.capture_s = capture_s + time.perf_counter() - t0
+        self.capture_s = capture_s + self.instantiate_s
         # set last, so the graph and the tensors the capture made go
         # before the bodies' memory pools when the runner goes
         self.bodies = bodies
 
-    def run(self, scan):
+    def run(self, scan, clock=None):
+        """Copy `scan` in and replay (between `clock`'s events, a
+        `spans.Replays`, where given); the counters are left to
+        `count`."""
         _assign(self.scan, scan)
-        self.graph.replay()
-        graph_kernels.count(self.launches)
-        launch_tape.play(self.tape)
+        if clock is None:
+            self.graph.replay()
+        else:
+            clock.launch(self.graph)
         return self.out
 
-    def count_bodies(self, runs):
-        """Add the launches and call counts of the IF nodes' bodies over
-        replays in which body i ran `runs[i]` times."""
-        for keyed, n in zip(self.body_launches, runs):
+    def count(self, times, runs=None):
+        """Add the launches and call counts of `times` replays, in which
+        IF node i's body ran `runs[i]` times."""
+        graph_kernels.count(self.launches, times=times)
+        for keyed, n in zip(self.body_launches, runs or ()):
             graph_kernels.count(keyed, times=n)
-        launch_tape.play(self.tape, times=0, runs=runs)
+        launch_tape.play(self.tape, times=times, runs=runs)
 
 
 def _replay_graph(states, scans, cfg, one=False):
@@ -557,10 +585,14 @@ def _replay_graph(states, scans, cfg, one=False):
         # it runs every branch, so every kernel and constant a body may
         # touch exists before the capture (and its bits are the one-lane
         # step's)
+        t0 = time.perf_counter()
         state = tree_map(lambda a: a.clone(), states)
         new, out0, pend = pipeline.step_core_batch(state, at(0), cfg)
         _assign(state, pipeline.apply_inserts_batched(new, pend, cfg))
+        eager_s = time.perf_counter() - t0
         runner = _ScanGraph(key, state, at(0), cfg, one)
+        runner.eager_s = eager_s
+        spans.note_setup(runner)
         with _GRAPHS_LOCK:
             _GRAPHS[dev] = runner
         first = 1
@@ -568,23 +600,27 @@ def _replay_graph(states, scans, cfg, one=False):
         flags = runner.flags
         hist = None if flags is None else torch.zeros(
             (T,) + tuple(flags.shape), dtype=torch.int32, device=dev)
+        clock = spans.Replays(runner, T) if spans.enabled() else None
+        scope = (lambda: _UNCLOCKED) if clock is None else clock.scan
         if first == 0:
             _assign(runner.state, states)
-            out0 = runner.run(at(0))
-            if hist is not None:
-                hist[0].copy_(flags)
+            with scope():
+                out0 = runner.run(at(0), clock)
+                if hist is not None:
+                    hist[0].copy_(flags)
         outs = tree_map(lambda a: torch.empty((T,) + tuple(a.shape),
                                               dtype=a.dtype, device=dev),
                         out0)
         tree_map(lambda o, a: o[0].copy_(a), outs, out0)
         for t in range(1, T):
-            out = runner.run(at(t))
-            tree_map(lambda o, a: o[t].copy_(a), outs, out)
-            if hist is not None:
-                hist[t].copy_(flags)
-        if hist is not None:
-            # the one host read: how often each body ran
-            runner.count_bodies(hist.sum(dim=0).tolist())
+            with scope():
+                out = runner.run(at(t), clock)
+                tree_map(lambda o, a: o[t].copy_(a), outs, out)
+                if hist is not None:
+                    hist[t].copy_(flags)
+        # the one host read: how often each body ran
+        runner.count(T - first, None if hist is None
+                     else hist.sum(dim=0).tolist())
         runner.flag_history = hist
         final = tree_map(lambda a: a.clone(), runner.state)
     return final, outs

@@ -39,7 +39,7 @@ from mmloam_tpu_torch.config import tiny_config  # noqa: E402
 from mmloam_tpu_torch.data import synthetic  # noqa: E402
 from mmloam_tpu_torch.estimator import estimate as est  # noqa: E402
 from mmloam_tpu_torch.estimator import initializer, solver  # noqa: E402
-from mmloam_tpu_torch.ops import assoc, eigh, graph_kernels  # noqa: E402
+from mmloam_tpu_torch.ops import assoc, eigh  # noqa: E402
 from mmloam_tpu_torch.ops import launch_tape, map_insert  # noqa: E402
 from mmloam_tpu_torch.tree import tree_map  # noqa: E402
 
@@ -366,9 +366,9 @@ def _reset():
 
 
 def test_body_launches_count_as_often_as_their_bodies_ran():
-    """`_ScanGraph`'s count arithmetic, without a card: each replay adds
-    the top level's launches and call counts; `count_bodies(runs)` adds
-    body i's `runs[i]` times.  With K2's launches noted beside their
+    """`_ScanGraph`'s count arithmetic, without a card: `count(T, runs)`,
+    once a call, adds the top level's launches and call counts T times
+    and body i's `runs[i]` times.  With K2's launches noted beside their
     calls, LAUNCHES == CALLS + RESCUE_LAUNCHES holds whatever ran."""
     _reset()
     tape = []
@@ -394,10 +394,7 @@ def test_body_launches_count_as_often_as_their_bodies_ran():
     assert runner.body_launches[1] == collections.Counter(
         {("k2", "default", False): 1, ("k2", "default", True): 1})
     T, runs = 5, [4, 1]
-    for _ in range(T):                      # what `run` adds a replay
-        graph_kernels.count(runner.launches)
-        launch_tape.play(runner.tape)
-    runner.count_bodies(runs)
+    runner.count(T, runs)
     assert map_insert.LAUNCHES == T
     assert assoc.CALLS == assoc.LOCAL_CALLS == runs[0] + runs[1]
     assert assoc.LAUNCHES == assoc.CALLS + assoc.RESCUE_LAUNCHES == 10
@@ -408,9 +405,9 @@ def test_body_launches_count_as_often_as_their_bodies_ran():
 def test_replay_graph_counts_bodies_from_the_predicates_each_replay_left(
         monkeypatch):
     """`_replay_graph` copies each replay's IF-node flags out beside the
-    step outputs and, after the last scan, hands their sums to
-    `count_bodies` once (a stand-in for the capture: scan t sets body 0's
-    flag where t is even, body 1's where t > 2)."""
+    step outputs and, after the last scan, hands the call's replays and
+    the flags' sums to `count` once (a stand-in for the capture: scan t
+    sets body 0's flag where t is even, body 1's where t > 2)."""
     seen = []
 
     class Capture:
@@ -421,7 +418,7 @@ def test_replay_graph_counts_bodies_from_the_predicates_each_replay_left(
             self.flags = torch.zeros(2, dtype=torch.bool)
             self.t = 0
 
-        def run(self, scan):
+        def run(self, scan, clock=None):
             self.t += 1
             self.flags.copy_(torch.tensor([self.t % 2 == 0, self.t > 2]))
             new, out, pend = pipeline.step_core_one(self.state, scan,
@@ -430,8 +427,8 @@ def test_replay_graph_counts_bodies_from_the_predicates_each_replay_left(
                 new, pend, self.cfg))
             return out
 
-        def count_bodies(self, runs):
-            seen.append(runs)
+        def count(self, times, runs=None):
+            seen.append((times, runs))
 
     monkeypatch.setattr(replay, "_ScanGraph", Capture)
     scans = pipeline.scan_from_numpy(_hall(CFG, 4)[0], device="cpu")
@@ -450,7 +447,7 @@ def test_replay_graph_counts_bodies_from_the_predicates_each_replay_left(
         # the first call runs scan 0 eagerly (lockstep) and replays 1-3
         # (the stand-in's replays 1-3), the second replays all four (its
         # replays 4-7)
-        assert seen == [[1, 1], [2, 4]]
+        assert seen == [(3, [1, 1]), (4, [2, 4])]
         assert runner.key[1] is True
     finally:
         replay.clear_graphs()

@@ -1,0 +1,293 @@
+"""The layer spans, the replay loop's clocks and the set-up's parts
+(`mmloam_tpu_torch/spans.py`).
+
+On the CPU:
+* spans off, a step leaves no "mmloam.*" range for the profiler; on, each
+  leaf layer's range appears on each eager step, association inside the
+  estimator and no other leaf inside another, lockstep and one lane;
+* the eager replay's outputs and final state are bit-equal with spans on
+  and off, lockstep and one lane;
+* `spans.node_layers` lays the notes a capture took on each graph's
+  chain of nodes (a stand-in for libcuda's graph): the innermost span
+  holds, a body's nodes take their IF node's layer, and what cannot be
+  laid raises.
+
+On the card (marked `cuda`; this file imports torch only, so it runs
+with `--noconftest` there): the lockstep and one-lane graphs hold the same
+nodes with spans on and off; every device operation has its place in
+`node_layers` and K1/K2/K3 sit in their layers; the set-up's parts; the
+counters after a call; the loop's clocks.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from mmloam_tpu_torch import pipeline, replay, spans  # noqa: E402
+from mmloam_tpu_torch.config import tiny_config  # noqa: E402
+from mmloam_tpu_torch.data import synthetic  # noqa: E402
+from mmloam_tpu_torch.ops import assoc, eigh, graph_kernels  # noqa: E402
+from mmloam_tpu_torch.ops import map_insert  # noqa: E402
+from mmloam_tpu_torch.tree import tree_map  # noqa: E402
+
+CFG = tiny_config()
+TOP = ("front_end", "estimator", "gravity", "init", "map_insert")
+HOME = dict(k1="map_insert", k2="association", k3="estimator")
+
+
+@pytest.fixture(autouse=True)
+def _spans_off():
+    yield
+    spans.enable(False)
+
+
+def _hall(T, device="cpu"):
+    return replay.make_sequence(
+        synthetic.default_world(), synthetic.Trajectory(speed=0.8, z_amp=0.15),
+        0.0, T, CFG, n_az=360, dtype=np.float32, range_noise=0.003, seed=1,
+        device=device)[0]
+
+
+def _lanes(B, device="cpu"):
+    """B lanes of the hall (lane b's scans moved b cm), a lane axis."""
+    scans = _hall(4, device)
+    seqs = [scans._replace(pts=scans.pts + 0.01 * b) for b in range(B)]
+    states = replay.stack_states([pipeline.init_state(CFG, device=device)
+                                  for _ in range(B)])
+    return states, replay.stack_sequences(seqs)
+
+
+def _ranges(fn):
+    """fn() under the profiler: its "mmloam.*" ranges as (start, end,
+    leaf name), in start order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    out = [(e.start_ns(), e.end_ns(), e.name()[len(spans.PREFIX):])
+           for e in prof.profiler.kineto_results.events()
+           if e.name().startswith(spans.PREFIX)]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("one", [False, True])
+def test_spans_mark_each_layer_of_each_eager_step(one):
+    states, scans = _lanes(1 if one else 2)
+    T = scans.pts.shape[0]
+    run = lambda: replay._replay_eager(tree_map(torch.clone, states), scans,
+                                       CFG, one=one)
+    assert _ranges(run) == []
+    spans.enable(True)
+    got = _ranges(run)
+    names = [n for _, _, n in got]
+    for name in TOP:
+        assert names.count(name) == T, (name, names.count(name))
+    # one lane estimates only once the map holds data (scan 1 on)
+    assert names.count("association") >= (T - 1 if one else T)
+    for s, e, n in got:
+        holders = [m for s2, e2, m in got if (s2, e2) != (s, e)
+                   and s2 <= s and e <= e2]
+        assert holders == (["estimator"] if n == "association" else []), \
+            (n, holders)
+
+
+@pytest.mark.parametrize("one", [False, True])
+def test_eager_replay_is_bit_equal_with_spans_on_and_off(one):
+    states, scans = _lanes(1 if one else 2)
+    got = []
+    for on in (False, True):
+        spans.enable(on)
+        got.append(replay._replay_eager(tree_map(torch.clone, states), scans,
+                                        CFG, one=one))
+    (f_off, o_off), (f_on, o_on) = got
+    for a, b in zip(replay._leaves(o_off) + replay._leaves(f_off),
+                    replay._leaves(o_on) + replay._leaves(f_on)):
+        assert torch.equal(a, b)
+
+
+def _fake_chains(monkeypatch, graphs):
+    """graph_kernels.chain over {graph: [(node, type, name)]}."""
+    monkeypatch.setattr(graph_kernels, "chain", lambda g: graphs[g])
+
+
+def test_node_layers_lay_the_notes_on_each_chain(monkeypatch):
+    k2 = "_ZN12_GLOBAL__N_112assoc_kernelILi4ELi8ELb1EEEv9AssocArgs"
+    k1 = "_ZN12_GLOBAL__N_117map_insert_kernelILi32EEEvPfPKiPKxS3_PKfS7_S3_ixiff"
+    _fake_chains(monkeypatch, {
+        100: [(1, 0, "a"), (2, 1, None), (3, 0, "b"), (4, 13, None),
+              (5, 5, None), (6, 0, "c"), (7, 13, None), (8, 0, k1)],
+        200: [(11, 0, k2), (12, 13, None), (13, 2, None)],
+        300: [(21, 0, "d")],
+        400: [],
+    })
+    notes = [(100, (), "front_end"),         # before node 1
+             (100, (2,), None),              # after the memcpy
+             (100, (3,), "estimator"),       # the IF node is inside
+             (200, (), "association"),       # body 0's own span
+             (200, (11,), "estimator"),      # back out: body 1 inherits
+             (100, (5,), None),
+             (100, (7,), "init"), (100, (7,), "map_insert")]
+    got = spans.node_layers([100, 200, 300, 400], [None, 0, None], notes)
+    assert got == [
+        [("kernel", "front_end", None), ("memcpy", "front_end", None),
+         ("kernel", None, None), ("if", 0, None), ("kernel", None, None),
+         ("if", 2, None), ("kernel", "map_insert", "k1")],
+        [("kernel", "association", "k2"), ("if", 1, None),
+         ("memset", "estimator", None)],
+        [("kernel", "estimator", None)],
+        [],
+    ]
+
+
+@pytest.mark.parametrize("graphs, notes, why", [
+    ({1: [(5, 0, "a"), (6, 0, "b")]}, [(1, (5, 6), "init")], "after 2"),
+    ({1: [(5, 0, "a")]}, [(1, (9,), "init")], "lacks"),
+    ({1: [(5, 4, None)]}, [], "type 4"),
+    ({1: [(5, 13, None), (6, 13, None)], 2: []}, [], "more IF nodes"),
+    ({1: [(5, 0, "a")]}, [(None, (), "init")], "no capture position"),
+])
+def test_node_layers_refuse_what_they_cannot_lay(monkeypatch, graphs, notes,
+                                                 why):
+    _fake_chains(monkeypatch, graphs)
+    with pytest.raises(ValueError, match=why):
+        spans.node_layers(sorted(graphs), [None] * (len(graphs) - 1), notes)
+
+
+# ---- on the card ----
+
+def _device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _runner():
+    (runner,) = replay._GRAPHS.values()
+    return runner
+
+
+def _graphs(runner):
+    return [runner.graph.raw_cuda_graph()] + (
+        [] if runner.bodies is None else list(runner.bodies.graphs))
+
+
+def _nodes(runner):
+    """(type, function name) of each node of each of the runner's graphs,
+    in the order a replay runs them."""
+    return [[(k, n) for _, k, n in graph_kernels.chain(g)]
+            for g in _graphs(runner)]
+
+
+def _call(one, dev):
+    """A call of the entry on the tiny hall: (final, outputs, T)."""
+    if one:
+        scans = _hall(4, dev)
+        final, outs = replay.replay(pipeline.init_state(CFG, device=dev),
+                                    scans, CFG)
+    else:
+        states, scans = _lanes(2, dev)
+        final, outs = replay.replay_batch(states, scans, CFG)
+    torch.cuda.synchronize()
+    return final, outs, scans.pts.shape[0]
+
+
+def _counts():
+    return (map_insert.LAUNCHES, assoc.LAUNCHES, assoc.RESCUE_LAUNCHES,
+            assoc.CALLS, eigh.LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one", [False, True])
+def test_spans_leave_the_graph_node_for_node_on_card(one):
+    dev = _device()
+    spans.enable(False)
+    replay.clear_graphs()
+    _, off_outs, _ = _call(one, dev)
+    off = _nodes(_runner())
+    assert _runner().node_layers is None
+    replay.clear_graphs()
+    spans.enable(True)
+    _, on_outs, _ = _call(one, dev)
+    runner = _runner()
+    assert _nodes(runner) == off
+    for f in on_outs._fields:
+        assert torch.equal(getattr(on_outs, f), getattr(off_outs, f)), f
+    layers = runner.node_layers
+    assert layers is not None, runner.node_layers_why
+    assert len(layers) == len(off)
+    for nodes, ops in zip(off, layers):
+        kinds = {0: "kernel", 1: "memcpy", 2: "memset", 13: "if"}
+        assert [kinds[k] for k, _ in nodes if k in kinds] == \
+            [kind for kind, _, _ in ops]
+        for (k, name), (kind, lay, ours) in zip(
+                [x for x in nodes if x[0] in kinds], ops):
+            key = graph_kernels.launch_key(name) if k == 0 else None
+            assert ours == (key and key[0])
+            if ours is not None:
+                assert lay == HOME[ours], (ours, lay)
+    laid = {lay for ops in layers for kind, lay, _ in ops if kind != "if"}
+    assert set(spans.LEAVES) <= laid
+    assert sorted(i for ops in layers for kind, i, _ in ops
+                  if kind == "if") == list(range(len(layers) - 1))
+    replay.clear_graphs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one", [False, True])
+def test_setup_parts_counters_and_clocks_on_card(one):
+    import time
+
+    dev = _device()
+    replay.clear_graphs()
+    t0 = time.perf_counter()
+    _call(one, dev)
+    wall = time.perf_counter() - t0
+    runner = _runner()
+    parts = spans.last_setup()
+    assert parts == dict(eager_s=runner.eager_s, census_s=runner.census_s,
+                         instantiate_s=runner.instantiate_s,
+                         capture_s=runner.capture_s)
+    assert min(parts.values()) > 0
+    # capture plus instantiation; the census and scan 0 apart
+    assert runner.capture_s > runner.instantiate_s
+    assert runner.eager_s + runner.census_s + runner.capture_s < wall
+
+    # a cached call adds each replay's launches once, after its last scan
+    c0 = _counts()
+    _, _, T = _call(one, dev)
+    got = [b - a for a, b in zip(c0, _counts())]
+    runs = ([0] * len(runner.body_launches)
+            if runner.flag_history is None
+            else runner.flag_history.sum(dim=0).tolist())
+    want = dict(k1=0, k2=0, rescue=0, k3=0)
+    for keyed, n in [(runner.launches, T)] + list(zip(runner.body_launches,
+                                                      runs)):
+        for (kernel, _, rescue), c in keyed.items():
+            want[kernel] += c * n
+            want["rescue"] += c * n * rescue
+    assert (got[0], got[1], got[2], got[4]) == (
+        want["k1"], want["k2"], want["rescue"], want["k3"])
+    # the same as the loop op by op on the same inputs
+    if one:
+        states, scans = pipeline._lane(pipeline.init_state(CFG, device=dev)), \
+            tree_map(lambda a: a[:, None], _hall(4, dev))
+    else:
+        states, scans = _lanes(2, dev)
+    c1 = _counts()
+    replay._replay_eager(states, scans, CFG, one=one)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c1, _counts())] == got
+
+    # the loop's clocks: spans on only
+    before = spans._LAST
+    _call(one, dev)
+    assert spans._LAST is before
+    spans.enable(True)
+    _call(one, dev)
+    clocks = spans.last_call()
+    assert clocks["replays"] == T and not clocks["traced"]
+    assert clocks["host_s_per_scan"] > 0 and clocks["launch_s_per_scan"] > 0
+    assert 0 < clocks["graph_busy_s"] <= clocks["replay_span_s"]
+    replay.clear_graphs()
