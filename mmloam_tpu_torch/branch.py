@@ -22,6 +22,13 @@ predicate holds one element):
   an IF node on its `live` predicate and updates the carry's buffers in
   place.
 
+The lockstep step gates work on all its lanes at once with `any_lane`:
+`fn(operand)` where a per-lane select inside `fn` keeps its result only
+in the lanes of `pred`.  Op by op it runs `fn` (every lane, then the
+select: no host read); under a capture it is an IF node on `pred.any()`
+with the identity on the other side, so a replay skips the work where no
+lane needs it.
+
 `Bodies` keeps one capture's IF nodes: each node's predicate lands in a
 slot of `flags` (zeroed at the start of a replay, so a node inside a body
 that did not run reads False), each body's graph (for the kernel census)
@@ -60,7 +67,8 @@ class Bodies:
     """The IF nodes of one capture (see the module docstring).  `flags`
     (MAX,) bool on `device`: slot i holds body i's predicate at the last
     replay; `graphs[i]` is body i's cudaGraph_t (an int), `parents[i]`
-    the body that holds it (None: the top level)."""
+    the body that holds it (None: the top level), `names[i]` the name
+    its maker gave it (None: none)."""
 
     MAX = 256
     DEPTH = 6
@@ -73,6 +81,7 @@ class Bodies:
         self.flags = torch.zeros(self.MAX, dtype=torch.bool, device=dev)
         self.graphs = []
         self.parents = []
+        self.names = []
         self._open = []
         self._levels = []
         if dev.type == "cuda":
@@ -87,10 +96,10 @@ class Bodies:
         return len(self.graphs)
 
     @contextlib.contextmanager
-    def body(self, pred):
+    def body(self, pred, name=None):
         """Capture what the block issues into the body of an IF node on
         `pred` (a bool tensor of one element, read when the replay
-        reaches the node)."""
+        reaches the node), named `name`."""
         i = len(self.graphs)
         if i == self.MAX:
             raise RuntimeError(f"a capture holds more than {self.MAX} IF "
@@ -99,6 +108,7 @@ class Bodies:
         flag.copy_(pred.reshape(()))
         self.parents.append(self._open[-1] if self._open else None)
         self.graphs.append(None)
+        self.names.append(name)
         self._open.append(i)
         try:
             with self._captured(flag, i), launch_tape.body(i):
@@ -165,11 +175,12 @@ def _check_like(a, b):
                          f"{tuple(b.shape)} {b.dtype}")
 
 
-def cond(pred, true_fn, false_fn, operand):
+def cond(pred, true_fn, false_fn, operand, name=None):
     """`lax.cond(pred, true_fn, false_fn, operand)` at one lane: pred is a
     bool tensor of one element; None for a branch is the identity.  Both
     branches return trees of one structure, shape and dtype (the identity
-    returns `operand`)."""
+    returns `operand`).  Under a capture the body of the branch that is
+    not the identity is named `name`."""
     bodies = _recorder()
     if bodies is None:
         fn = true_fn if bool(pred) else false_fn
@@ -177,7 +188,7 @@ def cond(pred, true_fn, false_fn, operand):
     p = pred.reshape(())
     if true_fn is None:
         p, true_fn, false_fn = torch.logical_not(p), false_fn, None
-    with bodies.body(p):
+    with bodies.body(p, name):
         a = true_fn(operand)
         if false_fn is None:
             # a leaf the branch passed on needs no buffer
@@ -194,6 +205,18 @@ def cond(pred, true_fn, false_fn, operand):
                 o.copy_(x)
         tree_map(put, out, b)
     return out
+
+
+def any_lane(pred, fn, operand, name=None):
+    """`fn(operand)`, where `fn` keeps its work only in the lanes of
+    `pred` (B,) bool and returns `operand`'s bits in every other lane.
+    Op by op `fn` runs for every lane (its select decides, nothing is
+    read on the host); under a capture it is the body of an IF node on
+    `pred.any()`, named `name`, and `operand` passes on where no lane
+    holds."""
+    if _recorder() is None:
+        return fn(operand)
+    return cond(torch.any(pred), fn, None, operand, name=name)
 
 
 def _store(dst, src):

@@ -13,7 +13,8 @@ every replay (`play`).  Tapes are kept per thread, so a worker that
 captures does not record another worker's counts.
 
 A capture of the one-lane step puts branches into the bodies of
-conditional nodes (`branch.py`), which a replay runs or not by the data.
+conditional nodes (`branch.py`), as a capture of the lockstep step puts
+its init gates, which a replay runs or not by the data.
 So each note also records the innermost body it was made in (`body`, an
 index of the capture's bodies; None at the top level): the runner holds
 each body's kernel nodes against its own notes, and counts a body's

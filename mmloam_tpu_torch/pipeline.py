@@ -26,7 +26,13 @@ step's at one lane, bit for bit.  The lockstep translation rules:
   velo_only_mode, use_local_map, gravity_refine_every > 0); what the
   reference decides per lane is a tensor per lane (the threshold schedule,
   weight_tan, huber, the LM caps, the marginalization flag, the old-slot
-  choice, read with a gather).
+  choice, read with a gather).  Two of these selects, inited | imu_mode
+  <= 1 and try_init, keep their branch's result in few lanes and few
+  scans: under a capture each is an IF node on "any lane takes it"
+  (`branch.any_lane`, the second inside the first), so a replay runs the
+  init bookkeeping only while a lane is un-inited and the init solve
+  only on scans where a lane attempts it; the select inside decides per
+  lane as before.
 * `while_loop` (estimator/solver.py:319) runs the largest lane's cap with
   a done flag per lane; a lane stops at its own cap or convergence and
   keeps its carry, so it gets the iterates it would get alone.
@@ -858,8 +864,11 @@ def _step_core(state: LIOState, scan: ScanInput, cfg, one):
             if one:
                 new_state = branch.cond(state.inited, None, book, new_state)
             else:
-                new_state = _select_state(state.inited, new_state,
-                                          book(new_state))
+                # captured, skipped where every lane is inited
+                new_state = branch.any_lane(
+                    ~state.inited,
+                    lambda s: _select_state(state.inited, s, book(s)),
+                    new_state, name="init")
 
     out = StepOutput(
         pose_q=q_pub, pose_p=p_pub, t=_at(t_w, front_idx),
@@ -944,7 +953,9 @@ def _init_bookkeeping(state: LIOState, scan: ScanInput, q_pub, p_pub, fstack,
     if one:
         return branch.cond(try_init, lambda s: _try_init(s, cfg, None, True),
                            None, state)
-    return _try_init(state, cfg, try_init)
+    # captured, skipped where no lane attempts
+    return branch.any_lane(try_init, lambda s: _try_init(s, cfg, try_init),
+                           state, name="init_solve")
 
 
 def _try_init(state: LIOState, cfg, attempt, one=False):

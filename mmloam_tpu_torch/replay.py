@@ -19,11 +19,13 @@ runs it, with no host in the loop: the lockstep scan is captured once as
 a CUDA graph (`_ScanGraph`) and replayed for every scan after.  The first
 call for a (config, lanes, device, shapes) runs scan 0 eagerly (which
 builds the kernels and fills the constant caches), captures the scan, and
-replays it for scans 1 .. T-1.  `replay` captures the one-lane step
-instead, its branches as CUDA-graph IF nodes (`branch.py`), after a scan
-0 run through the lockstep step at one lane (bit-equal, and it runs every
-branch, so every kernel, handle and constant exists before the capture).
-The graph is cached, one a device
+replays it for scans 1 .. T-1.  The lockstep graph gates its init in IF
+nodes (`branch.any_lane`): the bookkeeping runs while a lane is
+un-inited, the init solve where a lane attempts it.  `replay` captures
+the one-lane step instead, its branches as CUDA-graph IF nodes
+(`branch.py`), after a scan 0 run through the lockstep step at one lane
+(bit-equal, and it runs every branch, so every kernel, handle and
+constant exists before the capture).  The graph is cached, one a device
 (`_GRAPHS`): a later call with the same config and shapes copies its
 states into the graph's buffers and replays every scan, and a call with
 others replaces it.  A cached graph holds a copy of the batch's state,
@@ -35,10 +37,12 @@ kernels' launch counters count a call's replays once, after its last
 scan, from the kernel nodes of the captured graph
 (`ops/graph_kernels.py`); the launches inside an IF node's body count as
 many times as its predicate held, read from the predicates each replay
-left.  `_replay_eager` is the loop without a graph (the counterpart of `jax.disable_jit`): CPU
-tensors take it, and tests call it.  With spans on (`spans.py`) the
-runner keeps the layer of each of its graphs' nodes (`node_layers`) and
-the loop clocks each scan's host work and graph launch.
+left; the same host read adds the lockstep graph's replays and the
+replays in which each gate's body ran to `spans.gate_counts()`.
+`_replay_eager` is the loop without a graph (the counterpart of
+`jax.disable_jit`): CPU tensors take it, and tests call it.  With spans
+on (`spans.py`) the runner keeps the layer of each of its graphs' nodes
+(`node_layers`) and the loop clocks each scan's host work and graph launch.
 """
 
 from __future__ import annotations
@@ -427,27 +431,29 @@ def _end_routing(pool, dev):
 
 
 def _abandon(graph):
-    """Keep a one-lane graph whose capture failed alive for the life of
-    the process.  Where an op fails inside an IF node's body, the driver
-    frees the body graph with its invalidated capture but the node keeps
-    pointing at it, and destroying the graph then crashes the process
-    (torch 2.11 with the CUDA 12.8 runtime on an H100: "free(): invalid
-    pointer" or a segfault in `CUDAGraph.reset`, or a hang).  So the
-    graph object is never released: a few KB of host memory a failed
-    capture; its tensors' memory pools go."""
+    """Keep a graph whose capture failed after it opened an IF node alive
+    for the life of the process.  Where an op fails inside an IF node's
+    body, the driver frees the body graph with its invalidated capture
+    but the node keeps pointing at it, and destroying the graph then
+    crashes the process (torch 2.11 with the CUDA 12.8 runtime on an
+    H100: "free(): invalid pointer" or a segfault in `CUDAGraph.reset`,
+    or a hang).  So the graph object is never released: a few KB of host
+    memory a failed capture; its tensors' memory pools go."""
     ctypes.pythonapi.Py_IncRef(ctypes.py_object(graph))
 
 
 class _ScanGraph:
     """One scan captured as a CUDA graph on static buffers: on the static
-    state and scan, the lockstep step (`pipeline.step_core_batch`) or,
-    with `one`, the one-lane step (`pipeline.step_core_one`, its branches
-    in IF nodes kept by `bodies`), then `apply_inserts_batched` (the maps
-    in place), then the new state copied into the static state.
-    `run(scan)` copies a scan in, replays, and returns the static step
-    outputs (overwritten by the next run); `flags` then holds each IF
-    node's predicate at that replay (None without IF nodes).  Capture
-    raises, naming the op, where the scan cannot be captured.
+    state and scan, the lockstep step (`pipeline.step_core_batch`, its
+    init gates in IF nodes) or, with `one`, the one-lane step
+    (`pipeline.step_core_one`, its branches in IF nodes), both kept by
+    `bodies`, then `apply_inserts_batched` (the maps in place), then the
+    new state copied into the static state.  `run(scan)` copies a scan
+    in, replays, and returns the static step outputs (overwritten by the
+    next run); `flags` then holds each IF node's predicate at that replay
+    (None without IF nodes).  `gates` maps each named body (the lockstep
+    step's "init" and "init_solve") to its IF node.  Capture raises,
+    naming the op, where the scan cannot be captured.
 
     Counts: under the capture the kernel wrappers launch nothing and count
     nothing (`launch_tape`).  `launches`, the launches of our kernels
@@ -479,7 +485,7 @@ class _ScanGraph:
         self.scan = tree_map(lambda a: a.clone(), scan)
         self.lock = threading.Lock()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        bodies = branch.Bodies(state.x.device) if one else None
+        bodies = branch.Bodies(state.x.device)
         step = pipeline.step_core_one if one else pipeline.step_core_batch
         what = "one-lane" if one else "lockstep"
         stream = torch.cuda.Stream(state.x.device)
@@ -498,21 +504,20 @@ class _ScanGraph:
                         branch.recording(bodies), torch.cuda.graph(
                             self.graph, pool=pool, stream=stream,
                             capture_error_mode="thread_local"):
-                    if one:
-                        bodies.flags.zero_()
+                    bodies.flags.zero_()
                     new, self.out, pend = step(self.state, self.scan, cfg)
                     new = pipeline.apply_inserts_batched(new, pend, cfg)
                     _assign(self.state, new)
             except RuntimeError as e:
                 _end_routing(pool, state.x.device)
-                if one:
+                if len(bodies):
                     _abandon(self.graph)
                 raise RuntimeError(f"the {what} scan did not capture at "
                                    f"{_capture_site(e)}: {e}") from e
             capture_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         raw = self.graph.raw_cuda_graph()
-        graphs = [raw] + ([] if bodies is None else bodies.graphs)
+        graphs = [raw] + bodies.graphs
         found = [graph_kernels.launches(g) for g in graphs]
         noted = [launch_tape.launches(tape, body=i - 1 if i else None)
                  for i in range(len(graphs))]
@@ -530,11 +535,13 @@ class _ScanGraph:
         if on:
             try:
                 self.node_layers = spans.node_layers(
-                    graphs, [] if bodies is None else bodies.parents, notes)
+                    graphs, bodies.parents, notes)
                 self.node_layers_why = None
             except ValueError as e:
                 self.node_layers_why = str(e)
-        self.flags = None if bodies is None else bodies.flags[:len(bodies)]
+        self.flags = bodies.flags[:len(bodies)] if len(bodies) else None
+        self.gates = {name: i for i, name in enumerate(bodies.names)
+                      if name is not None}
         self.tape = tape
         t0 = time.perf_counter()
         self.graph.instantiate()
@@ -618,11 +625,15 @@ def _replay_graph(states, scans, cfg, one=False):
                 tree_map(lambda o, a: o[t].copy_(a), outs, out)
                 if hist is not None:
                     hist[t].copy_(flags)
-        # the one host read: how often each body ran
-        runner.count(T - first, None if hist is None
-                     else hist.sum(dim=0).tolist())
-        runner.flag_history = hist
+        sums = None if hist is None else hist.sum(dim=0)
         final = tree_map(lambda a: a.clone(), runner.state)
+        # the one host read: how often each body ran
+        runs = None if sums is None else sums.tolist()
+        runner.count(T - first, runs)
+        runner.flag_history = hist
+        if not one:
+            spans.count_gates(T - first, {} if runs is None else {
+                name: runs[i] for name, i in runner.gates.items()})
     return final, outs
 
 

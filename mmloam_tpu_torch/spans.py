@@ -29,11 +29,15 @@ runs as it does without this module.  On:
 
 The set-up's parts are kept whatever the switch says, one clock pair each
 a capture (`replay._ScanGraph.eager_s`, `census_s`, `instantiate_s`):
-`last_setup()` gives the last capture's.
+`last_setup()` gives the last capture's.  So are the lockstep graph's
+gate counts (`gate_counts()`): its replays since the process started,
+and those in which each gate's IF body ran, added once a call from the
+predicate sums the replay loop reads anyway.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -53,6 +57,8 @@ _OFF = contextlib.nullcontext()
 _LOCAL = threading.local()
 _LAST = None             # the last call's `Replays`
 _SETUP = None            # the last capture's set-up parts
+_GATES = None            # lockstep replays, and those that ran each gate
+_GATES_LOCK = threading.Lock()
 
 # CUgraphNodeType: what a trace shows as a device operation, the IF node,
 # and the nodes that run nothing on the device
@@ -322,3 +328,23 @@ def last_setup():
     instantiation, as `replay._ScanGraph.capture_s`).  None before a
     capture."""
     return None if _SETUP is None else dict(_SETUP)
+
+
+def count_gates(replays, runs):
+    """Add a call's `replays` of a lockstep graph, and the replays in
+    which each gate's body ran (`runs`, by gate name)."""
+    global _GATES
+    with _GATES_LOCK:
+        if _GATES is None:
+            _GATES = collections.Counter()
+        _GATES["scans"] += replays
+        _GATES.update(runs)
+
+
+def gate_counts():
+    """Replays of the lockstep graph since the process started (`scans`)
+    and those in which each gate's body ran: `init`, the bookkeeping
+    (some lane un-inited), `init_solve`, the init solve (some lane
+    attempting).  None before a lockstep graph has replayed."""
+    with _GATES_LOCK:
+        return None if _GATES is None else dict(_GATES)

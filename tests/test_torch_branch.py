@@ -16,6 +16,12 @@ conditionals, bit-equal to the lockstep step at one lane.
   itself runs on the card: tests/test_torch_cuda.py, chip_smoke.py phases
   1c and 15): the bodies' nesting, predicates and buffers, which body
   each kernel the step launches sits in, and the count arithmetic.
+* The lockstep step's init gates (`branch.any_lane`): under a stub capture
+  the bookkeeping sits in one body and the init solve in a body inside
+  it, with none of our kernels in either, and with every lane inited the
+  captured step is the step op by op bit for bit; op by op the step
+  still runs the init attempt every scan; the replay loop adds the gate
+  counts (`spans.gate_counts`) from each replay's predicates.
 * K3's algorithm through a replay: the tiny hall replay with the
   marginalization's eigen-decompositions through `eigh.jacobi_reference`
   against tests/golden/hall_25.npz (ROADMAP queue 3).
@@ -33,7 +39,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from mmloam_tpu_torch import branch, pipeline, replay  # noqa: E402
+from mmloam_tpu_torch import branch, pipeline, replay, spans  # noqa: E402
 from mmloam_tpu_torch.config import faithful_config  # noqa: E402
 from mmloam_tpu_torch.config import tiny_config  # noqa: E402
 from mmloam_tpu_torch.data import synthetic  # noqa: E402
@@ -297,14 +303,10 @@ def _post_init_state():
     return st, tree_map(lambda a: a[10:11], scans)
 
 
-def test_step_under_a_stub_capture_puts_each_kernel_in_its_body(monkeypatch):
-    """The one-lane step captured with stub IF nodes, with the kernels'
-    launches noted as their wrappers note them on the card: K1's four at
-    the top level, K2's (one per association call, one more per rescue)
-    and K3's two in the estimate's body or the bodies it holds (the
-    re-association), nothing else in any body, and the bodies nest as
-    the reference's conditionals do."""
-    state, scan = _post_init_state()
+def _noting_kernels(monkeypatch):
+    """Note K1's, K2's and K3's launches as their wrappers note them on
+    the card (one K2 launch a call, one more a rescue)."""
+    real = assoc._count
 
     def k2_noting(*deltas, **kw):
         real(*deltas, **kw)
@@ -313,7 +315,6 @@ def test_step_under_a_stub_capture_puts_each_kernel_in_its_body(monkeypatch):
             if kw.get("LOCAL_CALLS"):
                 real("default", LAUNCHES=1, RESCUE_LAUNCHES=1)
 
-    real = assoc._count
     monkeypatch.setattr(assoc, "_count", k2_noting)
     solve = eigh.eigh
     monkeypatch.setattr(eigh, "eigh",
@@ -324,6 +325,17 @@ def test_step_under_a_stub_capture_puts_each_kernel_in_its_body(monkeypatch):
         map_insert._count_launch("default")
         return insert(*a, **k)
     monkeypatch.setattr(map_insert, "insert_batched", k1_noting)
+
+
+def test_step_under_a_stub_capture_puts_each_kernel_in_its_body(monkeypatch):
+    """The one-lane step captured with stub IF nodes, with the kernels'
+    launches noted as their wrappers note them on the card: K1's four at
+    the top level, K2's (one per association call, one more per rescue)
+    and K3's two in the estimate's body or the bodies it holds (the
+    re-association), nothing else in any body, and the bodies nest as
+    the reference's conditionals do."""
+    state, scan = _post_init_state()
+    _noting_kernels(monkeypatch)
     bodies, tape = _StubBodies("cpu"), []
     with launch_tape.recording(tape), branch.recording(bodies):
         bodies.flags.zero_()
@@ -357,6 +369,97 @@ def test_step_under_a_stub_capture_puts_each_kernel_in_its_body(monkeypatch):
     assert len(bodies) == 38
     assert sorted(graph for graph in bodies.graphs) == [
         1000 + i for i in range(38)]
+
+
+@functools.lru_cache(maxsize=None)
+def _post_init_lanes():
+    """Two hall lanes (lane 1's points moved 1 cm) after scan 9 of a
+    lockstep replay, both inited, and their scans (13, 2, ...)."""
+    scans = pipeline.scan_from_numpy(_hall(CFG, 13)[0], device="cpu")
+    lanes = replay.stack_sequences([scans, scans._replace(
+        pts=scans.pts + 0.01)])
+    st, _ = replay._replay_eager(
+        replay.stack_states([pipeline.init_state(CFG, device="cpu")
+                             for _ in range(2)]),
+        tree_map(lambda a: a[:10], lanes), CFG)
+    assert bool(st.inited.all())
+    return st, lanes
+
+
+@pytest.mark.parametrize("lanes", ["inited", "one_fresh"])
+def test_lockstep_step_under_a_stub_capture_gates_init_in_two_bodies(
+        monkeypatch, lanes):
+    """The lockstep step captured with stub IF nodes: two gates, the
+    bookkeeping ("init", on some lane un-inited) and inside its body the
+    init solve ("init_solve", on some lane attempting), each beside its
+    identity body; K1, K2 and K3 launch at the top level only.  Both
+    lanes inited: neither gate's predicate holds; lane 1 fresh: the
+    bookkeeping's does (one lane of two), the solve's not (no lane at an
+    attempt)."""
+    state, scans = _post_init_lanes()
+    state = tree_map(torch.clone, state)        # the inserts write maps
+    if lanes == "one_fresh":
+        fresh = pipeline.init_state(CFG, device="cpu")
+        state = tree_map(lambda a, f: torch.stack([a[0], f]), state, fresh)
+    scan = tree_map(lambda a: a[10], scans)
+    _noting_kernels(monkeypatch)
+    bodies, tape = _StubBodies("cpu"), []
+    with launch_tape.recording(tape), branch.recording(bodies):
+        bodies.flags.zero_()
+        new, _, pend = pipeline.step_core_batch(state, scan, CFG)
+        pipeline.apply_inserts_batched(new, pend, CFG)
+    # the bookkeeping, inside it the solve and its identity, then the
+    # bookkeeping's identity
+    assert bodies.names == ["init", "init_solve", None, None]
+    assert bodies.parents == [None, 0, 0, None]
+    # no launch and no counter update noted in either body
+    assert tape and all(b is None for _, _, b in tape)
+    top = launch_tape.launches(tape)
+    assert top[("k1", "default", False)] == 4
+    assert top[("k3", "default", False)] == 2
+    book = lanes == "one_fresh"
+    flags = bodies.flags[:len(bodies)].tolist()
+    assert flags == [book, False, True, not book]
+
+
+def test_lockstep_step_under_a_stub_capture_is_the_step_when_all_inited():
+    """With every lane inited, the lockstep step captured with stub IF
+    nodes (each gate's identity body writes last, as a replay where no
+    lane needs the gate leaves it) is `step_core_batch` op by op, bit for
+    bit in the state, the outputs and the pending inserts."""
+    state, lanes = _post_init_lanes()
+    scan = tree_map(lambda a: a[10], lanes)
+    want = pipeline.step_core_batch(state, scan, CFG)
+    with branch.recording(_StubBodies("cpu")) as bodies:
+        bodies.flags.zero_()
+        got = pipeline.step_core_batch(state, scan, CFG)
+    assert len(bodies) == 4
+    got, want = replay._leaves(got), replay._leaves(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def test_lockstep_step_op_by_op_attempts_init_every_scan(monkeypatch):
+    """Outside a capture the lockstep step runs the bookkeeping and the
+    init attempt for every lane every scan, inited or not, and selects,
+    as before the gates."""
+    calls = []
+    attempt = pipeline._try_init
+
+    def counted(*a, **k):
+        calls.append(a[0].x.shape[0])
+        return attempt(*a, **k)
+
+    monkeypatch.setattr(pipeline, "_try_init", counted)
+    state, lanes = _post_init_lanes()
+    replay._replay_eager(tree_map(torch.clone, state),
+                         tree_map(lambda a: a[10:13], lanes), CFG)
+    assert calls == [2, 2, 2]
+    fresh = replay.stack_states([pipeline.init_state(CFG, device="cpu")
+                                 for _ in range(2)])
+    pipeline.step_core_batch(fresh, tree_map(lambda a: a[0], lanes), CFG)
+    assert calls == [2, 2, 2, 2]
 
 
 def _reset():
@@ -449,6 +552,64 @@ def test_replay_graph_counts_bodies_from_the_predicates_each_replay_left(
         # replays 4-7)
         assert seen == [(3, [1, 1]), (4, [2, 4])]
         assert runner.key[1] is True
+    finally:
+        replay.clear_graphs()
+
+
+def test_lockstep_replay_graph_adds_the_gate_counts_each_replay_left(
+        monkeypatch):
+    """`_replay_graph` on the lockstep step adds, once a call, its
+    replays and the replays in which each gate's body ran to
+    `spans.gate_counts()`, from the predicates each replay left (a
+    stand-in for the capture: four IF nodes, "init" at 0 and
+    "init_solve" at 2; scan t takes the bookkeeping where t < 3 and the
+    solve where t == 2)."""
+    seen = []
+
+    class Capture:
+        def __init__(self, key, state, scan, cfg, one=False):
+            assert not one
+            self.key, self.state, self.cfg = key, state, cfg
+            self.lock = threading.Lock()
+            self.flags = torch.zeros(4, dtype=torch.bool)
+            self.gates = {"init": 0, "init_solve": 2}
+            self.t = 0
+
+        def run(self, scan, clock=None):
+            t = self.t % 4
+            self.t += 1
+            self.flags.copy_(torch.tensor([t < 3, t >= 3, t == 2, t < 2]))
+            new, out, pend = pipeline.step_core_batch(self.state, scan,
+                                                      self.cfg)
+            replay._assign(self.state, pipeline.apply_inserts_batched(
+                new, pend, self.cfg))
+            return out
+
+        def count(self, times, runs=None):
+            seen.append((times, runs))
+
+    monkeypatch.setattr(replay, "_ScanGraph", Capture)
+    monkeypatch.setattr(spans, "_GATES", None)
+    scans = pipeline.scan_from_numpy(_hall(CFG, 4)[0], device="cpu")
+    sc = replay.stack_sequences([scans, scans._replace(pts=scans.pts
+                                                       + 0.01)])
+    fresh = lambda: replay.stack_states(
+        [pipeline.init_state(CFG, device="cpu") for _ in range(2)])
+    replay.clear_graphs()
+    try:
+        assert spans.gate_counts() is None
+        _, want = replay._replay_eager(fresh(), sc, CFG)
+        # the first call runs scan 0 eagerly and replays 1-3 (the
+        # stand-in's t = 0, 1, 2), the second replays all four (t = 0-3)
+        _, got = replay._replay_graph(fresh(), sc, CFG)
+        assert seen == [(3, [3, 0, 1, 2])]
+        assert spans.gate_counts() == dict(scans=3, init=3, init_solve=1)
+        _, got = replay._replay_graph(fresh(), sc, CFG)
+        for f in got._fields:
+            if getattr(got, f) is not None:
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert seen[1] == (4, [3, 1, 1, 2])
+        assert spans.gate_counts() == dict(scans=7, init=6, init_solve=2)
     finally:
         replay.clear_graphs()
 

@@ -35,7 +35,11 @@ within n u ||A||; whether it is bit-equal is printed) and torch.linalg.eigh
 SMs, and on stress matrices (0-9 sweeps); the replay's CUDA graph against the eager loop on
 tests/test_torch_batch.py's diverging lanes (discrete outputs equal, poses
 within 1e-5, the same launches), and two cached replays in a row with
-other states.  The one-sequence step's CUDA-graph IF nodes: a nested
+other states.  The lockstep graph's init gates: on two hall lanes that
+init together and on the diverging lanes, the graph agrees with the
+eager loop, launches what it launches, and opens the bookkeeping's body
+only while a lane is un-inited and the init solve's only on scans where a
+lane attempts.  The one-sequence step's CUDA-graph IF nodes: a nested
 program of branches against op by op (chip_smoke.py phase 1c), the
 one-lane graph bit-equal to the lockstep graph at one lane and counting
 the launches the one-lane loop issues, and a capture failure that raises
@@ -1001,6 +1005,78 @@ def test_if_nodes_nest_capture_and_replay_on_card():
     assert res["if_nodes"] == 8 and res["cases"] == 12
 
 
+def _hall_lanes(dev, T=14):
+    """Two hall lanes from fresh states (lane 1's points moved 1 cm), on
+    the card: (cfg, fresh states, scans (T, 2, ...))."""
+    from mmloam_tpu_torch import replay
+
+    cfg, scans, init = _one_lane_hall(dev, T)
+    seqs = [scans, scans._replace(pts=scans.pts + 0.01)]
+    return cfg, (lambda: replay.stack_states([init(), init()])), \
+        replay.stack_sequences(seqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", ["hall", "diverging"])
+def test_lockstep_graph_gates_init_on_card(lanes, monkeypatch):
+    """`replay_batch` over lanes that cross init: a cached call agrees
+    with the eager loop (`_same_run`) and launches K1, K2 and K3 as often;
+    its flag history opens the bookkeeping's body ("init") on the scans
+    before which some lane is un-inited, and the init solve's
+    ("init_solve") only on those where some lane attempts (at scans 8,
+    11, ... from a fresh state); `spans.gate_counts()` adds the call's
+    replays and the bodies' runs."""
+    from mmloam_tpu_torch import pipeline, replay, spans
+
+    dev = _device()
+    replay.clear_graphs()
+    cfg, states, scans = (_hall_lanes if lanes == "hall"
+                          else _graph_lanes)(dev)
+    T = scans.pts.shape[0]
+    attempts = []
+    attempt = pipeline._try_init
+
+    def spied(s, c, a):
+        attempts.append(bool(a.any()))
+        return attempt(s, c, a)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(pipeline, "_try_init", spied)
+        c0 = _counts()
+        _, eager = replay._replay_eager(states(), scans, cfg)
+        torch.cuda.synchronize()
+        c1 = _counts()
+    assert len(attempts) == T
+    replay.replay_batch(states(), scans, cfg)      # scan 0 eager, capture
+    (runner,) = replay._GRAPHS.values()
+    assert runner.gates == dict(init=0, init_solve=1)
+    assert len(runner.bodies) == 4
+    g0 = spans.gate_counts()
+    c2 = _counts()
+    _, graph = replay.replay_batch(states(), scans, cfg)
+    torch.cuda.synchronize()
+    c3 = _counts()
+    g1 = spans.gate_counts()
+    _same_run(graph, eager, "gated graph vs eager")
+    assert tuple(b - a for a, b in zip(c0, c1)) == \
+        tuple(b - a for a, b in zip(c2, c3))
+    before = torch.cat([states().inited[None], eager.inited[:-1]]).cpu()
+    book = (~before).any(dim=1)
+    solve = book & torch.tensor(attempts)
+    hist = runner.flag_history.cpu().bool()
+    assert torch.equal(hist[:, 0], book)
+    assert torch.equal(hist[:, 1], solve)
+    assert solve.any()
+    assert {k: g1[k] - g0[k] for k in g1} == dict(
+        scans=T, init=int(book.sum()), init_solve=int(solve.sum()))
+    if lanes == "hall":
+        # both lanes inited within the call: the bookkeeping stops
+        assert not book[-1]
+        assert all((t - 8) % 3 == 0 for t in
+                   solve.nonzero().flatten().tolist())
+    replay.clear_graphs()
+
+
 def _one_lane_hall(dev, T=14):
     from mmloam_tpu_torch import pipeline, replay
     from mmloam_tpu_torch.config import tiny_config
@@ -1034,7 +1110,8 @@ def test_one_lane_graph_is_the_lockstep_graph_on_card():
     lane = tree_map(lambda a: a[:, None], scans)
     lfinal, louts = replay.replay_batch(pipeline._lane(init()), lane, cfg)
     (lrunner,) = replay._GRAPHS.values()
-    assert lrunner.key[1] is False and lrunner.flags is None
+    assert lrunner.key[1] is False and len(lrunner.bodies) == 4
+    assert lrunner.gates == dict(init=0, init_solve=1)
     for f in outs._fields:
         assert torch.equal(getattr(outs, f), getattr(louts, f)[:, 0]), f
     for a, b in zip(replay._leaves(final),
