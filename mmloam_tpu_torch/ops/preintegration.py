@@ -10,6 +10,7 @@ no-ops (dt forced to 0).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -228,13 +229,39 @@ def _nan_where_failed(X, info):
     return torch.where(bad, torch.full_like(X, float("nan")), X)
 
 
+# torch's LU on the card factors a batch of square matrices wider than 16
+# through cuBLAS's batched kernel only while the batch holds at most 16 of
+# them (and they are at most 128 wide); a larger batch goes to MAGMA, whose
+# batched factorization waits on the host, which a CUDA graph's capture
+# refuses (the gravity refinement's (B, 18, 18) solve at B = 64)
+LU_GROUP = 16
+
+
+def lu_factor_groups(A):
+    """`torch.linalg.lu_factor_ex(A)` with the batch factored `LU_GROUP`
+    matrices at a time (each matrix is factored alone either way)."""
+    n = A.shape[-1]
+    lead = A.shape[:-2]
+    flat = A.reshape(-1, n, n)
+    parts = [torch.linalg.lu_factor_ex(flat[i:i + LU_GROUP])
+             for i in range(0, flat.shape[0], LU_GROUP)]
+    LU, piv, info = (torch.cat(p) for p in zip(*parts))
+    return LU.reshape(A.shape), piv.reshape(lead + (n,)), info.reshape(lead)
+
+
 def solve_lu(A, B):
     """A X = B (A (..., n, n), B (..., n, k)) by LU with partial pivoting,
     NaN where the factorization failed.  `torch.linalg.solve_ex` and
     `inv_ex` read a device value in their triangular solve; this factors
     with `lu_factor_ex` and solves with `solve_triangular`, which read
-    none (on the CPU the result is bit-equal to `inv_ex`'s)."""
-    LU, piv, info = torch.linalg.lu_factor_ex(A)
+    none (on the CPU the result is bit-equal to `inv_ex`'s).  On the card
+    a batch of more than `LU_GROUP` matrices wider than 16 is factored in
+    groups (`lu_factor_groups`), so the solve captures at any batch."""
+    n = A.shape[-1]
+    if A.is_cuda and n > 16 and math.prod(A.shape[:-2]) > LU_GROUP:
+        LU, piv, info = lu_factor_groups(A)
+    else:
+        LU, piv, info = torch.linalg.lu_factor_ex(A)
     P, L, U = torch.lu_unpack(LU, piv)
     y = torch.linalg.solve_triangular(L, P.transpose(-1, -2) @ B,
                                       upper=False, unitriangular=True)

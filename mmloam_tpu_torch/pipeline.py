@@ -105,6 +105,11 @@ class StepOutput(NamedTuple):
     hori_merged: torch.Tensor
     n_assoc_line: torch.Tensor
     n_assoc_plane: torch.Tensor
+    # each lane's downsampled corner and surf points of the scan before
+    # the stack caps (max_corner, max_surf) keep the first of them (the
+    # port's own: the JAX package's StepOutput has no such field)
+    n_corner_ds: torch.Tensor
+    n_surf_ds: torch.Tensor
 
 
 class LIOState(NamedTuple):
@@ -372,7 +377,9 @@ class FrameStack(NamedTuple):
 
 def _build_stacks(flat_pts, flat_rel, flat_labels, flat_valid, cfg, dtype):
     """Label split + voxel downsample into each lane's fixed stacks; with
-    cfg.use_nonfeature the unlabelled points form a third class."""
+    cfg.use_nonfeature the unlabelled points form a third class.  Returns
+    the FrameStack and each lane's downsampled corner and surf points
+    before the caps (int32, (B,) each)."""
     sc = cfg.scan
     masks = [flat_valid & (flat_labels == 1), flat_valid & (flat_labels == 2)]
     leaves = [sc.filter_corner, sc.filter_surf]
@@ -383,7 +390,7 @@ def _build_stacks(flat_pts, flat_rel, flat_labels, flat_valid, cfg, dtype):
         caps.append(sc.max_nonfeature)
     outs = downsample.voxel_downsample_multi(flat_pts, masks, leaves, caps,
                                              extra=flat_rel)
-    (corner, cmask, _, crel), (surf, smask, _, srel) = outs[0], outs[1]
+    (corner, cmask, n_c, crel), (surf, smask, n_s, srel) = outs[0], outs[1]
     extra = {}
     if cfg.use_nonfeature:
         non, nmask, _, nrel = outs[2]
@@ -392,7 +399,7 @@ def _build_stacks(flat_pts, flat_rel, flat_labels, flat_valid, cfg, dtype):
     return FrameStack(corner=corner.to(dtype), corner_mask=cmask,
                       surf=surf.to(dtype), surf_mask=smask,
                       corner_rel=crel.to(dtype), surf_rel=srel.to(dtype),
-                      **extra)
+                      **extra), n_c, n_s
 
 
 class PreparedFrame(NamedTuple):
@@ -416,6 +423,8 @@ class PreparedFrame(NamedTuple):
     fstack: FrameStack
     fast_rotation: torch.Tensor
     hori_merged: torch.Tensor
+    n_corner_ds: torch.Tensor
+    n_surf_ds: torch.Tensor
 
 
 def prepare_frame(state: LIOState, scan: ScanInput, cfg) -> PreparedFrame:
@@ -440,15 +449,16 @@ def prepare_frame_batch(state: LIOState, scan: ScanInput, cfg
     ring_valid = (torch.arange(scan.pts.shape[-2], device=dev)
                   < scan.n_valid[..., None])
     use_hori = scan.hori_pts is not None and not cfg.velo_only_mode
-    if use_hori:
-        hlabels = features.extract_scan_features(
-            scan.hori_pts, scan.hori_intensity, scan.hori_n_valid, cfg)
-        h_valid = (torch.arange(scan.hori_pts.shape[-2], device=dev)
-                   < scan.hori_n_valid[..., None])
-        h_dist2 = torch.sum(scan.hori_pts * scan.hori_pts, dim=-1)
-        h_valid = (h_valid
-                   & (h_dist2 >= cfg.feature.near_points_threshold ** 2)
-                   & (h_dist2 <= cfg.feature.far_points_threshold ** 2))
+    with spans.layer("fusion"):
+        if use_hori:
+            hlabels = features.extract_scan_features(
+                scan.hori_pts, scan.hori_intensity, scan.hori_n_valid, cfg)
+            h_valid = (torch.arange(scan.hori_pts.shape[-2], device=dev)
+                       < scan.hori_n_valid[..., None])
+            h_dist2 = torch.sum(scan.hori_pts * scan.hori_pts, dim=-1)
+            h_valid = (h_valid
+                       & (h_dist2 >= cfg.feature.near_points_threshold ** 2)
+                       & (h_dist2 <= cfg.feature.far_points_threshold ** 2))
 
     # rotation gates from the interval's first/last gyro sample (:746-766)
     gz = scan.imu_gyr[..., 2]
@@ -517,23 +527,25 @@ def prepare_frame_batch(state: LIOState, scan: ScanInput, cfg
     flat_lab = labels.reshape(B, -1)
     flat_ok = ring_valid.reshape(B, -1)
     hori_merged = torch.zeros((B,), dtype=torch.bool, device=dev)
-    if use_hori:
-        h_corner_cnt = torch.sum(((hlabels == 1) & h_valid).reshape(B, -1),
-                                 dim=-1)
-        hori_merged = slow_rotation & (
-            h_corner_cnt > cfg.solver.corner_cnt_gate_hori)
-        flat_pts = torch.cat([flat_pts,
-                              scan.hori_pts.reshape(B, -1, 3).to(dtype)], 1)
-        flat_rel = torch.cat([flat_rel,
-                              scan.hori_rel_time.reshape(B, -1).to(dtype)], 1)
-        flat_lab = torch.cat([flat_lab, hlabels.reshape(B, -1)], 1)
-        flat_ok = torch.cat([flat_ok, h_valid.reshape(B, -1)
-                             & hori_merged[:, None]], 1)
+    with spans.layer("fusion"):
+        if use_hori:
+            h_corner_cnt = torch.sum(
+                ((hlabels == 1) & h_valid).reshape(B, -1), dim=-1)
+            hori_merged = slow_rotation & (
+                h_corner_cnt > cfg.solver.corner_cnt_gate_hori)
+            flat_pts = torch.cat(
+                [flat_pts, scan.hori_pts.reshape(B, -1, 3).to(dtype)], 1)
+            flat_rel = torch.cat(
+                [flat_rel, scan.hori_rel_time.reshape(B, -1).to(dtype)], 1)
+            flat_lab = torch.cat([flat_lab, hlabels.reshape(B, -1)], 1)
+            flat_ok = torch.cat([flat_ok, h_valid.reshape(B, -1)
+                                 & hori_merged[:, None]], 1)
 
     pts_ds = undistort.undistort(flat_pts, flat_rel, dq_l, dt_l)
 
     # ---- 4. stacks ----
-    fstack = _build_stacks(pts_ds, flat_rel, flat_lab, flat_ok, cfg, dtype)
+    fstack, n_corner_ds, n_surf_ds = _build_stacks(
+        pts_ds, flat_rel, flat_lab, flat_ok, cfg, dtype)
 
     # ---- 5. window push ----
     new_preint = dict(dq=pre.dq.to(dtype), dp=pre.dp.to(dtype),
@@ -569,7 +581,8 @@ def prepare_frame_batch(state: LIOState, scan: ScanInput, cfg
                          p_wl_pred=p_wl_pred, dq_l=dq_l, dt_l=dt_l,
                          q_prev=q_prev, p_prev=p_prev, have_prev=have_prev,
                          fstack=fstack, fast_rotation=fast_rotation,
-                         hori_merged=hori_merged)
+                         hori_merged=hori_merged, n_corner_ds=n_corner_ds,
+                         n_surf_ds=n_surf_ds)
 
 
 class PendingInsert(NamedTuple):
@@ -878,7 +891,8 @@ def _step_core(state: LIOState, scan: ScanInput, cfg, one):
         n_surf=torch.sum(fv_w[..., None] & stacks_w.surf_mask,
                          dim=(-2, -1)).to(torch.int32),
         fast_rotation=pf.fast_rotation, hori_merged=pf.hori_merged,
-        n_assoc_line=res.n_line, n_assoc_plane=res.n_plane)
+        n_assoc_line=res.n_line, n_assoc_plane=res.n_plane,
+        n_corner_ds=pf.n_corner_ds, n_surf_ds=pf.n_surf_ds)
     return new_state, out, pend
 
 

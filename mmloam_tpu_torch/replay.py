@@ -38,7 +38,9 @@ scan, from the kernel nodes of the captured graph
 (`ops/graph_kernels.py`); the launches inside an IF node's body count as
 many times as its predicate held, read from the predicates each replay
 left; the same host read adds the lockstep graph's replays and the
-replays in which each gate's body ran to `spans.gate_counts()`.
+replays in which each gate's body ran to `spans.gate_counts()`.  Each
+call leaves its outputs with `spans.note_fusion` (`spans.fusion_counts()`
+sums them when asked).
 `_replay_eager` is the loop without a graph (the counterpart of
 `jax.disable_jit`): CPU tensors take it, and tests call it.  With spans
 on (`spans.py`) the runner keeps the layer of each of its graphs' nodes
@@ -297,6 +299,7 @@ def replay_batch(states, scans, cfg, mesh=None):
     outs = tree_map(lambda *xs: torch.cat([x.to(devs[0]) for x in xs],
                                           dim=1),
                     *(results[i][1] for i in range(n)))
+    spans.note_fusion(outs, cfg)
     return finals, outs
 
 
@@ -646,8 +649,11 @@ def _replay_lockstep(states, scans, cfg, one=False):
     ...).  With `one` (B == 1) through the one-lane step.  Returns (final
     states, StepOutput stacked as (T, B, ...))."""
     if states.x.is_cuda:
-        return _replay_graph(states, scans, cfg, one)
-    return _replay_eager(states, scans, cfg, one)
+        final, outs = _replay_graph(states, scans, cfg, one)
+    else:
+        final, outs = _replay_eager(states, scans, cfg, one)
+    spans.note_fusion(outs, cfg)
+    return final, outs
 
 
 def ate_rmse(est_q, est_p, gt_R, gt_p):

@@ -32,7 +32,10 @@ a capture (`replay._ScanGraph.eager_s`, `census_s`, `instantiate_s`):
 `last_setup()` gives the last capture's.  So are the lockstep graph's
 gate counts (`gate_counts()`): its replays since the process started,
 and those in which each gate's IF body ran, added once a call from the
-predicate sums the replay loop reads anyway.
+predicate sums the replay loop reads anyway.  And so are the last
+call's fusion counts (`fusion_counts()`): its lane-scans, those whose
+Horizon sweep was merged, and the downsampled points the stack caps kept
+and dropped, summed from the outputs the call returned only when asked.
 """
 
 from __future__ import annotations
@@ -46,10 +49,10 @@ import time
 
 import torch
 
-# the step's leaf layers, outermost first where they nest: association
-# runs inside the estimator
-LEAVES = ("front_end", "estimator", "association", "gravity", "init",
-          "map_insert")
+# the step's leaf layers, outermost first where they nest: the Horizon's
+# fusion runs inside the front end, association inside the estimator
+LEAVES = ("front_end", "fusion", "estimator", "association", "gravity",
+          "init", "map_insert")
 PREFIX = "mmloam."
 
 _ON = False
@@ -59,6 +62,8 @@ _LAST = None             # the last call's `Replays`
 _SETUP = None            # the last capture's set-up parts
 _GATES = None            # lockstep replays, and those that ran each gate
 _GATES_LOCK = threading.Lock()
+_FUSION = None           # the last call's outputs and caps, or its counts
+_FUSION_LOCK = threading.Lock()
 
 # CUgraphNodeType: what a trace shows as a device operation, the IF node,
 # and the nodes that run nothing on the device
@@ -348,3 +353,34 @@ def gate_counts():
     attempting).  None before a lockstep graph has replayed."""
     with _GATES_LOCK:
         return None if _GATES is None else dict(_GATES)
+
+
+def note_fusion(outs, cfg):
+    """Keep the outputs of a replay call (StepOutput, (T, B, ...)) that its
+    fusion counts are summed from, with the stack caps of `cfg`.  No
+    device work and no host read: `fusion_counts` sums them."""
+    global _FUSION
+    with _FUSION_LOCK:
+        _FUSION = (outs.hori_merged, outs.n_corner_ds, outs.n_surf_ds,
+                   cfg.scan.max_corner, cfg.scan.max_surf)
+
+
+def fusion_counts():
+    """The last replay call's `lane_scans`, those whose Horizon sweep was
+    merged into the estimate (`hori_merged`), and the downsampled corner
+    and surf points the stack caps kept (`corner_kept`, `surf_kept`) and
+    dropped (`corner_dropped`, `surf_dropped`), summed over its lanes and
+    scans.  None before a call.  The first read after a call waits for
+    its outputs."""
+    global _FUSION
+    with _FUSION_LOCK:
+        if isinstance(_FUSION, tuple):
+            merged, n_c, n_s, cap_c, cap_s = _FUSION
+            n_c, n_s = n_c.to(torch.int64), n_s.to(torch.int64)
+            _FUSION = dict(
+                lane_scans=merged.numel(), hori_merged=int(merged.sum()),
+                corner_kept=int(n_c.clamp(max=cap_c).sum()),
+                corner_dropped=int((n_c - cap_c).clamp(min=0).sum()),
+                surf_kept=int(n_s.clamp(max=cap_s).sum()),
+                surf_dropped=int((n_s - cap_s).clamp(min=0).sum()))
+        return None if _FUSION is None else dict(_FUSION)

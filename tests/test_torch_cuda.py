@@ -903,6 +903,28 @@ def _same_run(got, want, what):
 
 
 @pytest.mark.cuda
+def test_solve_lu_captures_over_16_matrices_on_card():
+    """The gravity refinement's (B, 18, 18) solve at B = 64 captures in a
+    CUDA graph (torch alone would take MAGMA there, which waits on the
+    host) and its replay equals the solve op by op, bit for bit."""
+    from mmloam_tpu_torch.ops import preintegration
+
+    dev = _device()
+    g = torch.Generator().manual_seed(5)
+    A = torch.randn(64, 18, 18, generator=g).to(dev) + 4 * torch.eye(
+        18, device=dev)
+    rhs = torch.randn(64, 18, 1, generator=g).to(dev)
+    want = preintegration.solve_lu(A, rhs)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(dev)
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        got = preintegration.solve_lu(A, rhs)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_graph_replay_matches_eager_loop_on_card():
     """`replay_batch` on the card captures the lockstep scan and replays
     it; it agrees with the eager loop on the diverging lanes, issues the

@@ -18,7 +18,9 @@ need a card.  The graph itself runs on the card only
   needs the card), and the runner's outputs are the eager loop's;
 * `_signature` keys the cache by structure, shape and dtype;
 * CPU tensors take the eager loop and cache no graph;
-* a failed capture names the package's frame of the first error.
+* a failed capture names the package's frame of the first error;
+* the LU the card factors in groups (so a batch over 16 captures) is
+  `lu_factor_ex` of the whole batch bit for bit, failures included.
 """
 
 import collections
@@ -259,3 +261,16 @@ def test_capture_site_names_the_innermost_frame_of_the_package():
             raise RuntimeError("capture invalidated")
     except RuntimeError as e:
         assert replay._capture_site(e) == site
+
+
+def test_lu_in_groups_equals_the_whole_batch():
+    from mmloam_tpu_torch.ops import preintegration
+
+    g = torch.Generator().manual_seed(3)
+    A = torch.randn(2, 37, 18, 18, generator=g)
+    A[1, 5] = 0.0                                   # a failed factorization
+    whole = torch.linalg.lu_factor_ex(A)
+    grouped = preintegration.lu_factor_groups(A)
+    for a, b in zip(whole, grouped):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert grouped[2][1, 5] != 0

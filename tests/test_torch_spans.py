@@ -4,7 +4,15 @@
 On the CPU:
 * spans off, a step leaves no "mmloam.*" range for the profiler; on, each
   leaf layer's range appears on each eager step, association inside the
-  estimator and no other leaf inside another, lockstep and one lane;
+  estimator, fusion (twice a step) inside the front end and no other leaf
+  inside another, lockstep and one lane;
+* while a capture records, a span only notes where the capture stands:
+  the fusion spans of a step add no range and no device work, nested in
+  the front end's notes;
+* `spans.fusion_counts()` after a replay call: its lane-scans, the sum of
+  its `hori_merged`, and the downsampled points its stack caps kept (the
+  sums of the stack masks the step built) and dropped (the frame's
+  occupied voxels past the caps);
 * the eager replay's outputs and final state are bit-equal with spans on
   and off, lockstep and one lane;
 * `spans.node_layers` lays the notes a capture took on each graph's
@@ -18,6 +26,8 @@ nodes with spans on and off; every device operation has its place in
 `node_layers` and K1/K2/K3 sit in their layers; the set-up's parts; the
 counters after a call; the loop's clocks.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -44,17 +54,19 @@ def _spans_off():
 
 
 def _hall(T, device="cpu"):
+    """T scans of the hall, the Horizon's among them (so the fusion span
+    holds its feature pass)."""
     return replay.make_sequence(
         synthetic.default_world(), synthetic.Trajectory(speed=0.8, z_amp=0.15),
         0.0, T, CFG, n_az=360, dtype=np.float32, range_noise=0.003, seed=1,
-        device=device)[0]
+        with_hori=True, hori_n_az=128, device=device)[0]
 
 
-def _lanes(B, device="cpu"):
+def _lanes(B, device="cpu", cfg=CFG):
     """B lanes of the hall (lane b's scans moved b cm), a lane axis."""
     scans = _hall(4, device)
     seqs = [scans._replace(pts=scans.pts + 0.01 * b) for b in range(B)]
-    states = replay.stack_states([pipeline.init_state(CFG, device=device)
+    states = replay.stack_states([pipeline.init_state(cfg, device=device)
                                   for _ in range(B)])
     return states, replay.stack_sequences(seqs)
 
@@ -86,11 +98,13 @@ def test_spans_mark_each_layer_of_each_eager_step(one):
         assert names.count(name) == T, (name, names.count(name))
     # one lane estimates only once the map holds data (scan 1 on)
     assert names.count("association") >= (T - 1 if one else T)
+    # the Horizon's feature pass and its merge, each in the front end
+    assert names.count("fusion") == 2 * T
+    inside = dict(association=["estimator"], fusion=["front_end"])
     for s, e, n in got:
         holders = [m for s2, e2, m in got if (s2, e2) != (s, e)
                    and s2 <= s and e <= e2]
-        assert holders == (["estimator"] if n == "association" else []), \
-            (n, holders)
+        assert holders == inside.get(n, []), (n, holders)
 
 
 @pytest.mark.parametrize("one", [False, True])
@@ -105,6 +119,81 @@ def test_eager_replay_is_bit_equal_with_spans_on_and_off(one):
     for a, b in zip(replay._leaves(o_off) + replay._leaves(f_off),
                     replay._leaves(o_on) + replay._leaves(f_on)):
         assert torch.equal(a, b)
+
+
+def _op_counts(fn):
+    """fn(): how often each aten op ran."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts[str(func)] = counts.get(str(func), 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return counts
+
+
+def test_fusion_span_only_notes_while_a_capture_records(monkeypatch):
+    states, scans = _lanes(2)
+    scan = tree_map(lambda a: a[0], scans)
+    step = lambda: pipeline.step_core_batch(tree_map(torch.clone, states),
+                                            scan, CFG)
+    step()                      # fills the constant caches (`lie.const`)
+    off = _op_counts(step)
+    monkeypatch.setattr(spans, "_position", lambda name: (7, (), name))
+    spans.enable(True)
+    notes = []
+    with spans.recording(notes):
+        assert _ranges(step) == []
+        on = _op_counts(step)
+    assert on == off
+    names = [n for _, _, n in notes]
+    i = names.index("front_end")
+    # the Horizon's feature pass and its merge, each back to the front end
+    assert names[i:i + 6] == ["front_end", "fusion", "front_end", "fusion",
+                              "front_end", None]
+
+
+def test_fusion_counts_sum_the_calls_flags_and_stacks(monkeypatch):
+    # caps that bind, and the merge gate lowered so the hall's Horizon
+    # merges (as tests/test_torch_modes.py lowers it)
+    cfg = CFG.replace(
+        scan=dataclasses.replace(CFG.scan, max_corner=24, max_surf=96),
+        solver=dataclasses.replace(CFG.solver, corner_cnt_gate_hori=5))
+    built, real = [], pipeline._build_stacks
+
+    def spy(flat_pts, flat_rel, flat_labels, flat_valid, cfg, dtype):
+        out = real(flat_pts, flat_rel, flat_labels, flat_valid, cfg, dtype)
+        built.append((flat_pts, flat_labels, flat_valid, out[0]))
+        return out
+
+    monkeypatch.setattr(pipeline, "_build_stacks", spy)
+    states, scans = _lanes(2, cfg=cfg)
+    _, outs = replay.replay_batch(states, scans, cfg)
+    T, B = outs.hori_merged.shape
+    assert len(built) == T
+    want = dict(lane_scans=T * B, hori_merged=int(outs.hori_merged.sum()),
+                corner_kept=0, corner_dropped=0, surf_kept=0,
+                surf_dropped=0)
+    for pts, labels, valid, stack in built:
+        want["corner_kept"] += int(stack.corner_mask.sum())
+        want["surf_kept"] += int(stack.surf_mask.sum())
+        for b in range(B):
+            for cls, label, leaf, cap in (
+                    ("corner", 1, cfg.scan.filter_corner, cfg.scan.max_corner),
+                    ("surf", 2, cfg.scan.filter_surf, cfg.scan.max_surf)):
+                m = valid[b] & (labels[b] == label)
+                vox = torch.floor(pts[b][m] / leaf).to(torch.int32)
+                n = torch.unique(vox, dim=0).shape[0]
+                want[cls + "_dropped"] += max(n - cap, 0)
+    assert spans.fusion_counts() == want
+    assert spans.fusion_counts() == want        # read once, kept
+    assert want["hori_merged"] > 0
+    assert want["corner_dropped"] > 0 and want["surf_dropped"] > 0
 
 
 def _fake_chains(monkeypatch, graphs):
