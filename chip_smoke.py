@@ -7,9 +7,9 @@ Phases (any failure ends the run with a non-zero exit code):
 0. device check: a CUDA device is required; the card's name and power
    limit are printed as nvidia-smi reports them;
 1. build the hand-written CUDA kernels K1 (csrc/map_insert.cu), K2
-   (csrc/assoc.cu) and K3 (csrc/eigh.cu), and the IF-node helper
-   (csrc/branch.cu), with nvcc, one process per source, started
-   together;
+   (csrc/assoc.cu), K3 (csrc/eigh.cu) and K4 (csrc/lm_solve.cu), and the
+   IF-node helper (csrc/branch.cu), with nvcc, one process per source,
+   started together;
 1b. the kernels one call launches, from torch.profiler traces that are
    complete (they recorded every launch of ours the wrapper's counter
    saw), on a synthetic room at the main path's shapes: one
@@ -48,7 +48,8 @@ Phases (any failure ends the run with a non-zero exit code):
    captures the lockstep scan as a CUDA graph and replays it for the
    rest, `replay._ScanGraph`), every lane initialized,
    finite poses, ATE < 0.15 m per lane, surf-map occupancy in
-   (500, n_cells/4), K1 launched exactly 4*T times, K3 2*T, and K2 for
+   (500, n_cells/4), K1 launched exactly 4*T times, K3 2*T, K4 20*T (two
+   LM solves of ten iterations a scan), and K2 for
    every association call and every rescue (assoc.LAUNCHES == assoc.CALLS
    + assoc.RESCUE_LAUNCHES, RESCUE_LAUNCHES == CALLS > 0), each call and
    each launch serving all lanes (a replay adds the launches the kernel
@@ -56,7 +57,7 @@ Phases (any failure ends the run with a non-zero exit code):
    seconds and peak device memory;
    then a second, timed run (the cached graph) for scans/sec; one
    replayed scan under torch.profiler (`replayed_scan_trace`: K1 4, K2
-   12 and K3 2 launches by kernel name, the kernels a scan, the busy
+   12, K3 2 and K4 20 launches by kernel name, the kernels a scan, the busy
    share); then the eager loop (`replay._replay_eager`) on the same
    inputs, timed, launching our kernels as often as the graph; then B=16
    x T=8 (bench.py's batch) through the graph: finite poses, ATE < 0.15
@@ -181,6 +182,20 @@ Phases (any failure ends the run with a non-zero exit code):
    torch._linalg_eigh, and the bound (bytes and float64 operations, the
    sweeps this data needs); device time, rounds run and time a round on
    the B=4 Amm and both stress sets.
+17. K4 against its plain version (`ops.damped_solve.plain`, the same
+   algorithm, its products summed by torch) in float32 and in float64 at
+   the main path's shape, B=16 lanes of W=5 frames: 16 lane-windows of
+   phase 4's eager run whose float64 step is not 0, spread over the run,
+   and those with the trust radius binding; each lane alone bit-equal to
+   the plain float32 chain alone and to its lane of the batch; K4's
+   largest error against the float64 chain at most twice the float32
+   chain's plus `K4_FLOOR` of the largest entry, which is not 0, and no
+   lane's step 0 (logged: the batch's lanes bit-equal to the plain
+   chain's batch); times: device (a CUDA
+   graph of 100 launches), launch incl. host, the plain chain op by op
+   and in a CUDA graph (its device time), the bound (bytes and
+   operations) and the latency chain (15 W pivot steps, 2 (W - 1) block
+   products, 2 W - 1 matrix-vector products back), µs a chain step.
 
 15. the reference's flagship single-sequence drive
    (tests/test_flagship.py: `LIOConfig()`, seed 7, speed 0.8, z_amp 0.1,
@@ -213,14 +228,15 @@ ran the instances their geometry picks.  On the card a replay's launches
 are counted from the kernel nodes of its captured graph, by name
 (`ops/graph_kernels.py`), held at capture against the launches the
 wrappers issued; phase 4 also holds one replayed scan's trace against
-them, by instance.
+them, by instance, and the eager loop's launches of K1 to K4 against
+the graph's.
 
 Every phase starts with the graphs of the last freed
 (`replay.clear_graphs`).  Before the last line come a JSON object with a
 row for each kernel instance (K1's default, warp-a-position and group
-instances, K2's default, 4-, 8- and 16-a-lane and staged ones, K3): its
-launches in the replay phases that run it, its error and times on its
-phase 2, 5, 9 or 14 case ("ms" is the launch incl. host, "device_ms"
+instances, K2's default, 4-, 8- and 16-a-lane and staged ones, K3, K4):
+its launches in the replay phases that run it, its error and times on its
+phase 2, 5, 9, 14 or 17 case ("ms" is the launch incl. host, "device_ms"
 the kernel's own; a K2 or K3 case is one launch over phase 4's four
 lanes, "bound_ms" that launch's work), and the card's name and power
 limit; the last line is
@@ -251,7 +267,8 @@ FAITHFUL_ATE_MAX = 0.5
 # the K2 case whose time stands in the kernels line, and whose stages are
 # timed one by one against their plain cuts
 K2_TIMED_CASE = "surf persistent fresh bf16=1 scatter=0.01"
-KERNEL_SOURCES = ("map_insert.cu", "assoc.cu", "eigh.cu", "branch.cu")
+KERNEL_SOURCES = ("map_insert.cu", "assoc.cu", "eigh.cu", "lm_solve.cu",
+                  "branch.cu")
 ONE_LANE_T = 40               # phase 15: tests/test_flagship.py's scans
 STREET_T = 500                # phase 16: scripts/street_drive.py's scans
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -683,12 +700,13 @@ def hold_to_golden(label, run, outs, final, scans, gts, n=None):
 
 
 def _reset_counts():
-    """Every launch and call counter of K1, K2 and K3 to 0."""
-    from mmloam_tpu_torch.ops import assoc, eigh, map_insert
+    """Every launch and call counter of K1 to K4 to 0."""
+    from mmloam_tpu_torch.ops import assoc, damped_solve, eigh, map_insert
 
     map_insert.reset_counts()
     assoc.reset_counts()
     eigh.reset_counts()
+    damped_solve.reset_counts()
 
 
 def _instance_counts():
@@ -789,31 +807,39 @@ def fresh_states(cfg, B, dev):
 
 def eager_run(states, scans, cfg):
     """`replay._replay_eager` (the lockstep loop op by op, no graph) with
-    the Amm and A* that `solver.marginalize` hands K3 in the last scan:
-    (final state, outputs, [Amm (B, 15, 15), A* (B, 15, 15)])."""
+    the Amm and A* that `solver.marginalize` hands K3 in the last scan and
+    the inputs of every damped solve K4 runs: (final state, outputs,
+    {"eigh": [Amm (B, 15, 15), A* (B, 15, 15)], "damped": [(diag, up, b,
+    lam, radius)] * (LM iterations in all)})."""
     from mmloam_tpu_torch import replay
+    from mmloam_tpu_torch.estimator import solver
     from mmloam_tpu_torch.ops import eigh
 
-    seen = []
-    solve = eigh.eigh
+    seen = dict(eigh=[], damped=[])
+    solve, damped = eigh.eigh, solver._damped_solve
 
     def spy(As):
-        seen[:] = (seen + [As.clone()])[-2:]
+        seen["eigh"] = (seen["eigh"] + [As.clone()])[-2:]
         return solve(As)
 
-    eigh.eigh = spy
+    def damped_spy(*args):
+        seen["damped"].append(tuple(a.clone() for a in args))
+        return damped(*args)
+
+    eigh.eigh, solver._damped_solve = spy, damped_spy
     try:
         st, outs = replay._replay_eager(states, scans, cfg)
     finally:
-        eigh.eigh = solve
+        eigh.eigh, solver._damped_solve = solve, damped
     return st, outs, seen
 
 
 def _counts():
-    from mmloam_tpu_torch.ops import assoc, eigh, map_insert
+    from mmloam_tpu_torch.ops import assoc, damped_solve, eigh, map_insert
 
     return dict(k1=map_insert.LAUNCHES, k2=assoc.LAUNCHES,
-                k2_calls=assoc.CALLS, k3=eigh.LAUNCHES)
+                k2_calls=assoc.CALLS, k3=eigh.LAUNCHES,
+                k4=damped_solve.LAUNCHES)
 
 
 def replayed_scan_trace(scan, tries=3, strict=True):
@@ -864,7 +890,7 @@ def replayed_scan_trace(scan, tries=3, strict=True):
         log(f"  {msg}; the trace is not used")
         return None
     ours = {k: sum(n for key, n in want.items() if key[0] == k)
-            for k in ("k1", "k2", "k3")}
+            for k in ("k1", "k2", "k3", "k4")}
     if (ours["k1"], ours["k3"]) != (4, 2):
         raise AssertionError(f"a replayed scan launched {ours}")
     busy_us = sum(us for _, us in kernels.values())
@@ -966,11 +992,15 @@ def check_flagship(dev):
     if not np.isfinite(pose).all():
         raise AssertionError("non-finite poses")
     golden = hold_to_golden("replay_batch", "batch", outs, st, scans, gts)
-    if launches != 4 * T or graph_counts["k3"] != 2 * T:
+    k4_per_scan = cfg.solver.max_outer_iters * cfg.solver.max_inner_iters
+    if launches != 4 * T or graph_counts["k3"] != 2 * T \
+            or graph_counts["k4"] != k4_per_scan * T:
         raise AssertionError(f"K1 launched {launches} times, K3 "
-                             f"{graph_counts['k3']}: want {4 * T}, {2 * T}")
+                             f"{graph_counts['k3']}, K4 {graph_counts['k4']}"
+                             f": want {4 * T}, {2 * T}, {k4_per_scan * T}")
     log(f"  replay_batch B={B} T={T}: K1 launches {launches}, K3 "
-        f"{graph_counts['k3']}, first run {first_secs:.1f} s (capture and "
+        f"{graph_counts['k3']}, K4 {graph_counts['k4']}, first run "
+        f"{first_secs:.1f} s (capture and "
         f"instantiation {capture_s[0]:.2f} s), peak device memory "
         f"{peak_first / 2 ** 30:.3f} GiB")
 
@@ -997,6 +1027,10 @@ def check_flagship(dev):
         raise AssertionError(f"a replayed scan launched K2 "
                              f"{trace['ours']['k2']} times, the run "
                              f"{k2_launches / T:g} a scan")
+    if trace["ours"]["k4"] != k4_per_scan:
+        raise AssertionError(f"a replayed scan launched K4 "
+                             f"{trace['ours']['k4']} times, want "
+                             f"{k4_per_scan}")
 
     replay.clear_graphs()
     torch.cuda.empty_cache()
@@ -1019,7 +1053,8 @@ def check_flagship(dev):
     states = scans = eager_outs = None
     wide = check_wide_batch(dev, cfg, k2_launches / T)
     return dict(B=B, T=T, launches=launches, k2_launches=k2_launches,
-                k3_launches=graph_counts["k3"], instances=instances,
+                k3_launches=graph_counts["k3"],
+                k4_launches=graph_counts["k4"], instances=instances,
                 first_secs=first_secs, capture_s=capture_s,
                 timed_secs=secs, scans_per_sec=rate,
                 eager_secs=eager_secs, eager_scans_per_sec=B * T / eager_secs,
@@ -1327,7 +1362,7 @@ def check_eigh(dev, marg):
     call), and the bound."""
     from mmloam_tpu_torch.ops import eigh
 
-    cases = {"flagship Amm": marg[0], "flagship A*": marg[1],
+    cases = {"flagship Amm": marg["eigh"][0], "flagship A*": marg["eigh"][1],
              "stress": eigh_stress(dev),
              f"stress B={WIDE_B}": eigh_stress(dev, B=WIDE_B, seed=12)}
     res, worst = {}, 0.0
@@ -1388,6 +1423,157 @@ def check_eigh(dev, marg):
         f"{nbytes} B, {ops:.3g} float64 operations)")
     res["timing"] = timing
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 17: K4 against its plain versions
+# --------------------------------------------------------------------------
+
+# K4's error floor against the float64 chain, a share of the case's
+# largest step entry (a few float32 roundings of it)
+K4_FLOOR = 2.0 ** -21
+
+
+def damped_work(B, W):
+    """Bytes and float32 operations of K4 over B lanes of W frames: diag,
+    up, b, lam and radius read once, dx written once; the scaling (two
+    products a block entry, one a right-hand entry), W Gauss-Jordan
+    inverses (15 pivot steps over the 15 x 30 rows: a division a column,
+    a product and a difference an entry), W - 1 pairs of 15 x 15 block
+    products and the forward right-hand product, 2 W - 1 matrix-vector
+    products back, the step's scale and norm."""
+    n, n2 = 15, 225
+    nbytes = 4 * B * ((2 * W - 1) * n2 + 2 * W * n + 2)
+    per_lane = (2 * W * n2 + 2 * (W - 1) * n2 + W * n
+                + W * n * (2 * n + 2 * n * 2 * n)
+                + (W - 1) * (2 * 2 * n * n2 + 2 * n2)
+                + (2 * W - 1) * 2 * n2 + 4 * W * n)
+    return nbytes, float(B * per_lane)
+
+
+def damped_errors(args):
+    """K4's and the plain float32 chain's largest error against the
+    plain chain in float64 on `args`, the largest entry of the float64
+    step, and the lanes whose float64 step is 0 everywhere."""
+    from mmloam_tpu_torch.ops import damped_solve
+
+    k4 = damped_solve.damped_solve(*args)
+    p32 = damped_solve.plain(*args)
+    p64 = damped_solve.plain(*(a.double() for a in args))
+    torch.cuda.synchronize()
+    err = lambda a: float((a.double() - p64).abs().max())
+    zero = int((p64 == 0).flatten(1).all(dim=1).sum())
+    return err(k4), err(p32), float(p64.abs().max()), zero
+
+
+def damped_lanes(damped, n):
+    """`n` lane-windows of the damped solves `damped` (diag, up, b, lam,
+    radius), spread evenly over those whose float64 step has an entry
+    other than 0 (a lane that has converged, or whose dims are all
+    frozen, has none), as one batch of n lanes."""
+    from mmloam_tpu_torch.ops import damped_solve
+
+    cols = [torch.cat(col) for col in zip(*damped)]
+    p64 = damped_solve.plain(*(a.double() for a in cols))
+    live = torch.nonzero((p64 != 0).flatten(1).any(dim=1)).flatten()
+    if live.numel() < n:
+        raise AssertionError(f"phase 17: {live.numel()} lane-windows of "
+                             f"phase 4's eager run take a step, want {n}")
+    pick = live[torch.linspace(0, live.numel() - 1, n).round().long()]
+    return tuple(a[pick].contiguous() for a in cols), int(live.numel()), \
+        len(cols[0])
+
+
+def check_damped_solve(dev, damped):
+    """Phase 17: K4 against its plain version in float32 and float64 on
+    16 lane-windows of phase 4's eager run whose float64 step is not 0
+    (`damped_lanes`), as one batch of 16 lanes (the main path's B), the
+    radius as recorded and binding (a quarter of each lane's free step):
+    each lane alone bit-equal to the plain float32 chain alone (the
+    one-lane path's chain, whose orders K4 keeps) and to its lane of the
+    batch; the batch against the float64 chain within twice the float32
+    batch's error plus `K4_FLOOR` of the largest entry, no case's step 0.
+    Times on the recorded case: device (a CUDA graph of 100 launches),
+    launch incl. host, the plain chain op by op and in a graph, the bound
+    and the latency chain."""
+    from mmloam_tpu_torch.ops import damped_solve
+
+    args, n_live, n_all = damped_lanes(damped, WIDE_B)
+    B, W = args[0].shape[:2]
+    log(f"  {n_live} of phase 4's {n_all} lane-windows take a step; {B} "
+        "of them, spread evenly")
+    free = damped_solve.plain(*args[:4], torch.full_like(args[4], 1e30))
+    nrm = torch.sqrt((free * free).sum(dim=(-2, -1)))
+    cases = {"flagship": args, "flagship radius binds":
+             args[:4] + (0.25 * nrm,)}
+    bits = lambda a: a.contiguous().view(torch.int32)
+    res = {}
+    for name, a in cases.items():
+        k4, p32, top, zero = damped_errors(a)
+        batch = damped_solve.damped_solve(*a)
+        plain_batch = damped_solve.plain(*a)
+        lanes = [tuple(t[i:i + 1] for t in a) for i in range(B)]
+        alone = [damped_solve.damped_solve(*x) for x in lanes]
+        as_batch = all(torch.equal(bits(x[0]), bits(batch[i]))
+                       for i, x in enumerate(alone))
+        as_plain = sum(torch.equal(bits(x), bits(damped_solve.plain(*lane)))
+                       for x, lane in zip(alone, lanes))
+        plain_b = sum(torch.equal(bits(batch[i]), bits(plain_batch[i]))
+                      for i in range(B))
+        res[name] = dict(B=B, W=W, max_abs_err=k4, plain_f32_err=p32,
+                         largest=top, zero_steps=zero,
+                         lanes_alone_bit_equal=as_batch,
+                         alone_bit_equal_plain=as_plain,
+                         batch_bit_equal_plain=plain_b)
+        log(f"  {name} (B={B}, W={W}): against the float64 chain K4 "
+            f"{k4:.3g}, the float32 chain {p32:.3g} (largest entry "
+            f"{top:.3g}, {zero} steps 0); lanes alone bit-equal to the "
+            f"batch: {as_batch}, to the plain chain alone: {as_plain}/{B}; "
+            f"the batch's lanes bit-equal to the plain chain's batch: "
+            f"{plain_b}/{B}")
+        if not (top > 0 and zero == 0 and as_batch and as_plain == B
+                and k4 <= 2.0 * p32 + K4_FLOOR * top):
+            raise AssertionError(f"phase 17 {name}: K4 outside its bounds")
+    nbytes, ops = damped_work(B, W)
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    chain = 15 * W + 2 * (W - 1) + 2 * W - 1
+    device = graph_ms(lambda: damped_solve.damped_solve(*args))
+    timing = dict(
+        B=B, W=W, max_abs_err=res["flagship"]["max_abs_err"],
+        device_ms=device, ms=cuda_ms(lambda: damped_solve.damped_solve(
+            *args)),
+        plain_ms=cuda_ms(lambda: damped_solve.plain(*args), reps=5),
+        plain_device_ms=graph_ms(lambda: damped_solve.plain(*args), reps=10),
+        bytes=nbytes, f32_ops=ops, bound_ms=max(tb, to),
+        bound_by="bytes" if tb >= to else "operations", chain_steps=chain,
+        us_per_chain_step=device * 1e3 / chain)
+    log(f"  flagship (B={B}, one launch): device {device * 1e3:.2f} us "
+        f"(graph of 100), launch incl. host {timing['ms'] * 1e3:.1f} us, "
+        f"plain chain {timing['plain_ms'] * 1e3:.1f} us op by op, "
+        f"{timing['plain_device_ms'] * 1e3:.1f} us in a graph; bound "
+        f"{timing['bound_ms'] * 1e3:.4f} us ({timing['bound_by']}: {nbytes} "
+        f"B, {ops:.3g} operations); latency chain {chain} steps, "
+        f"{timing['us_per_chain_step']:.3f} us a step")
+    res["timing"] = timing
+    return res
+
+
+def damped_row(flag, k4):
+    """K4's row of the kernels line: its launches in phase 4's runs, its
+    error and times from phase 17."""
+    t = k4["timing"]
+    if flag["k4_launches"] == 0:
+        raise AssertionError("K4 launched no time in phase 4")
+    return {"name": "lm_damped_solve", "route": "cuda",
+            "source": "mmloam_tpu_torch/csrc/lm_solve.cu",
+            "replaces": "mmloam_tpu/estimator/solver.py:_damped_solve",
+            "instance": "default", "launches": flag["k4_launches"],
+            "paths": ["phase 4"], "max_abs_err": t["max_abs_err"],
+            "case": "flagship", "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "plain_device_ms": t["plain_device_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "lanes": t["B"]}
 
 
 # --------------------------------------------------------------------------
@@ -3115,11 +3301,12 @@ def main():
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from mmloam_tpu_torch import branch, cuda_build, replay
-    from mmloam_tpu_torch.ops import assoc, eigh, map_insert
+    from mmloam_tpu_torch.ops import assoc, damped_solve, eigh, map_insert
 
     binds = {"map_insert.cu": map_insert._bind, "assoc.cu": assoc._bind,
-             "eigh.cu": eigh._bind, "branch.cu": branch._bind}
-    phase("phase 1: build K1, K2, K3 and the IF-node helper")
+             "eigh.cu": eigh._bind, "lm_solve.cu": damped_solve._bind,
+             "branch.cu": branch._bind}
+    phase("phase 1: build K1 to K4 and the IF-node helper")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
         futs = {src: ex.submit(cuda_build.build, src)
@@ -3188,6 +3375,10 @@ def main():
     phase("phase 14: K3 against its plain versions")
     eig = check_eigh(dev, marg)
 
+    phase("phase 17: K4 against its plain versions at the main path's "
+          "shape")
+    k4 = check_damped_solve(dev, marg["damped"])
+
     phase("phase 15: the flagship single-sequence drive through replay "
           "(the one-lane step, IF nodes in the graph)")
     one_lane = check_one_lane(dev)
@@ -3202,14 +3393,14 @@ def main():
         {"phase 4": flag["instances"], "phase 10": pack_replay["instances"],
          "phase 12": wide["instances"], "phase 15": one_lane["instances"],
          "phase 16": street["instances"]}
-    ) + [eigh_row(flag, eig, one_lane, street)]}
+    ) + [eigh_row(flag, eig, one_lane, street), damped_row(flag, k4)]}
     os.makedirs(os.path.join(ROOT, "chip_smoke_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chip_smoke_out", "chip_smoke.json"),
               "w") as f:
         json.dump(dict(card=card, traces=traces, k1=k1_timing, k2=k2_timing,
                        flagship=flag, faithful=faithful, recorded=recorded,
                        modes=modes, packs=packs, pack_replay=pack_replay,
-                       split=split, wide=wide, lanes=lanes, eigh=eig,
+                       split=split, wide=wide, lanes=lanes, eigh=eig, k4=k4,
                        if_nodes=if_nodes, one_lane=one_lane, street=street),
                   f, indent=1)
     print(json.dumps(kernels))

@@ -4,7 +4,8 @@
 The window's normal equations are block-tridiagonal (point factors bind
 single frames, IMU pairs bind (j-1, j), the prior binds frame 0) and are
 solved exactly by block-Thomas with pivot-free 15x15 Gauss-Jordan
-inverses.  Every function takes a leading lane axis B (x (B, W, 15)), as
+inverses (`ops.damped_solve`: kernel K4 on the card, the plain chain on
+the CPU).  Every function takes a leading lane axis B (x (B, W, 15)), as
 the reference's `vmap` runs it: `lm_solve`'s `while_loop` becomes a loop
 of a fixed cap (the largest lane's) with a done flag per lane, a lane that
 has stopped keeping its carry, so each lane gets the iterates it would get
@@ -19,6 +20,7 @@ import torch
 
 from .. import branch
 from ..ops import eigh
+from ..ops.damped_solve import damped_solve as _damped_solve
 from . import factors, reduced
 
 
@@ -96,69 +98,6 @@ def _assemble_blocks(x, H6, b6, H30, b30, Hp, bp, frame_valid):
     up = up * (fv[..., :-1] * fv[..., 1:])[..., None, None]
     b = b * fv[..., None]
     return diag, up, b
-
-
-def _gj_inv15(A):
-    """Inverse by pivot-free Gauss-Jordan (safe: every matrix inverted is a
-    Schur complement of the SPD damped system); batched over leading dims."""
-    n = A.shape[-1]
-    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
-    aug = torch.cat([A, eye], dim=-1)
-    for k in range(n):
-        row = aug[..., k:k + 1, :]
-        piv = row / row[..., k:k + 1]
-        aug = aug - aug[..., :, k:k + 1] * piv
-        aug[..., k:k + 1, :] = piv
-    return aug[..., :, n:]
-
-
-def _block_thomas(diag, up, b):
-    """Exact solve of the symmetric block-tridiagonal system."""
-    W = diag.shape[-3]
-    mv = factors._mv
-    T = lambda a: a.transpose(-1, -2)
-    Dinv = [None] * W
-    y = [None] * W
-    Dinv[0] = _gj_inv15(diag[..., 0, :, :])
-    y[0] = b[..., 0, :]
-    for i in range(1, W):
-        U = up[..., i - 1, :, :]
-        L = T(U) @ Dinv[i - 1]
-        Dinv[i] = _gj_inv15(diag[..., i, :, :] - L @ U)
-        y[i] = b[..., i, :] - mv(L, y[i - 1])
-    x = [None] * W
-    x[W - 1] = mv(Dinv[W - 1], y[W - 1])
-    for i in range(W - 2, -1, -1):
-        x[i] = mv(Dinv[i], y[i] - mv(up[..., i, :, :], x[i + 1]))
-    return torch.stack(x, dim=-2)
-
-
-def _damped_solve(diag, up, b, lam, radius):
-    """Solve (H + lam*diag(H)) dx = -b with per-group Jacobi scaling,
-    unobservable dims frozen and the step capped at `radius` (lam and
-    radius one per lane)."""
-    dtype, dev = diag.dtype, diag.device
-    d15 = torch.diagonal(diag, dim1=-2, dim2=-1)            # (B,W,15)
-    # per state-component group (P phi V bg ba), floored at 0 like the
-    # reference's zeros.at[groups].max
-    gmax = torch.clamp(torch.amax(d15, dim=-2).unflatten(-1, (5, 3))
-                       .amax(dim=-1), min=0.0)
-    d_floor15 = (1e-6 * torch.clamp(gmax, min=1e-12)).repeat_interleave(
-        3, dim=-1)[..., None, :]
-    observable = d15 > d_floor15
-    s = torch.where(observable,
-                    1.0 / torch.sqrt(torch.maximum(d15, d_floor15)),
-                    torch.zeros_like(d15))
-    diag_s = diag * s[..., :, :, None] * s[..., :, None, :]
-    up_s = up * s[..., :-1, :, None] * s[..., 1:, None, :]
-    dd = (lam + 1e-5)[..., None, None] + torch.where(
-        observable, torch.zeros_like(d15), torch.ones_like(d15))
-    A_diag = diag_s + dd[..., None] * torch.eye(15, dtype=dtype, device=dev)
-    dx = s * _block_thomas(A_diag, up_s, -(b * s))
-    dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
-    nrm = torch.sqrt(torch.sum(dx * dx, dim=(-2, -1)))
-    scale = torch.clamp(radius / torch.clamp(nrm, min=1e-12), max=1.0)
-    return dx * scale[..., None, None]
 
 
 class SolveResult(NamedTuple):

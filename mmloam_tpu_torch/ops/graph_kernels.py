@@ -1,7 +1,7 @@
 """Our kernels among the kernel nodes of a captured CUDA graph.
 
 A replay of a CUDA graph launches every kernel node the graph holds, and
-nothing else.  So the launches of K1, K2 and K3 that one replay issues
+nothing else.  So the launches of K1 to K4 that one replay issues
 are read from the captured graph itself (`launches`): its kernel nodes,
 walked through libcuda (`cuGraphGetNodes`,
 `cuGraphKernelNodeGetParams`), each named by its function
@@ -20,7 +20,7 @@ import ctypes
 import functools
 import re
 
-from . import assoc, eigh, map_insert
+from . import assoc, damped_solve, eigh, map_insert
 
 _NODE_KERNEL = 0                      # CUgraphNodeType of a kernel node
 UNNAMED = "?"
@@ -31,8 +31,8 @@ _K2 = re.compile(r"assoc_kernel(?:ILi|<)(\d+)(?:ELi|, )(\d+)"
 
 def launch_key(name):
     """(kernel, instance, rescue) of one of our kernels, by its function
-    name, mangled or demangled, as its wrapper counts it ("k1", "k2" or
-    "k3"; the instance of the module's INSTANCES; whether it is a K2
+    name, mangled or demangled, as its wrapper counts it ("k1" to "k4";
+    the instance of the module's INSTANCES; whether it is a K2
     rescue launch); None for any other kernel."""
     if "map_insert_groups" in name:
         return ("k1", "groups", False)
@@ -50,6 +50,8 @@ def launch_key(name):
         return ("k2", inst, stage == assoc.RESCUE)
     if "eigh_kernel" in name:
         return ("k3", "default", False)
+    if "lm_damped_solve_kernel" in name:
+        return ("k4", "default", False)
     return None
 
 
@@ -200,5 +202,7 @@ def count(keyed, times=1):
         elif kernel == "k2":
             assoc._count(inst, times=n * times, LAUNCHES=1,
                          RESCUE_LAUNCHES=int(rescue))
-        else:
+        elif kernel == "k3":
             eigh._count(times=n * times)
+        else:
+            damped_solve._count(times=n * times)

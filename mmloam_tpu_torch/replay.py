@@ -465,7 +465,8 @@ class _ScanGraph:
     (`graph_kernels.launches`) and held against the launches the wrappers
     noted there.  `count(times, runs)`, once a call, adds the top-level
     launches and plays the top-level call counts `times` over (the call's
-    replays), and each body's `runs[i]` over.  `flag_history` (T, IF
+    replays), and each body's `runs[i]` over, and notes the call's
+    launches by kernel (`spans.note_launches`).  `flag_history` (T, IF
     nodes) int32 on the card: each node's predicate at each scan of the
     last call (None without IF nodes).
 
@@ -569,9 +570,13 @@ class _ScanGraph:
     def count(self, times, runs=None):
         """Add the launches and call counts of `times` replays, in which
         IF node i's body ran `runs[i]` times."""
-        graph_kernels.count(self.launches, times=times)
-        for keyed, n in zip(self.body_launches, runs or ()):
+        by_kernel = dict.fromkeys(("k1", "k2", "k3", "k4"), 0)
+        for keyed, n in ((self.launches, times),
+                         *zip(self.body_launches, runs or ())):
             graph_kernels.count(keyed, times=n)
+            for (kernel, _, _), m in keyed.items():
+                by_kernel[kernel] += m * n
+        spans.note_launches(times, by_kernel)
         launch_tape.play(self.tape, times=times, runs=runs)
 
 

@@ -36,6 +36,9 @@ predicate sums the replay loop reads anyway.  And so are the last
 call's fusion counts (`fusion_counts()`): its lane-scans, those whose
 Horizon sweep was merged, and the downsampled points the stack caps kept
 and dropped, summed from the outputs the call returned only when asked.
+And so are the last calls' launches of our kernels (`call_launches()`),
+as their graphs' kernel nodes and the IF bodies that ran count them: what
+a trace of such a call has to show.
 """
 
 from __future__ import annotations
@@ -64,12 +67,17 @@ _GATES = None            # lockstep replays, and those that ran each gate
 _GATES_LOCK = threading.Lock()
 _FUSION = None           # the last call's outputs and caps, or its counts
 _FUSION_LOCK = threading.Lock()
+_CALLS = collections.deque(maxlen=8)   # the last calls' graph launches
+_CALLS_LOCK = threading.Lock()
 
 # CUgraphNodeType: what a trace shows as a device operation, the IF node,
 # and the nodes that run nothing on the device
 _KERNEL, _MEMCPY, _MEMSET, _CONDITIONAL = 0, 1, 2, 13
 _KINDS = {_KERNEL: "kernel", _MEMCPY: "memcpy", _MEMSET: "memset"}
 _SILENT = (3, 5, 6, 7, 10, 11)   # host, empty, event wait/record, alloc/free
+# the kernels of ours a layer's trace is held to by name (K4 is laid as
+# any other kernel of its span)
+_NAMED = ("k1", "k2", "k3")
 
 
 def enable(on=True):
@@ -174,7 +182,8 @@ def node_layers(graphs, parents, notes):
     Returns one list a graph, of (kind, layer, ours) for each node a trace
     shows as a device operation ("kernel", "memcpy" or "memset"; the
     innermost span's layer, None outside every span; "k1", "k2", "k3" for
-    a kernel of ours, else None) and ("if", i, None) where IF node i sits
+    K1, K2, K3, else None, K4 included: a trace's reader names K1-K3
+    only) and ("if", i, None) where IF node i sits
     (its body's operations run there where its predicate held).  A body's
     nodes outside its own spans take the layer of its IF node.  Raises
     ValueError where a graph is not a chain, a note does not sit on one,
@@ -214,7 +223,8 @@ def node_layers(graphs, parents, notes):
             if kind in _KINDS:
                 key = None if fname is None else graph_kernels.launch_key(
                     fname)
-                ops.append((_KINDS[kind], cur, key and key[0]))
+                ours = key[0] if key and key[0] in _NAMED else None
+                ops.append((_KINDS[kind], cur, ours))
             elif kind == _CONDITIONAL:
                 i = next(kids, None)
                 if i is None:
@@ -353,6 +363,21 @@ def gate_counts():
     attempting).  None before a lockstep graph has replayed."""
     with _GATES_LOCK:
         return None if _GATES is None else dict(_GATES)
+
+
+def note_launches(replays, launches):
+    """Keep a call's `replays` of its scan graph and the launches of our
+    kernels they made, by kernel ("k1" to "k4")."""
+    with _CALLS_LOCK:
+        _CALLS.append(dict(launches, scans=replays))
+
+
+def call_launches():
+    """The last calls' (at most 8, the oldest first) graph replays
+    (`scans`) and launches of our kernels by kernel, as the graphs'
+    kernel nodes and the IF bodies that ran count them."""
+    with _CALLS_LOCK:
+        return [dict(c) for c in _CALLS]
 
 
 def note_fusion(outs, cfg):

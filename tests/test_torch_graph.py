@@ -11,8 +11,9 @@ need a card.  The graph itself runs on the card only
   noted; a runner's replays (the graph's launches, `graph_kernels.count`,
   and the noted call counts) leave the counters where the eager loop's
   launches put them;
-* `graph_kernels.launch_key` keys our kernels by libcuda's mangled
-  names and by the profiler's demangled ones, as the wrappers count them;
+* `graph_kernels.launch_key` keys our kernels (K1 to K4) by libcuda's
+  mangled names and by the profiler's demangled ones, as the wrappers
+  count them;
 * the cache: one graph a device, a new key replaces it and frees the old
   one, the same key reuses it (with a stand-in for the capture, which
   needs the card), and the runner's outputs are the eager loop's;
@@ -143,13 +144,18 @@ def test_launch_tape_records_its_thread_and_plays_back():
      ("k2", "regs4", False)),
     ("_ZN12_GLOBAL__N_111eigh_kernelEPKfPfS2_iiid",
      ("k3", "default", False)),
+    ("_ZN12_GLOBAL__N_122lm_damped_solve_kernelEPKfS1_S1_S1_S1_Pfi",
+     ("k4", "default", False)),
+    ("(anonymous namespace)::lm_damped_solve_kernel(float const*, float "
+     "const*, float const*, float const*, float const*, float*, int)",
+     ("k4", "default", False)),
     ("void at::native::vectorized_elementwise_kernel<4, float>(int)", None),
 ])
 def test_launch_key_reads_mangled_and_profiler_names(name, key):
     assert graph_kernels.launch_key(name) == key
     if key is not None:
         assert key[1] in {"k1": map_insert.INSTANCES, "k2": assoc.INSTANCES,
-                          "k3": ("default",)}[key[0]]
+                          "k3": ("default",), "k4": ("default",)}[key[0]]
 
 
 def test_cache_keeps_one_graph_a_device(monkeypatch):

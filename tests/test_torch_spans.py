@@ -15,6 +15,9 @@ On the CPU:
   occupied voxels past the caps);
 * the eager replay's outputs and final state are bit-equal with spans on
   and off, lockstep and one lane;
+* each call notes its graph's launches of our kernels
+  (`spans.call_launches()`), as its replays and the bodies that ran
+  count them;
 * `spans.node_layers` lays the notes a capture took on each graph's
   chain of nodes (a stand-in for libcuda's graph): the innermost span
   holds, a body's nodes take their IF node's layer, and what cannot be
@@ -23,7 +26,8 @@ On the CPU:
 On the card (marked `cuda`; this file imports torch only, so it runs
 with `--noconftest` there): the lockstep and one-lane graphs hold the same
 nodes with spans on and off; every device operation has its place in
-`node_layers` and K1/K2/K3 sit in their layers; the set-up's parts; the
+`node_layers` and K1-K4 sit in their layers (K4 not named there, as
+torch's kernels are not); the set-up's parts; the
 counters after a call; the loop's clocks.
 """
 
@@ -38,7 +42,8 @@ torch.set_num_threads(1)
 from mmloam_tpu_torch import pipeline, replay, spans  # noqa: E402
 from mmloam_tpu_torch.config import tiny_config  # noqa: E402
 from mmloam_tpu_torch.data import synthetic  # noqa: E402
-from mmloam_tpu_torch.ops import assoc, eigh, graph_kernels  # noqa: E402
+from mmloam_tpu_torch.ops import assoc, damped_solve, eigh  # noqa: E402
+from mmloam_tpu_torch.ops import graph_kernels  # noqa: E402
 from mmloam_tpu_torch.ops import map_insert  # noqa: E402
 from mmloam_tpu_torch.tree import tree_map  # noqa: E402
 
@@ -196,6 +201,36 @@ def test_fusion_counts_sum_the_calls_flags_and_stacks(monkeypatch):
     assert want["corner_dropped"] > 0 and want["surf_dropped"] > 0
 
 
+def test_each_call_notes_its_graph_launches():
+    """`_ScanGraph.count`, once a call, notes the call's replays and the
+    launches of our kernels by kernel: the graph's top level `times` over,
+    each body as often as it ran; the last 8 calls are kept."""
+    import types
+
+    k3, k4 = ("k3", "default", False), ("k4", "default", False)
+    k2r = ("k2", "regs8", True)
+    runner = types.SimpleNamespace(launches={k4: 20, k3: 2, k2r: 1},
+                                   body_launches=[{k4: 5}, {k3: 1}],
+                                   tape=[])
+    before = (eigh.LAUNCHES, damped_solve.LAUNCHES)
+    try:
+        replay._ScanGraph.count(runner, 3, [2, 0])
+        assert spans.call_launches()[-1] == dict(scans=3, k1=0, k2=3, k3=6,
+                                                 k4=70)
+        assert (eigh.LAUNCHES - before[0],
+                damped_solve.LAUNCHES - before[1]) == (6, 70)
+        for t in range(10):
+            replay._ScanGraph.count(runner, t, [0, 1])
+        got = spans.call_launches()
+        assert len(got) == 8
+        assert got[-1] == dict(scans=9, k1=0, k2=9, k3=19, k4=180)
+        assert [c["scans"] for c in got] == list(range(2, 10))
+    finally:
+        eigh.reset_counts()
+        damped_solve.reset_counts()
+        assoc.reset_counts()
+
+
 def _fake_chains(monkeypatch, graphs):
     """graph_kernels.chain over {graph: [(node, type, name)]}."""
     monkeypatch.setattr(graph_kernels, "chain", lambda g: graphs[g])
@@ -284,7 +319,7 @@ def _call(one, dev):
 
 def _counts():
     return (map_insert.LAUNCHES, assoc.LAUNCHES, assoc.RESCUE_LAUNCHES,
-            assoc.CALLS, eigh.LAUNCHES)
+            assoc.CALLS, eigh.LAUNCHES, damped_solve.LAUNCHES)
 
 
 @pytest.mark.cuda
@@ -313,9 +348,11 @@ def test_spans_leave_the_graph_node_for_node_on_card(one):
         for (k, name), (kind, lay, ours) in zip(
                 [x for x in nodes if x[0] in kinds], ops):
             key = graph_kernels.launch_key(name) if k == 0 else None
-            assert ours == (key and key[0])
-            if ours is not None:
-                assert lay == HOME[ours], (ours, lay)
+            kernel = key and key[0]
+            # K4 is laid by its span alone, as torch's kernels are
+            assert ours == (kernel if kernel in HOME else None)
+            if kernel is not None:
+                assert lay == dict(HOME, k4="estimator")[kernel], (kernel, lay)
     laid = {lay for ops in layers for kind, lay, _ in ops if kind != "if"}
     assert set(spans.LEAVES) <= laid
     assert sorted(i for ops in layers for kind, i, _ in ops
@@ -350,14 +387,16 @@ def test_setup_parts_counters_and_clocks_on_card(one):
     runs = ([0] * len(runner.body_launches)
             if runner.flag_history is None
             else runner.flag_history.sum(dim=0).tolist())
-    want = dict(k1=0, k2=0, rescue=0, k3=0)
+    want = dict(k1=0, k2=0, rescue=0, k3=0, k4=0)
     for keyed, n in [(runner.launches, T)] + list(zip(runner.body_launches,
                                                       runs)):
         for (kernel, _, rescue), c in keyed.items():
             want[kernel] += c * n
             want["rescue"] += c * n * rescue
-    assert (got[0], got[1], got[2], got[4]) == (
-        want["k1"], want["k2"], want["rescue"], want["k3"])
+    assert (got[0], got[1], got[2], got[4], got[5]) == (
+        want["k1"], want["k2"], want["rescue"], want["k3"], want["k4"])
+    assert spans.call_launches()[-1] == dict(
+        scans=T, k1=want["k1"], k2=want["k2"], k3=want["k3"], k4=want["k4"])
     # the same as the loop op by op on the same inputs
     if one:
         states, scans = pipeline._lane(pipeline.init_state(CFG, device=dev)), \
